@@ -1,0 +1,19 @@
+"""AdHash core, PyTorch port (main path: ingest, plan, execute, answer).
+
+Modules (each the counterpart of the same name in ``repro.core``):
+  dictionary  string <-> id encoding (master, §3.1)
+  partition   subject-hash partitioning (§3.1)
+  placement   splitmix64 hash placement (owner = H(s) mod W)
+  stats       per-predicate global statistics + Chauvenet filter (§3.3, §5.1)
+  query       SPARQL BGP model
+  backend     device selection, probe wrappers, capacity classes
+  triples     worker storage: sorted P/PS/PO indexes (§3.2)
+  relalg      fixed-capacity relational primitives (expand/compact/bucket)
+  relation    fixed-capacity sharded intermediate results
+  ingest      streaming bootstrap (one-shot == chunked)
+  dsj         distributed semi-join stages (§4.1)
+  substrate   single-device substrate + host-sync chokepoints
+  planner     DP cost-based optimizer (§4.2, §4.3)
+  executor    locality-aware distributed execution (Algorithm 1)
+  engine      non-adaptive engine facade (§3.4, AdHash-NA)
+"""

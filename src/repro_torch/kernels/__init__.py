@@ -1,0 +1,49 @@
+"""Wrappers of the hand-written Hopper kernels (sources in ``../csrc``).
+
+One wrapper per kernel; each checks its tensors, allocates outputs and
+scratch with ``torch.empty`` on the card, launches on PyTorch's current
+stream and raises if the launch returned a CUDA error.  Each wrapper adds
+one to its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
+else, so a run can show that the main path went through the kernels.
+
+  kernel          wrapper                                   replaces (TPU)
+  range_search    semijoin.probe.range_search_cuda /        semijoin_probe
+                  span_search_cuda
+  expand          relalg_ops.expand.expand_cuda             expand_pallas
+  bucket_by_dest  relalg_ops.bucket.bucket_by_dest_cuda     bucket_by_dest_pallas
+  unique_compact  relalg_ops.compact.unique_compact_cuda    unique_compact_pallas
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "stream_ptr", "check_cuda"]
+
+#: launches per kernel since the last ``reset_launches()``
+LAUNCHES: dict[str, int] = {
+    "range_search": 0,
+    "expand": 0,
+    "bucket_by_dest": 0,
+    "unique_compact": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Every operand of a kernel is a CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(
+                f"{name}: every operand must be a CUDA tensor on {dev}, got "
+                f"one on {t.device}"
+            )
