@@ -19,8 +19,10 @@ Phases:
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run, warm qps and
-            per-template p50/p99, a warm chain query's host syncs, and two
-            queries per template held against a device="cpu" engine
+            per-template p50/p99, a warm chain query's host syncs, a
+            profiled warm pass per template (device busy time, idle share,
+            top kernels), and two queries per template held against a
+            device="cpu" engine
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
@@ -175,6 +177,18 @@ def phase_kernels(torch) -> dict[str, dict]:
            lambda: relalg.expand_plain(lo_t, hi_t, cap), None,
            2 * W * n * 4 + W * cap * 9 + W * 8,
            W * n + W * cap * math.ceil(math.log2(n)), True)
+    # the reply path's shape: 2^20 probe ranges per worker (8 senders x
+    # 2^17 values), most of them empty, into 2^18 lanes
+    n, cap = 1 << 20, 1 << 18
+    lo = rng.integers(0, 1 << 20, (W, n)).astype(np.int32)
+    hi = lo + np.where(rng.random((W, n)) < 0.12, 1, 0).astype(np.int32)
+    lo_t, hi_t = cuda(lo), cuda(hi)
+    err = check_expand(lo_t, hi_t, cap, "reply")
+    record("expand", "n=2^20 out_cap=2^18", err,
+           lambda: expand_cuda(lo_t, hi_t, cap),
+           lambda: relalg.expand_plain(lo_t, hi_t, cap), None,
+           2 * W * n * 4 + W * cap * 9 + W * 8,
+           W * n + W * cap * math.ceil(math.log2(n)), False)
 
     # ---- bucket_by_dest: n = 2^18 rows, 8 destinations, cap_peer = 2^15;
     # destination 0 takes ~30% of the rows (~63K valid > cap_peer)
@@ -227,6 +241,32 @@ def phase_kernels(torch) -> dict[str, dict]:
 
 
 # ------------------------------------------------------------------ phase 2
+def profile_pass(torch, eng, queries) -> dict:
+    """One warm pass of ``queries`` under torch.profiler: wall time, device
+    busy time (sum of kernel self times), the idle share of the wall, and
+    the kernels taking the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in queries:
+            eng.query(q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    self_us = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+    busy = sum(self_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=self_us, reverse=True)[:5]
+    return {"queries": len(queries), "wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "kernel_kinds": len(kernels),
+            "top": [{"kernel": e.key[:60], "ms": self_us(e) / 1e3,
+                     "calls": e.count} for e in top]}
+
+
 def phase_lubm(torch) -> dict[str, int]:
     from repro_torch.core.engine import AdHashEngine
     from repro_torch.core.substrate import trace_host_syncs
@@ -300,6 +340,13 @@ def phase_lubm(torch) -> dict[str, int]:
           "launches": launches,
           "warm_chain_counted_syncs": tr.host_transfers,
           "warm_chain_cuda_syncs": cuda_syncs})
+
+    # where the device time goes, per template (profiler on: wall times
+    # here include its overhead; the warm numbers above are without it)
+    for name in names:
+        emit({"phase": "lubm-profile", "template": name,
+              **profile_pass(torch, eng, [q for q in queries
+                                          if q.name == name])})
 
     # two queries per template against a CPU engine on the same triples
     cpu = AdHashEngine(triples, W, adaptive=False, device="cpu")

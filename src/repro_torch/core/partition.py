@@ -13,7 +13,7 @@ import numpy as np
 
 from .placement import splitmix64_np
 
-__all__ = ["hash_ids", "partition_by_subject"]
+__all__ = ["hash_ids"]
 
 
 def hash_ids(ids: np.ndarray, mix: bool = True) -> np.ndarray:
@@ -22,9 +22,3 @@ def hash_ids(ids: np.ndarray, mix: bool = True) -> np.ndarray:
     if not mix:
         return np.asarray(ids, dtype=np.int64)
     return splitmix64_np(ids)
-
-
-def partition_by_subject(triples: np.ndarray, w: int, mix: bool = True
-                         ) -> np.ndarray:
-    """Worker id per triple: H(subject) mod W (the AdHash default policy)."""
-    return (hash_ids(triples[:, 0], mix) % w).astype(np.int32)

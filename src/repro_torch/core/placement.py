@@ -79,10 +79,6 @@ class PlacementPolicy:
         """Worker id per (N, 3) triple row (ingest path)."""
         raise NotImplementedError
 
-    def owner_np(self, ids: np.ndarray) -> np.ndarray:
-        """Owner per vertex id."""
-        raise NotImplementedError
-
 
 class HashPlacement(PlacementPolicy):
     """owner(v) = splitmix64(v) mod W — the AdHash default."""
@@ -96,12 +92,6 @@ class HashPlacement(PlacementPolicy):
     def place_triples_np(self, triples: np.ndarray) -> np.ndarray:
         triples = np.asarray(triples)
         return (splitmix64_np(triples[:, 0]) % self.w).astype(np.int32)
-
-    def owner_np(self, ids: np.ndarray) -> np.ndarray:
-        return (splitmix64_np(ids) % self.w).astype(np.int32)
-
-    def fingerprint(self) -> tuple:
-        return ("hash", self.w)
 
 
 def resolve_placement(placement, n_workers: int) -> PlacementPolicy:

@@ -22,9 +22,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "INVALID",
     "I32MAX",
-    "I64MAX",
     "gather_rows_of",
     "select_cols",
     "expand",
@@ -37,10 +35,7 @@ __all__ = [
     "bucket_by_dest_plain",
 ]
 
-# Sentinel for padded/invalid id slots.  Ids are non-negative int32.
-INVALID = -1
 I32MAX = torch.iinfo(torch.int32).max
-I64MAX = torch.iinfo(torch.int64).max
 
 
 def gather_rows_of(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

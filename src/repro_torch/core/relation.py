@@ -23,26 +23,8 @@ class Relation:
     valid: torch.Tensor  # (W, cap) bool
     vars: tuple[Var, ...]  # variable bound by each column
 
-    @property
-    def n_workers(self) -> int:
-        return self.cols.shape[0]
-
-    @property
-    def capacity(self) -> int:
-        return self.cols.shape[1]
-
-    @property
-    def width(self) -> int:
-        return self.cols.shape[2]
-
     def col_of(self, v: Var) -> int:
         return self.vars.index(v)
-
-    def counts(self) -> torch.Tensor:
-        return self.valid.sum(dim=1)
-
-    def total(self) -> torch.Tensor:
-        return self.valid.sum()
 
     # ------------------------------------------------------------ host utils
     def to_numpy(self) -> np.ndarray:
@@ -58,14 +40,3 @@ class Relation:
         """Host-side projection in a requested variable order (tests)."""
         idx = [self.col_of(v) for v in var_order]
         return self.to_numpy()[:, idx]
-
-    @classmethod
-    def empty(cls, n_workers: int, cap: int, vars: tuple[Var, ...],
-              device: str | torch.device = "cuda") -> "Relation":
-        return cls(
-            cols=torch.full((n_workers, cap, len(vars)), -1, dtype=torch.int32,
-                            device=device),
-            valid=torch.zeros((n_workers, cap), dtype=torch.bool,
-                              device=device),
-            vars=vars,
-        )

@@ -31,7 +31,6 @@ class Substrate:
     module-level stages in dsj.py / triples.py."""
 
     name = "single"
-    n_devices = 1
 
     def check_workers(self, n_workers: int) -> None:
         """Validate that a worker count is placeable on this substrate."""
@@ -40,7 +39,6 @@ class Substrate:
 
     # -------------------------------------------------------------- stages
     match_ranges = staticmethod(match_ranges)
-    match_rows = staticmethod(dsj.match_rows)
     match_first = staticmethod(dsj.match_first)
     project_unique = staticmethod(dsj.project_unique)
     exchange_hash = staticmethod(dsj.exchange_hash)

@@ -43,10 +43,6 @@ class ShardedTripleStore:
         return self.spo_ps.shape[0]
 
     @property
-    def capacity(self) -> int:
-        return self.spo_ps.shape[1]
-
-    @property
     def device(self) -> torch.device:
         return self.keys_ps.device
 

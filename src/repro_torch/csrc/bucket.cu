@@ -13,9 +13,9 @@
 // is a stable counting sort in four launches:
 //  1. bucket_hist    per (worker, tile of 1024 rows): shared-memory
 //                    histogram of destinations (order-free, atomics fine).
-//  2. bucket_scan    per worker: exclusive scan of the tile histograms, in
-//                    tile order, per destination -> each tile's base slot;
-//                    the running sums are the counts.
+//  2. bucket_scan    per worker: block-wide exclusive scan of the tile
+//                    histograms, in tile order, one destination at a time
+//                    -> each tile's base slot; the totals are the counts.
 //  3. bucket_scatter per (worker, tile): stable rank inside the tile — a
 //                    warp groups its lanes by destination with
 //                    __match_any_sync and ranks each lane by the __popc of
@@ -55,16 +55,21 @@ __global__ void bucket_hist(const int32_t* __restrict__ dest,
 __global__ void bucket_scan(int32_t* __restrict__ tile_counts,
                             int32_t* __restrict__ counts, int n_dest,
                             int64_t n_tiles) {
+  __shared__ int32_t warp_sums[32];
   const int64_t w = blockIdx.x;
-  for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
-    int32_t run = 0;
-    for (int64_t t = 0; t < n_tiles; ++t) {
+  for (int d = 0; d < n_dest; ++d) {
+    int32_t carry = 0;
+    for (int64_t base = 0; base < n_tiles; base += blockDim.x) {
+      const int64_t t = base + threadIdx.x;
       int32_t* c = tile_counts + (w * n_tiles + t) * n_dest + d;
-      const int32_t v = *c;
-      *c = run;
-      run += v;
+      const int32_t v = t < n_tiles ? *c : 0;
+      int32_t base_total;
+      const int32_t inc =
+          adhash::block_inclusive_scan(v, warp_sums, &base_total);
+      if (t < n_tiles) *c = carry + inc - v;  // exclusive, in tile order
+      carry += base_total;
     }
-    counts[w * n_dest + d] = run;
+    if (threadIdx.x == 0) counts[w * n_dest + d] = carry;
   }
 }
 
@@ -151,8 +156,8 @@ extern "C" int adhash_bucket_by_dest(const void* values, const void* dest,
         (const int32_t*)dest, (const uint8_t*)valid, (int32_t*)tile_counts,
         n, n_dest, n_tiles);
   }
-  bucket_scan<<<w, 256, 0, s>>>((int32_t*)tile_counts, (int32_t*)counts,
-                                n_dest, n_tiles);
+  bucket_scan<<<w, 1024, 0, s>>>((int32_t*)tile_counts, (int32_t*)counts,
+                                 n_dest, n_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {

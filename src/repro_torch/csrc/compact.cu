@@ -19,16 +19,15 @@
 //    are sorted in shared memory, then each merge level k runs its strides
 //    j >= kTile as global compare-exchange launches and finishes the
 //    strides below kTile in shared memory.
-// Then one block per worker flags first occurrences (x != prev, x != pad),
-// block-scans the flags with a running carry, scatters survivors below
-// out_cap and pads the tail.
+// Then the first occurrences (x != prev, x != pad) are counted with the
+// card-wide tile scan of common.cuh; each tile writes its survivors below
+// out_cap, and a last launch pads every slot past n_unique.
 //
 // Bound on the card: at 2^18 elements a row, the global bitonic stages:
 // each launch reads and writes the whole (W, n_pad) buffer, log2(n_pad) -
 // log2(kTile) + 1 launches per merge level, O(n log^2 n) compare-exchanges
 // in all.  The shared-memory stages keep the short strides out of device
-// memory.  The compaction pass runs one block per worker (8 of 132 SMs at
-// W = 8); a radix sort with a decoupled scan is the fix for both.
+// memory; a radix sort is the known fix.
 #include "common.cuh"
 
 namespace {
@@ -125,41 +124,66 @@ __global__ void global_step(T* __restrict__ data, int64_t n_pad, int64_t k,
   row[i + j] = b;
 }
 
-// Flag first occurrences of the sorted row, scan, scatter below out_cap,
-// pad the tail, write n_unique.  One block per worker.
+// 1 where element i of worker w's sorted row is the first occurrence of a
+// valid value: the flag the compaction scans.
 template <typename T>
-__global__ void compact_sorted(const T* __restrict__ sorted,
-                               T* __restrict__ uniq,
-                               int64_t* __restrict__ n_unique, int64_t n_pad,
-                               int64_t out_cap, T pad) {
-  __shared__ int64_t warp_sums[32];
-  const int64_t w = blockIdx.x;
-  const T* row = sorted + w * n_pad;
-  int64_t carry = 0;
-  for (int64_t base = 0; base < n_pad; base += blockDim.x) {
-    const int64_t i = base + threadIdx.x;
-    int64_t f = 0;
-    T x = pad;
-    if (i < n_pad) {
-      x = row[i];
-      f = (x != pad) && (i == 0 || x != row[i - 1]);
-    }
-    int64_t tile_total;
-    const int64_t inc =
-        adhash::block_inclusive_scan(f, warp_sums, &tile_total) + carry;
-    const int64_t pos = inc - 1;
-    if (f && pos < out_cap) uniq[w * out_cap + pos] = x;
-    carry += tile_total;
+struct FirstOccurrence {
+  const T* sorted;
+  int64_t n_pad;
+  T pad;
+  __device__ int64_t operator()(int64_t w, int64_t i) const {
+    const T* row = sorted + w * n_pad;
+    const T x = row[i];
+    return x != pad && (i == 0 || x != row[i - 1]);
   }
-  for (int64_t j = carry + threadIdx.x; j < out_cap; j += blockDim.x)
-    uniq[w * out_cap + j] = pad;
-  if (threadIdx.x == 0) n_unique[w] = carry;
+};
+
+// Pass 3 of the tile scan: rescan one tile's flags, add the tile's base,
+// write its survivors that land below out_cap.
+template <typename T>
+__global__ void compact_tile(FirstOccurrence<T> f,
+                             const int64_t* __restrict__ base,
+                             int64_t n_tiles, T* __restrict__ uniq,
+                             int64_t out_cap) {
+  __shared__ int64_t warp_sums[32];
+  const int64_t w = blockIdx.y;
+  const int64_t t = blockIdx.x;
+  const int64_t first =
+      t * adhash::kScanTile + (int64_t)threadIdx.x * adhash::kScanItems;
+  int64_t flag[adhash::kScanItems];
+  int64_t cnt = 0;
+#pragma unroll
+  for (int k = 0; k < adhash::kScanItems; ++k) {
+    flag[k] = first + k < f.n_pad ? f(w, first + k) : 0;
+    cnt += flag[k];
+  }
+  int64_t tile_total;
+  int64_t pos = adhash::block_inclusive_scan(cnt, warp_sums, &tile_total) -
+                cnt + base[w * n_tiles + t];
+  const T* row = f.sorted + w * f.n_pad;
+#pragma unroll
+  for (int k = 0; k < adhash::kScanItems; ++k) {
+    if (flag[k]) {
+      if (pos < out_cap) uniq[w * out_cap + pos] = row[first + k];
+      ++pos;
+    }
+  }
+}
+
+// Pad every slot at or past the worker's unique count.
+template <typename T>
+__global__ void compact_pad(T* __restrict__ uniq,
+                            const int64_t* __restrict__ n_unique,
+                            int64_t out_cap, T pad) {
+  const int64_t w = blockIdx.y;
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < out_cap && j >= n_unique[w]) uniq[w * out_cap + j] = pad;
 }
 
 template <typename T>
-int launch(const void* values, const void* valid, void* scratch, void* uniq,
-           void* n_unique, int w, int64_t n, int64_t n_pad, int64_t out_cap,
-           T pad, void* stream) {
+int launch(const void* values, const void* valid, void* scratch,
+           void* tile_sums, void* uniq, void* n_unique, int w, int64_t n,
+           int64_t n_pad, int64_t out_cap, T pad, void* stream) {
   if (w == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   T* buf = (T*)scratch;  // (W, n_pad)
@@ -185,35 +209,47 @@ int launch(const void* values, const void* valid, void* scratch, void* uniq,
       tile_bitonic<T><<<tgrid, kThreads, 0, s>>>(buf, n_pad, k, k);
     }
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  compact_sorted<T><<<w, kThreads, 0, s>>>(buf, (T*)uniq,
-                                           (int64_t*)n_unique, n_pad,
-                                           out_cap, pad);
+  const FirstOccurrence<T> f{buf, n_pad, pad};
+  const int64_t n_tiles = adhash::scan_tiles(n_pad);
+  int64_t* sums = (int64_t*)tile_sums;
+  dim3 tgrid((unsigned)n_tiles, (unsigned)w);
+  adhash::tile_sums<<<tgrid, adhash::kScanThreads, 0, s>>>(f, n_pad, n_tiles,
+                                                           sums);
+  adhash::scan_tile_sums<<<w, adhash::kScanThreads, 0, s>>>(
+      sums, n_tiles, (int64_t*)n_unique);
+  compact_tile<T><<<tgrid, adhash::kScanThreads, 0, s>>>(f, sums, n_tiles,
+                                                         (T*)uniq, out_cap);
+  if (out_cap > 0) {
+    dim3 pgrid((unsigned)((out_cap + 255) / 256), (unsigned)w);
+    compact_pad<T><<<pgrid, 256, 0, s>>>((T*)uniq,
+                                         (const int64_t*)n_unique, out_cap,
+                                         pad);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // values: (W, n) int32|int64; valid: (W, n) bool; scratch: (W, n_pad) of
-// the value type, n_pad a power of two >= max(n, 2); uniq: (W, out_cap);
-// n_unique: (W,) int64.
+// the value type, n_pad a power of two >= max(n, 2); tile_sums:
+// (W, ceil(n_pad / 8192)) int64 scratch; uniq: (W, out_cap); n_unique:
+// (W,) int64.
 extern "C" int adhash_unique_compact_i32(const void* values,
                                          const void* valid, void* scratch,
-                                         void* uniq, void* n_unique, int w,
-                                         int64_t n, int64_t n_pad,
-                                         int64_t out_cap, int32_t pad,
-                                         void* stream) {
-  return launch<int32_t>(values, valid, scratch, uniq, n_unique, w, n, n_pad,
-                         out_cap, pad, stream);
+                                         void* tile_sums, void* uniq,
+                                         void* n_unique, int w, int64_t n,
+                                         int64_t n_pad, int64_t out_cap,
+                                         int32_t pad, void* stream) {
+  return launch<int32_t>(values, valid, scratch, tile_sums, uniq, n_unique,
+                         w, n, n_pad, out_cap, pad, stream);
 }
 
 extern "C" int adhash_unique_compact_i64(const void* values,
                                          const void* valid, void* scratch,
-                                         void* uniq, void* n_unique, int w,
-                                         int64_t n, int64_t n_pad,
-                                         int64_t out_cap, int64_t pad,
-                                         void* stream) {
-  return launch<int64_t>(values, valid, scratch, uniq, n_unique, w, n, n_pad,
-                         out_cap, pad, stream);
+                                         void* tile_sums, void* uniq,
+                                         void* n_unique, int w, int64_t n,
+                                         int64_t n_pad, int64_t out_cap,
+                                         int64_t pad, void* stream) {
+  return launch<int64_t>(values, valid, scratch, tile_sums, uniq, n_unique,
+                         w, n, n_pad, out_cap, pad, stream);
 }

@@ -13,15 +13,37 @@
 // sorts).  For a probe equal to the pad value this returns ``hi = N`` where
 // the Pallas kernel returns the padded length; callers mask that case.
 //
-// Bound on the card: latency of dependent loads.  One thread per (worker,
-// probe) runs two binary searches of log2(N) dependent loads each; a
-// worker's key row (a few MB at the LUBM sizes) stays in the 50 MB L2, and
-// neighbouring probes touch the same top levels of the search tree, so the
-// early loads hit in L1/L2.  The right search starts from the left result,
-// which shortens it to the length of the match range in the common case.
+// Bound on the card: dependent loads through L2.  One thread per (worker,
+// probe) runs a binary search of log2(N) dependent loads for the left end;
+// each load pulls a 32-byte sector, so at M = 2^16 probes and N = 2^20
+// keys per worker the sector traffic through L2, not HBM, is what the time
+// tracks.  A worker's key row (a few MB at the LUBM sizes) stays in the
+// 50 MB L2, and neighbouring probes share the top levels of the search, so
+// those hit in L1.  The right end is found by galloping from the left end
+// (match ranges are short: usually one or two loads next to a[lo], already
+// in cache) instead of a second full search.
 #include "common.cuh"
 
 namespace {
+
+// First index in [lo, n) whose key fails ``a[j] <= x`` (Upper) or
+// ``a[j] < x`` (lower), given that every key before lo passes: probe a[lo]
+// and then keys at doubling distances until one fails, then binary-search
+// the last gap.  O(log(answer - lo)) loads.
+template <typename T, bool Upper>
+__device__ __forceinline__ int64_t gallop(const T* a, int64_t lo, int64_t n,
+                                          T x) {
+  int64_t hi = lo;
+  int64_t step = 1;
+  while (hi < n && (Upper ? a[hi] <= x : a[hi] < x)) {
+    lo = hi + 1;
+    hi = lo + step;
+    step <<= 1;
+  }
+  if (hi > n) hi = n;
+  return Upper ? adhash::upper_bound(a, lo, hi, x)
+               : adhash::lower_bound(a, lo, hi, x);
+}
 
 template <typename T>
 __global__ void probe_kernel(const T* __restrict__ keys,
@@ -38,9 +60,12 @@ __global__ void probe_kernel(const T* __restrict__ keys,
   const int64_t lo = adhash::lower_bound(row, 0, n, p);
   int64_t hi;
   if (span) {
-    hi = adhash::lower_bound(row, 0, n, probes_hi[w * m + i]);
+    const T q = probes_hi[w * m + i];
+    // every a[j] < p <= q for j < lo, so the answer lies at or past lo
+    hi = q >= p ? gallop<T, false>(row, lo, n, q)
+                : adhash::lower_bound(row, 0, n, q);
   } else {
-    hi = adhash::upper_bound(row, lo, n, p);
+    hi = gallop<T, true>(row, lo, n, p);
   }
   lo_out[w * m + i] = (int32_t)lo;
   hi_out[w * m + i] = (int32_t)hi;

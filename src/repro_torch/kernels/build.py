@@ -18,10 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "library", "build_log", "build_seconds", "check"]
+__all__ = ["SOURCES", "SCAN_TILE", "build", "library", "build_log", "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,9 +29,11 @@ SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+#: rows per tile of the card-wide scans (kScanTile in csrc/common.cuh); the
+#: wrappers size the (W, n_tiles) scratch with it
+SCAN_TILE = 8192
 
 _lib: ctypes.CDLL | None = None
-_build_seconds: float | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,12 +42,12 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "adhash_range_search_i64": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "adhash_range_search_i32": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "adhash_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P],
+    "adhash_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P],
     "adhash_bucket_by_dest": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I,
                               _P],
-    "adhash_unique_compact_i32": [_P, _P, _P, _P, _P, _I, _L, _L, _L,
+    "adhash_unique_compact_i32": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
                                   ctypes.c_int32, _P],
-    "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _I, _L, _L, _L,
+    "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
                                   ctypes.c_int64, _P],
 }
 
@@ -124,22 +125,15 @@ def build_log() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, _build_seconds
+    global _lib
     if _lib is None:
-        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _build_seconds = time.perf_counter() - t0
         _lib = lib
     return _lib
-
-
-def build_seconds() -> float | None:
-    """Seconds the first ``library()`` call took (build included)."""
-    return _build_seconds
 
 
 def check(err: int, name: str) -> None:

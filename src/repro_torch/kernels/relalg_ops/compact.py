@@ -20,7 +20,7 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(uniq (W, out_cap), mask, n_unique (W,) int64) of
     ``relalg.unique_compact``; the whole output is specified."""
-    from repro_torch.kernels.build import check, library
+    from repro_torch.kernels.build import SCAN_TILE, check, library
 
     check_cuda("unique_compact", values, valid)
     if values.dtype not in _FN or values.dim() != 2 or \
@@ -36,12 +36,15 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
     values = values.contiguous()
     valid = valid.contiguous()
     scratch = torch.empty((w, n_pad), dtype=values.dtype, device=dev)
+    tile_sums = torch.empty((w, -(-n_pad // SCAN_TILE)), dtype=torch.int64,
+                            device=dev)
     uniq = torch.empty((w, out_cap), dtype=values.dtype, device=dev)
     n_unique = torch.empty((w,), dtype=torch.int64, device=dev)
     fn = getattr(library(), _FN[values.dtype])
     check(fn(values.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
-             uniq.data_ptr(), n_unique.data_ptr(), w, n, n_pad, out_cap,
-             int(pad), stream_ptr(values)), "unique_compact")
+             tile_sums.data_ptr(), uniq.data_ptr(), n_unique.data_ptr(), w,
+             n, n_pad, out_cap, int(pad), stream_ptr(values)),
+          "unique_compact")
     LAUNCHES["unique_compact"] += 1
     slot = torch.arange(out_cap, dtype=torch.int64, device=dev)
     return uniq, slot < n_unique[:, None], n_unique

@@ -11,8 +11,8 @@ kernel.  Here the same numpy inputs (from a seed) go through
 over the matrices of tests/test_relalg_kernels.py and tests/test_kernels.py,
 plus the int64 expansion total and int32 probe keys.  Outputs are integers
 and must be bit-exact (valid lanes only for ``expand``, whose invalid lanes
-are unspecified).  The tests marked ``cuda`` hold each kernel against its
-plain version on the card and skip without one.
+are unspecified).  tests/test_torch_cuda.py holds each kernel against its
+plain version on the card.
 """
 from __future__ import annotations
 
@@ -305,58 +305,3 @@ def test_cpu_tensors_never_launch_a_kernel():
     TR.unique_compact(x, x > 0, 4, I32MAX)
     TR.bucket_by_dest(x[..., None], x, x > 0, 2, 4)
     assert dict(LAUNCHES) == before
-
-
-# ------------------------------------------------------- on the card (cuda)
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
-def test_cuda_range_search_matches_plain(cuda_device, dtype):
-    g = torch.Generator().manual_seed(0)
-    keys = torch.sort(torch.randint(0, 1 << 20, (4, 5000), generator=g),
-                      dim=1).values.to(dtype)
-    probes = torch.randint(-5, (1 << 20) + 5, (4, 777), generator=g).to(dtype)
-    got = TB.range_search(keys.to(cuda_device), probes.to(cuda_device))
-    want = TB.range_search_plain(keys, probes)
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
-
-
-@pytest.mark.cuda
-def test_cuda_relalg_kernels_match_plain(cuda_device):
-    rng = np.random.default_rng(7)
-    w, n = 4, 3000
-    lo = rng.integers(0, 100, (w, n)).astype(np.int32)
-    hi = lo + rng.integers(0, 5, (w, n)).astype(np.int32)
-    got = TR.expand(torch.from_numpy(lo).to(cuda_device),
-                    torch.from_numpy(hi).to(cuda_device), 4096)
-    want = TR.expand_plain(torch.from_numpy(lo), torch.from_numpy(hi), 4096)
-    v = want[2]
-    assert torch.equal(got[2].cpu(), v) and torch.equal(got[3].cpu(), want[3])
-    assert torch.equal(got[0].cpu()[v], want[0][v])
-    assert torch.equal(got[1].cpu()[v], want[1][v])
-
-    vals = rng.integers(0, 1 << 20, (w, n, 3)).astype(np.int32)
-    dest = rng.integers(0, w, (w, n)).astype(np.int32)
-    valid = rng.random((w, n)) > 0.2
-    args = [torch.from_numpy(a) for a in (vals, dest, valid)]
-    got = TR.bucket_by_dest(*[a.to(cuda_device) for a in args], w, 256)
-    want = TR.bucket_by_dest_plain(*args, w, 256)
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
-
-    for size in (1000, 40000):  # shared-memory and global sort paths
-        vals1 = torch.from_numpy(rng.integers(0, 5000, (w, size))
-                                 .astype(np.int32))
-        valid1 = torch.from_numpy(rng.random((w, size)) > 0.3)
-        got = TR.unique_compact(vals1.to(cuda_device),
-                                valid1.to(cuda_device), 2048, I32MAX)
-        want = TR.unique_compact_plain(vals1, valid1, 2048, I32MAX)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
