@@ -105,3 +105,34 @@ def test_cuda_engine_matches_cpu_engine(cuda_device):
             assert (gst.comm_cells, gst.mode, gst.route, gst.n_retries) == \
                 (cst.comm_cells, cst.mode, cst.route, cst.n_retries)
     assert all(v > 0 for v in LAUNCHES.values()), LAUNCHES
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_empty_and_tiny_inputs(cuda_device):
+    """Edge shapes the main path can produce: no probes, no ranges, no
+    rows, all rows invalid, zero-capacity outputs."""
+    dev = cuda_device
+    keys = torch.tensor([[1, 2, 2, 5]], dtype=torch.int64)
+    for probes in (torch.zeros((1, 0), dtype=torch.int64),
+                   torch.tensor([[0, 2, 9]], dtype=torch.int64)):
+        got = TB.range_search(keys.to(dev), probes.to(dev))
+        for a, b in zip(got, TB.range_search_plain(keys, probes)):
+            assert torch.equal(a.cpu(), b)
+    z = torch.zeros((2, 5), dtype=torch.int32)
+    for cap in (0, 7):
+        got = TR.expand(z.to(dev), z.to(dev), cap)
+        assert not got[2].any() and got[3].tolist() == [0, 0]
+    vals = torch.arange(12, dtype=torch.int32).reshape(2, 6)
+    for valid in (torch.zeros((2, 6), dtype=torch.bool),
+                  torch.ones((2, 6), dtype=torch.bool)):
+        for cap in (0, 4, 16):
+            got = TR.unique_compact(vals.to(dev), valid.to(dev), cap, I32MAX)
+            want = TR.unique_compact_plain(vals, valid, cap, I32MAX)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+            got = TR.bucket_by_dest(vals[..., None].to(dev),
+                                    (vals % 3).to(dev), valid.to(dev), 3, cap)
+            want = TR.bucket_by_dest_plain(vals[..., None], vals % 3, valid,
+                                           3, cap)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)

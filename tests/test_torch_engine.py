@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -118,6 +119,27 @@ def test_retry_ladder_matches_reference():
             (jst.n_retries, jst.comm_cells, jst.route)
         retries += tst.n_retries
     assert retries > 0, "capacity 64 did not exercise the ladder"
+
+
+def test_dark_shard_demotes_chain_to_staged_route():
+    """While a shard is dark the fused chain route is demoted to the staged
+    path, with the same answers and the ``single-degraded`` route tag."""
+    d, triples = lubm_like(2, 2, 2, 2)
+    t = lubm_queries(d)["q1"]
+    queries = [t.make(c) for c in t.constants[:2]]
+    j_eng = JEngine(triples, 4, adaptive=False)
+    t_eng = AdHashEngine(triples, 4, adaptive=False, device="cpu")
+    for q in queries:
+        assert t_eng.query(_port(q))[1].route == "single-local-main"
+    j_eng.health.mark_failed(1)
+    t_eng.executor.health = SimpleNamespace(degraded=True)
+    for q in queries:
+        jrel, jst = j_eng.query(q)
+        trel, tst = t_eng.query(_port(q))
+        assert tst.route == jst.route == "single-degraded"
+        assert trel.to_set() == jrel.to_set()
+        assert (tst.mode, tst.comm_cells, tst.n_retries) == \
+            (jst.mode, jst.comm_cells, jst.n_retries)
 
 
 def test_ingest_stream_equals_one_shot():
