@@ -4,18 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one NVIDIA H100.  It
-builds the four hand-written CUDA kernels from ``src/repro_torch/csrc``,
+builds the five hand-written CUDA kernels from ``src/repro_torch/csrc``,
 holds each against its plain PyTorch version on the card, drives the port's
-main path (``AdHashEngine(...).query(q)`` with ``adaptive=False``) on a
-LUBM-style graph and on a 32 M-triple Zipf stream, checks the answers, and
-prints one JSON line per phase.  Any mismatch or exception exits non-zero;
-without a card it exits 1 before doing anything.
+two main paths -- the RDF engine (``AdHashEngine(...).query(q)`` with
+``adaptive=False``) on a LUBM-style graph and on a 32 M-triple Zipf stream,
+and the dense LM's serving path (prefill and decode of llama3-8b) --
+checks the answers, and prints one JSON line per phase.  Any mismatch or
+exception exits non-zero; without a card it exits 1 before doing anything.
 
 Phases:
   0 setup   card name and power limit, kernel build seconds
-  1 kernels each kernel vs its plain version at main-path shapes (W = 8),
-            bit-exact (valid lanes only for expand); kernel, plain and
-            library-call medians over CUDA events, and the roofline bound
+  1 kernels each kernel vs its plain version at main-path shapes: the four
+            DSJ kernels (W = 8) bit-exact (valid lanes only for expand),
+            flash_attention within 1e-4 (f32) / 2e-2 (bf16) absolute and
+            1e-4 / 1e-2 of each output row's largest magnitude, at the
+            shape phase 4's prefill gives it (B=4, T=S=4096), variants,
+            and 32k rows in bf16 and f32; kernel, plain and library-call
+            medians over CUDA events, and the roofline bound
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run, warm qps and
@@ -26,11 +31,20 @@ Phases:
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
+  4 lm      llama3-8b at full width and depth, bf16 weights from seed 0:
+            prefill (``model.loss`` on B=4, T=4096) cold and 3x warm, with
+            32 flash_attention launches per call; a 2-layer full-width
+            prefill (B=1, T=520) held against the CPU port; decode
+            (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches)
+            with the adaptive controller
+Each path's kernels must launch on that path's run (the DSJ kernels on
+LUBM, flash_attention on the LM).  Each phase prints its wall seconds.
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -44,6 +58,10 @@ import numpy as np
 W = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet, FP32)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense BF16 tensor rate (data sheet)
+FLOPS_PER_S = {"bfloat16": BF16_FLOPS_PER_S, "float32": INT_OPS_PER_S}
+RDF_KERNELS = ("range_search", "expand", "bucket_by_dest", "unique_compact")
+PREFILL = (4, 4096)  # llama3-8b prefill batch and length in phase 4
 I32MAX = 2**31 - 1
 I64MAX = 2**63 - 1
 
@@ -69,11 +87,12 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int,
+          ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
     """Least time the card could take: the larger of bytes over the memory
     rate and operations over the peak rate, in ms, and which one binds."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -240,19 +259,128 @@ def phase_kernels(torch) -> dict[str, dict]:
     return rows
 
 
+def attention_errors(got, want) -> tuple[float, float]:
+    """Max abs difference, and the largest difference within one output row
+    (b, t, h) over the largest magnitude of that row of ``want``."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    return float(d.max()), float((d / scale).max())
+
+
+def phase_flash(torch) -> dict:
+    """flash_attention vs its plain version at llama3-8b's attention shapes
+    and variants; returns the main row, the shape phase 4's prefill gives
+    the kernel (B=4, T=S=4096, bf16, causal)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_cuda, flash_attention_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # Absolute limits as in tests/test_kernels.py.  The per-row limits
+    # follow the output's size: two bf16 roundings of one f32 value differ
+    # by at most one ulp, 2^-7 of the row's largest magnitude; f32 agrees to
+    # summation order.  With unit-normal inputs a row's values shrink as
+    # sqrt(1/S), so only the per-row limit would see a dropped key tile at
+    # S = 32768 (about 1% of a row in bf16: the f32 32k row holds that).
+    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+    main_row = None
+    pb, pt = PREFILL
+    # (variant, B, T, H, KV, hd, dtype, causal)
+    shapes = [
+        (f"llama3-8b prefill layer B={pb} T=S={pt} bf16 causal", pb, pt, 32,
+         8, 128, torch.bfloat16, True),
+        ("B=1", 1, 4096, 32, 8, 128, torch.bfloat16, True),
+        ("non-causal", 1, 4096, 32, 8, 128, torch.bfloat16, False),
+        ("T=S=1000 (masked tail)", 1, 1000, 32, 8, 128, torch.bfloat16,
+         True),
+        ("f32", 1, 4096, 32, 8, 128, torch.float32, True),
+        ("qwen1.5-4b MHA H=KV=20", 1, 4096, 20, 20, 128, torch.bfloat16,
+         True),
+        ("hd=64", 1, 4096, 32, 8, 64, torch.bfloat16, True),
+        ("hd=16", 1, 4096, 32, 8, 16, torch.bfloat16, True),
+        ("prefill_32k row T=S=32768", 1, 32768, 32, 8, 128, torch.bfloat16,
+         True),
+        ("prefill_32k row T=S=32768 f32", 1, 32768, 32, 8, 128,
+         torch.float32, True),
+    ]
+    for variant, b, t, h, kv, hd, dt, causal in shapes:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                         dtype=torch.float32).to(dt)
+        q, k, v = rnd(b, t, h, hd), rnd(b, t, kv, hd), rnd(b, t, kv, hd)
+        long_row = t > 8192
+        with torch.inference_mode():
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if long_row:  # a plain 32k x 32k score matrix does not fit
+                off = t - 256
+                want = flash_attention_plain(q[:, off:], k, v, causal=causal,
+                                             q_offset=off)
+                tail = flash_attention_cuda(q[:, off:], k, v, causal=causal,
+                                            q_offset=off)
+                errs = [attention_errors(got[:, off:], want),
+                        attention_errors(tail, want)]
+                del tail
+            else:
+                want = flash_attention_plain(q, k, v, causal=causal)
+                errs = [attention_errors(got, want)]
+            err = max(e[0] for e in errs)
+            rel = max(e[1] for e in errs)
+            if not (err <= tols[dt][0] and rel <= tols[dt][1]):
+                raise AssertionError(
+                    f"flash_attention {variant}: max abs err {err} (limit "
+                    f"{tols[dt][0]}), max err within a row over its max "
+                    f"{rel} (limit {tols[dt][1]})")
+            del want, got
+            reps = 3 if long_row else 20
+            ms = time_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=causal), reps)
+            plain_ms = None if long_row else time_ms(
+                torch, lambda: flash_attention_plain(q, k, v, causal=causal),
+                reps)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # SDPA's f32 path with GQA materializes the scores: 128 GiB at 32k
+            library_ms = None if long_row and dt == torch.float32 else \
+                time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
+        isz = q.element_size()
+        bytes_moved = 2 * b * t * h * hd * isz + 2 * b * t * kv * hd * isz
+        flops = 4 * b * h * t * t * hd // (2 if causal else 1)
+        b_ms, b_by = bound(bytes_moved, flops,
+                           FLOPS_PER_S[str(dt).split(".")[1]])
+        row = {"phase": "kernels", "kernel": "flash_attention",
+               "variant": variant, "shape": {"B": b, "T": t, "S": t, "H": h,
+                                             "KV": kv, "hd": hd},
+               "dtype": str(dt).split(".")[1], "causal": causal,
+               "max_abs_err": err, "max_row_rel_err": rel,
+               "tolerance": {"abs": tols[dt][0], "row_rel": tols[dt][1]},
+               "checked_rows": "last 256 (q_offset=32512)" if long_row
+               else "all",
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
+               "ops": flops, "tflops": flops / ms / 1e9}
+        emit(row)
+        if main_row is None:
+            main_row = row
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return main_row
+
+
 # ------------------------------------------------------------------ phase 2
-def profile_pass(torch, eng, queries) -> dict:
-    """One warm pass of ``queries`` under torch.profiler: wall time, device
-    busy time (sum of kernel self times), the idle share of the wall, and
-    the kernels taking the most device time."""
+def profile_run(torch, fn) -> dict:
+    """``fn()`` once under torch.profiler: wall time, device busy time (sum
+    of kernel self times), the idle share of the wall, and the kernels
+    taking the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for q in queries:
-            eng.query(q)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
@@ -261,7 +389,7 @@ def profile_pass(torch, eng, queries) -> dict:
         getattr(e, "self_cuda_time_total", 0)
     busy = sum(self_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=self_us, reverse=True)[:5]
-    return {"queries": len(queries), "wall_s": wall, "device_busy_s": busy,
+    return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1 - busy / wall, "kernel_kinds": len(kernels),
             "top": [{"kernel": e.key[:60], "ms": self_us(e) / 1e3,
                      "calls": e.count} for e in top]}
@@ -292,9 +420,9 @@ def phase_lubm(torch) -> dict[str, int]:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t1
     launches = dict(LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in RDF_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the LUBM path: "
                              f"{missing}")
 
     # warm pass: same queries again, one at a time
@@ -344,9 +472,10 @@ def phase_lubm(torch) -> dict[str, int]:
     # where the device time goes, per template (profiler on: wall times
     # here include its overhead; the warm numbers above are without it)
     for name in names:
+        picked = [q for q in queries if q.name == name]
         emit({"phase": "lubm-profile", "template": name,
-              **profile_pass(torch, eng, [q for q in queries
-                                          if q.name == name])})
+              "queries": len(picked),
+              **profile_run(torch, lambda: [eng.query(q) for q in picked])})
 
     # two queries per template against a CPU engine on the same triples
     cpu = AdHashEngine(triples, W, adaptive=False, device="cpu")
@@ -415,6 +544,132 @@ def phase_scale(torch) -> None:
           "rows_checked": [int(len(r.to_numpy())) for _, _, r in check]})
 
 
+# ------------------------------------------------------------------ phase 4
+def phase_lm(torch) -> dict[str, int]:
+    """llama3-8b prefill and decode through the port's entry points."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import AdaptiveShardingController
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("llama3-8b")
+    walls: dict[str, float] = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0, dtype=torch.bfloat16)
+    batch = make_batch(cfg, *PREFILL, 0, device="cuda")
+    torch.cuda.synchronize()
+    walls["init_s"] = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    losses, prefill_s = [], []
+    for i in range(4):  # one cold call, three warm
+        before = LAUNCHES["flash_attention"]
+        a = time.perf_counter()
+        loss = float(model.loss(params, batch))
+        prefill_s.append(time.perf_counter() - a)
+        losses.append(loss)
+        if LAUNCHES["flash_attention"] - before != cfg.n_layers:
+            raise AssertionError(
+                f"prefill call {i}: {LAUNCHES['flash_attention'] - before} "
+                f"flash_attention launches, expected {cfg.n_layers}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"prefill call {i}: loss {loss}")
+    walls["prefill_s"] = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    warm_s = float(np.mean(prefill_s[1:]))
+    tokens = int(batch["tokens"].numel())
+
+    # where a warm prefill's device time goes (profiler on: its wall
+    # includes the profiler's overhead; the warm times above are without)
+    before = LAUNCHES["flash_attention"]
+    emit({"phase": "lm-profile", "what": "prefill B=%d T=%d" % PREFILL,
+          **profile_run(torch, lambda: model.loss(params, batch))})
+    if LAUNCHES["flash_attention"] - before != cfg.n_layers:
+        raise AssertionError("profiled prefill: flash_attention launches "
+                             f"{LAUNCHES['flash_attention'] - before}")
+
+    t0 = time.perf_counter()
+    ctrl = AdaptiveShardingController(cfg.vocab_size, budget=8192)
+    times, plan = serve_loop(model, params, batch_size=8, max_len=128,
+                             steps=16, n_batches=4, controller=ctrl)
+    walls["decode_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if launches["flash_attention"] == 0:
+        raise AssertionError("flash_attention never launched on the LM path")
+    decode_tps = 8 * 16 / float(np.mean(times[1:]))  # serve.py's formula
+    emit({"phase": "lm-profile", "what": "decode batch 8 x 16 steps",
+          **profile_run(torch, lambda: serve_loop(
+              model, params, batch_size=8, max_len=128, steps=16,
+              n_batches=1))})
+    emit({"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "weights_dtype": "bfloat16", "weight_bytes": weight_bytes,
+          "prefill": {"batch": int(batch["tokens"].shape[0]),
+                      "seq": int(batch["tokens"].shape[1]), "tokens": tokens,
+                      "cold_s": prefill_s[0], "warm_s": prefill_s[1:],
+                      "warm_tokens_per_s": tokens / warm_s,
+                      "loss": losses, "flash_launches_per_call": cfg.n_layers,
+                      "max_memory_allocated": prefill_peak},
+          "decode": {"batch": 8, "max_len": 128, "steps": 16, "batches": 4,
+                     "batch_s": times, "steady_tok_per_s": decode_tps,
+                     "n_hot": plan.n_hot, "coverage": plan.coverage},
+          "launches": launches, "max_memory_allocated":
+          torch.cuda.max_memory_allocated()})
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two layers at full width, B=1, T=520: the card against the CPU port
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    m2 = build_model(cfg2, device="cuda")
+    p2 = m2.init(1, dtype=torch.bfloat16)
+    b2 = make_batch(cfg2, 1, 520, 1, device="cuda")
+    with torch.inference_mode():
+        h_gpu = TT.lm_forward(p2, b2["tokens"], cfg2).float().cpu()
+    loss_gpu = float(m2.loss(p2, b2))
+    p2 = p2.to("cpu")
+    b2 = {k: v.cpu() for k, v in b2.items()}
+    cpu = build_model(cfg2, device="cpu")
+    a = time.perf_counter()
+    with torch.inference_mode():
+        h_cpu = TT.lm_forward(p2, b2["tokens"], cfg2).float()
+    loss_cpu = float(cpu.loss(p2, b2))
+    cpu_s = time.perf_counter() - a
+    tol = 2e-2  # bf16 matmuls accumulate in another order on each device
+    atol = tol * max(1.0, float(h_cpu.abs().max()))
+    loss_tol = 1e-3  # relative; the loss averages 520 tokens' errors
+    err = float((h_gpu - h_cpu).abs().max())
+    ok = bool(torch.allclose(h_gpu, h_cpu, atol=atol, rtol=tol)) and \
+        abs(loss_gpu - loss_cpu) <= loss_tol * abs(loss_cpu)
+    walls["parity_s"] = time.perf_counter() - t0
+    emit({"phase": "lm-parity", "arch": cfg.name, "n_layers": 2,
+          "batch": 1, "seq": 520, "hidden_max_abs_err": err,
+          "hidden_tolerance": f"atol {atol:.4g} (= {tol} x max|h_cpu|), "
+                              f"rtol {tol}",
+          "loss_gpu": loss_gpu, "loss_cpu": loss_cpu,
+          "loss_tolerance": f"rtol {loss_tol}",
+          "cpu_forward_and_loss_s": cpu_s,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"llama3-8b 2-layer prefill: card vs CPU port "
+                             f"hidden err {err} (atol {atol}), loss "
+                             f"{loss_gpu} vs {loss_cpu}")
+    emit({"phase": "lm-walls", **walls})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -444,13 +699,25 @@ def main() -> int:
         if "spill" in line or "registers" in line:
             print(line.strip(), file=sys.stderr)
 
+    walls = {}
+    t0 = time.perf_counter()
     rows = phase_kernels(torch)
+    rows["flash_attention"] = phase_flash(torch)
+    walls["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches = phase_lubm(torch)
-    import gc
-
+    walls["lubm_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     phase_scale(torch)
+    walls["scale_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["flash_attention"] = phase_lm(torch)["flash_attention"]
+    walls["lm_s"] = time.perf_counter() - t0
+    emit({"phase": "walls", **walls})
 
     sources = {"range_search": ("probe.cu",
                                 "src/repro/kernels/semijoin/semijoin.py:57"),
@@ -459,7 +726,10 @@ def main() -> int:
                "bucket_by_dest": ("bucket.cu",
                                   "src/repro/kernels/relalg_ops/bucket.py:72"),
                "unique_compact": ("compact.cu",
-                                  "src/repro/kernels/relalg_ops/compact.py:72")}
+                                  "src/repro/kernels/relalg_ops/compact.py:72"),
+               "flash_attention": (
+                   "flash_attn.cu",
+                   "src/repro/kernels/flash_attention/flash_attention.py:76")}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{src}", "replaces": tpu,

@@ -3,7 +3,9 @@
 Mirrors the JAX package's layout: ``repro_torch.core`` holds the engine's
 modules, ``repro_torch.kernels`` the wrappers of the hand-written CUDA
 kernels whose sources live in ``repro_torch/csrc``, ``repro_torch.data``
-the synthetic data generators.  The port imports torch and numpy only —
+the synthetic data generators, ``repro_torch.models``,
+``repro_torch.configs`` and ``repro_torch.launch`` the dense LM and its
+serving entry points.  The port imports torch and numpy only —
 never jax, never ``repro``.
 
 Entry points run on ``device="cuda"`` unless the caller passes

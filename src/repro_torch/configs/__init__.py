@@ -1,0 +1,68 @@
+"""Architecture configs (one module per arch) + shape sets.
+
+The port's own copy of ``repro.configs`` for the dense family
+(``llama3-8b``, ``qwen1.5-4b``, ``yi-9b``, ``codeqwen1.5-7b``), which
+``repro_torch.models.model_zoo.build_model`` builds.  The other archs of the
+JAX package are named here and raise ``NotImplementedError``: their configs
+come with the slice that builds them (ROADMAP §1 item 12c).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.models.common import ModelConfig, unported
+
+from . import codeqwen15_7b, llama3_8b, qwen15_4b, yi_9b
+
+__all__ = ["ARCH_IDS", "LATER", "SHAPES", "ShapeSpec", "get_config",
+           "get_smoke_config"]
+
+_MODULES = {
+    "yi-9b": yi_9b,
+    "llama3-8b": llama3_8b,
+    "codeqwen1.5-7b": codeqwen15_7b,
+    "qwen1.5-4b": qwen15_4b,
+}
+#: the JAX package's other archs, by family
+LATER = {
+    "mamba2-130m": "ssm",
+    "recurrentgemma-2b": "hybrid",
+    "qwen2-moe-a2.7b": "moe",
+    "moonshot-v1-16b-a3b": "moe",
+    "internvl2-2b": "vlm",
+    "whisper-tiny": "audio",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def _module(arch: str):
+    if arch in LATER:
+        raise unported(f"the {LATER[arch]!r} family ({arch})", "12c")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    return _MODULES[arch]
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()

@@ -16,4 +16,5 @@ Modules (each the counterpart of the same name in ``repro.core``):
   planner     DP cost-based optimizer (§4.2, §4.3)
   executor    locality-aware distributed execution (Algorithm 1)
   engine      non-adaptive engine facade (§3.4, AdHash-NA)
+  adaptive    the adaptivity loop for LM embedding rows (DESIGN §2b)
 """

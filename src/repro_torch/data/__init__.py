@@ -1,1 +1,2 @@
-"""Synthetic RDF data and workloads (the port's own copy)."""
+"""Synthetic RDF data and workloads, and LM token streams (the port's own
+copies)."""

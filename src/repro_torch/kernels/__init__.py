@@ -12,6 +12,7 @@ else, so a run can show that the main path went through the kernels.
   expand          relalg_ops.expand.expand_cuda             expand_pallas
   bucket_by_dest  relalg_ops.bucket.bucket_by_dest_cuda     bucket_by_dest_pallas
   unique_compact  relalg_ops.compact.unique_compact_cuda    unique_compact_pallas
+  flash_attention flash_attention.ops.flash_attention_cuda  flash_attention_fwd
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ LAUNCHES: dict[str, int] = {
     "expand": 0,
     "bucket_by_dest": 0,
     "unique_compact": 0,
+    "flash_attention": 0,
 }
 
 

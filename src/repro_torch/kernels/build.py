@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "SCAN_TILE", "build", "library", "build_log", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu")
+SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu", "flash_attn.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -49,6 +49,8 @@ _SIGNATURES = {
                                   ctypes.c_int32, _P],
     "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
                                   ctypes.c_int64, _P],
+    "adhash_flash_attn": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _L,
+                          _P],
 }
 
 

@@ -1,0 +1,63 @@
+"""Uniform model API over the ported architectures.
+
+PyTorch port of the decoder-only branch of ``repro.models.model_zoo``.
+Each arch exposes:
+  init(seed, dtype)              -> params (an ``nn.Module`` on the device)
+  loss(params, batch)            -> scalar CE loss (the prefill lowering)
+  init_cache(batch, max_len)     -> decode cache (zeros)
+  decode(params, cache, batch)   -> (logits, cache)   (the serve lowering)
+
+``loss`` and ``decode`` run under ``torch.inference_mode()``: this slice
+serves; training (and the attention kernel's backward) is ROADMAP §1 item
+12b.  The vlm and audio families raise (item 12c).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.backend import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import ModelConfig
+
+__all__ = ["ModelAPI", "build_model"]
+
+
+@dataclass
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[..., Any]
+    loss: Callable[[Any, dict], torch.Tensor]
+    init_cache: Callable[[int, int], Any]
+    decode: Callable[[Any, Any, dict], tuple[torch.Tensor, Any]]
+
+
+def build_model(cfg: ModelConfig,
+                device: str | torch.device = "cuda") -> ModelAPI:
+    """The dense family's API on ``device``.  The JAX package's
+    ``RuntimeOptions`` (mesh placement, int8 KV cache, bf16 cache math) have
+    no counterpart yet (ROADMAP §1 item 12d)."""
+    tfm.check_supported(cfg)
+    dev = resolve_device(device)
+
+    def init(seed: int = 0, dtype: torch.dtype | None = None) -> tfm.LM:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tfm.init_lm(gen, cfg, dtype)
+
+    @torch.inference_mode()
+    def loss(params, batch):
+        return tfm.lm_loss(params, batch["tokens"], batch["labels"], cfg)
+
+    @torch.inference_mode()
+    def init_cache(b, max_len):
+        return tfm.init_lm_cache(cfg, b, max_len, device=dev)
+
+    @torch.inference_mode()
+    def decode(params, cache, batch):
+        return tfm.lm_decode_step(params, cache, batch["tokens"],
+                                  batch["pos"], cfg)
+
+    return ModelAPI(cfg, dev, init, loss, init_cache, decode)

@@ -6,8 +6,10 @@ port only, so it runs on a machine without jax:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Outputs are integers and must be bit-exact (valid lanes only for
-``expand``).
+The DSJ kernels' outputs are integers and must be bit-exact (valid lanes
+only for ``expand``).  The flash_attention kernel is held to its plain
+version within 1e-4 (float32: summation order) and 2e-2 (bfloat16 output
+rounding), atol = rtol.
 """
 from __future__ import annotations
 
@@ -104,7 +106,8 @@ def test_cuda_engine_matches_cpu_engine(cuda_device):
             assert grel.to_set() == crel.to_set()
             assert (gst.comm_cells, gst.mode, gst.route, gst.n_retries) == \
                 (cst.comm_cells, cst.mode, cst.route, cst.n_retries)
-    assert all(v > 0 for v in LAUNCHES.values()), LAUNCHES
+    rdf = ("range_search", "expand", "bucket_by_dest", "unique_compact")
+    assert all(LAUNCHES[k] > 0 for k in rdf), LAUNCHES
 
 
 @pytest.mark.cuda
@@ -136,3 +139,108 @@ def test_cuda_kernels_on_empty_and_tiny_inputs(cuda_device):
                                            3, cap)
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu(), b)
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("t", [1, 63, 64, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_cuda_flash_attention_matches_plain(cuda_device, hd, causal, t, group,
+                                            dtype):
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator().manual_seed(hd * 7 + t)
+    kv = 2
+    q = torch.randn((2, t, kv * group, hd), generator=g).to(dtype)
+    k = torch.randn((2, t, kv, hd), generator=g).to(dtype)
+    v = torch.randn((2, t, kv, hd), generator=g).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    with torch.inference_mode():
+        got = flash_attention(*(x.to(cuda_device) for x in (q, k, v)),
+                              causal=causal)
+        want = flash_attention_plain(*(x.to(cuda_device) for x in (q, k, v)),
+                                     causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,q_offset", [(200, 333, 0), (200, 333, 133),
+                                          (1, 4097, 4096), (130, 70, 5)])
+def test_cuda_flash_attention_offsets_and_ragged_keys(cuda_device, t, s,
+                                                      q_offset):
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator().manual_seed(t + s)
+    q = torch.randn((1, t, 8, 128), generator=g).to(cuda_device)
+    k = torch.randn((1, s, 2, 128), generator=g).to(cuda_device)
+    v = torch.randn((1, s, 2, 128), generator=g).to(cuda_device)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        want = flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_is_forward_only(cuda_device):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.randn((1, 8, 2, 64), device=cuda_device, requires_grad=True)
+    k = torch.randn((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        flash_attention(q, k, k)
+    with torch.no_grad():
+        assert flash_attention(q, k, k).shape == q.shape
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(torch.zeros((1, 4, 2, 48), device=cuda_device),
+                        torch.zeros((1, 4, 2, 48), device=cuda_device),
+                        torch.zeros((1, 4, 2, 48), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+def test_cuda_lm_matches_cpu(cuda_device, arch):
+    """The smoke model's prefill and decode on the card equal the CPU port
+    (float32 weights and compute; 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.launch.train import make_serve_step
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gpu = build_model(cfg, device="cuda")
+    cpu = build_model(cfg, device="cpu")
+    params = gpu.init(0)
+    params_cpu = TT.init_lm(torch.Generator(), cfg)
+    params_cpu.load_state_dict({k: v.cpu()
+                                for k, v in params.state_dict().items()})
+    before = LAUNCHES["flash_attention"]
+    loss = gpu.loss(params, make_batch(cfg, 2, 200, 0, device="cuda"))
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    want = cpu.loss(params_cpu, make_batch(cfg, 2, 200, 0, device="cpu"))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-4)
+    step_g, step_c = make_serve_step(gpu), make_serve_step(cpu)
+    cache_g, cache_c = gpu.init_cache(2, 8), cpu.init_cache(2, 8)
+    tok = torch.tensor([[3], [7]])
+    tok_g = tok.to(cuda_device)
+    for pos in range(4):
+        n_g, cache_g = step_g(params, cache_g, {"tokens": tok_g, "pos": pos})
+        n_c, cache_c = step_c(params_cpu, cache_c, {"tokens": tok, "pos": pos})
+        assert torch.equal(n_g.cpu(), n_c)
+        tok_g, tok = n_g[:, None], n_c[:, None]

@@ -1,0 +1,392 @@
+"""The port's dense LM serving path against the JAX package, on the CPU.
+
+Inputs are made from a seed with numpy and fed to both packages; weights
+are made by the JAX package and carried across with
+``repro_torch.models.convert.params_from_numpy``.  The JAX side runs
+without a mesh.  On a CPU tensor the port's attention wrapper runs its
+plain version; the CUDA kernel is held to that version on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+Tolerances: 2e-5 for float32 attention (summation order), 1e-4 for float32
+models (two layers of it), 2e-2 for bfloat16 (bf16 rounds at other places
+in the two frameworks), as atol = rtol.  A bf16 model's hidden states are
+held to 2e-2 of their largest magnitude instead: one ulp of a residual
+element of magnitude ~4 (0.016 to 0.03) passes through the next rms_norm
+into elements of any size.
+"""
+from __future__ import annotations
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core  # noqa: F401  (x64 on, as in production)
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core.adaptive import AdaptiveShardingController as JaxController
+from repro.kernels.flash_attention.ops import flash_attention as pallas_attn
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.launch.serve import serve_loop as jax_serve_loop
+from repro.launch.train import make_serve_step as jax_make_serve_step
+from repro.models import attention as JA
+from repro.models import transformer as JT
+from repro.models.model_zoo import build_model as jax_build_model
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.adaptive import AdaptiveShardingController
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
+from repro_torch.launch.serve import serve_loop
+from repro_torch.launch.train import make_serve_step
+from repro_torch.models import attention as TA
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.model_zoo import build_model
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, tol: float) -> None:
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def _close_hidden(got, want, dtype: str) -> None:
+    w = _np(want)
+    scale = max(1.0, float(np.abs(w).max())) if dtype == "bfloat16" else 1.0
+    np.testing.assert_allclose(_np(got), w, atol=TOL[dtype] * scale,
+                               rtol=TOL[dtype])
+
+
+def _qkv(rng, b, t, s, h, kv, d, dtype):
+    mk = lambda n, heads: rng.normal(size=(b, n, heads, d)).astype(np.float32)
+    q, k, v = mk(t, h), mk(s, kv), mk(s, kv)
+    jx = [jnp.asarray(a, JDT[dtype]) for a in (q, k, v)]
+    tx = [torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)]
+    return jx, tx
+
+
+def _cfg(arch: str, dtype: str):
+    """The JAX and port smoke configs of ``arch`` in ``dtype``."""
+    return (dataclasses.replace(jax_smoke_config(arch), dtype=dtype),
+            dataclasses.replace(get_smoke_config(arch), dtype=dtype))
+
+
+def _models(arch: str, dtype: str, seed: int = 0):
+    jcfg, tcfg = _cfg(arch, dtype)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.key(seed))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    return jcfg, tcfg, jm, jp, build_model(tcfg, device="cpu"), tp
+
+
+# ------------------------------------------------- (a) the Pallas kernel
+@pytest.mark.parametrize("t,s", [(128, 128), (256, 256), (128, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_wrapper_matches_pallas_kernel(t, s, dtype, causal):
+    """The shapes of tests/test_kernels.py, causal T != S included."""
+    (jq, jk, jv), (q, k, v) = _qkv(np.random.default_rng(0), 2, t, s, 3, 3,
+                                   64, dtype)
+    want = pallas_attn(jq, jk, jv, causal=causal, interpret=True)
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("block_q,block_kv", [(64, 64), (128, 64), (64, 128)])
+def test_attention_wrapper_matches_pallas_block_sweep(block_q, block_kv):
+    (jq, jk, jv), (q, k, v) = _qkv(np.random.default_rng(1), 1, 256, 256, 2,
+                                   2, 32, "float32")
+    want = pallas_attn(jq, jk, jv, causal=True, block_q=block_q,
+                       block_kv=block_kv, interpret=True)
+    _close(flash_attention(q, k, v, causal=True), want, ATTN_TOL["float32"])
+
+
+# --------------------------------------------------- (b) _blocked_attn
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,q_offset,s", [(True, 0, 200),
+                                               (True, 37, 300),
+                                               (True, 128, 328),
+                                               (False, 0, 333)])
+def test_attention_wrapper_matches_blocked_attn(dtype, causal, q_offset, s):
+    """GQA (H=4, KV=2), T = 200 (no block multiple), q_offset > 0."""
+    (jq, jk, jv), (q, k, v) = _qkv(np.random.default_rng(2), 2, 200, s, 4, 2,
+                                   32, dtype)
+    want = JA._blocked_attn(jq, jk, jv, causal, 0, 64, 128,
+                            q_offset=q_offset)
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+# -------------------------------------------------- (g) causal alignment
+def test_causal_alignment_is_top_left_like_the_kernel():
+    """When T != S the port equals the Pallas kernel (top-left causal), not
+    ``attention_ref`` (bottom-right), which the JAX package's own tests
+    skip."""
+    b, t, s, h, d = 1, 128, 384, 2, 64
+    (jq, jk, jv), (q, k, v) = _qkv(np.random.default_rng(3), b, t, s, h, h,
+                                   d, "float32")
+    got = _np(flash_attention(q, k, v, causal=True))
+    kernel = _np(pallas_attn(jq, jk, jv, causal=True, interpret=True))
+    flat = lambda x: jnp.moveaxis(x, 2, 1).reshape(b * h, -1, d)
+    ref = _np(jnp.moveaxis(attention_ref(flat(jq), flat(jk), flat(jv),
+                                         causal=True)
+                           .reshape(b, h, t, d), 1, 2))
+    np.testing.assert_allclose(got, kernel, atol=2e-5, rtol=2e-5)
+    assert np.abs(got - ref).max() > 0.5  # the oracle aligns differently
+    # bottom-right alignment is the top-left mask shifted by S - T
+    shifted = _np(flash_attention(q, k, v, causal=True, q_offset=s - t))
+    np.testing.assert_allclose(shifted, ref, atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------- (c) attention and decode_attention
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_and_decode_attention_match_jax(arch, dtype):
+    jcfg, tcfg = _cfg(arch, dtype)
+    jp = JA.init_attention(jax.random.key(4), jcfg)
+    rng = np.random.default_rng(4)
+    if jcfg.qkv_bias:  # the init sets biases to zero: give them values
+        jp = {k: (jnp.asarray(rng.normal(size=v.shape), v.dtype)
+                  if k.startswith("b") else v) for k, v in jp.items()}
+    tp = TA.Attention(tcfg, {k: torch.from_numpy(np.array(v))
+                             for k, v in jp.items()})
+    x = rng.normal(size=(2, 70, jcfg.d_model)).astype(np.float32)
+    jx, tx = jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+    with torch.inference_mode():
+        _close(TA.attention(tp, tx, tcfg),
+               jax.jit(JA.attention, static_argnums=2)(jp, jx, jcfg),
+               TOL[dtype])
+        jcache = JA.init_kv_cache(jcfg, 2, 16)
+        tcache = TA.init_kv_cache(tcfg, 2, 16, device="cpu")
+        jdecode = jax.jit(JA.decode_attention, static_argnums=4)
+        for pos in range(5):
+            xs = rng.normal(size=(2, 1, jcfg.d_model)).astype(np.float32)
+            jo, jcache = jdecode(
+                jp, jnp.asarray(xs, JDT[dtype]), jcache, jnp.int32(pos), jcfg)
+            to, tcache = TA.decode_attention(
+                tp, torch.from_numpy(xs).to(TDT[dtype]), tcache, pos, tcfg)
+            _close(to, jo, TOL[dtype])
+        _close(tcache["k"], jcache["k"], TOL[dtype])
+        _close(tcache["v"], jcache["v"], TOL[dtype])
+
+
+# ------------------------------------------ (d) lm_forward and model.loss
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_forward_and_loss_match_jax(arch, dtype):
+    from repro.data.tokens import make_batch as jax_make_batch
+    from repro_torch.data.tokens import make_batch
+
+    jcfg, tcfg, jm, jp, tm, tp = _models(arch, dtype)
+    jb = jax_make_batch(jcfg, 2, 150, 0)
+    tb = make_batch(tcfg, 2, 150, 0, device="cpu")
+    np.testing.assert_array_equal(tb["tokens"].numpy(), np.asarray(jb["tokens"]))
+    with torch.inference_mode():
+        h = TT.lm_forward(tp, tb["tokens"], tcfg)
+    jh = jax.jit(JT.lm_forward, static_argnums=2)(jp, jb["tokens"], jcfg)
+    _close_hidden(h, jh, dtype)
+    loss = tm.loss(tp, tb)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    np.testing.assert_allclose(float(loss), float(jax.jit(jm.loss)(jp, jb)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------- (e) lm_decode_step
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+def test_decode_steps_match_jax(arch):
+    """Greedy tokens equal and the caches close over a few steps (float32,
+    so that no near-tie of bf16 logits can flip an argmax)."""
+    jcfg, tcfg, jm, jp, tm, tp = _models(arch, "float32", seed=5)
+    jstep = jax.jit(jax_make_serve_step(jm))
+    tstep = make_serve_step(tm)
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (3, 1))
+    jtok, ttok = jnp.asarray(toks, jnp.int32), torch.from_numpy(toks)
+    jcache, tcache = jm.init_cache(3, 12), tm.init_cache(3, 12)
+    for pos in range(6):
+        jn, jcache = jstep(jp, jcache, {"tokens": jtok, "pos": jnp.int32(pos)})
+        tn, tcache = tstep(tp, tcache, {"tokens": ttok, "pos": pos})
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        jtok, ttok = jn[:, None], tn[:, None]
+    for name in ("k", "v"):
+        _close(tcache["kv"][name], jcache["kv"][name], TOL["float32"])
+
+
+# -------------------------------------------------------- (f) serve_loop
+def test_serve_loop_matches_jax():
+    """The same tokens reach the controller (its decayed heat counts are an
+    order-sensitive record of every observed token) and the same
+    ReplicationPlan comes out."""
+    jcfg, tcfg, jm, jp, tm, tp = _models("llama3-8b", "float32")
+    kw = dict(batch_size=2, max_len=16, steps=6, n_batches=3)
+    jctrl = JaxController(jcfg.vocab_size, budget=16)
+    tctrl = AdaptiveShardingController(tcfg.vocab_size, budget=16)
+    jtimes, jplan = jax_serve_loop(jm, jp, controller=jctrl,
+                                   rng=np.random.default_rng(6), **kw)
+    ttimes, tplan = serve_loop(tm, tp, controller=tctrl,
+                               rng=np.random.default_rng(6), **kw)
+    assert len(ttimes) == len(jtimes) == 3
+    np.testing.assert_array_equal(tctrl.heat.counts, jctrl.heat.counts)
+    assert tplan.hot_ids == jplan.hot_ids and tplan.n_hot > 0
+    assert tplan.coverage == jplan.coverage
+    assert tplan.version == jplan.version
+
+
+def test_controller_matches_jax():
+    rng = np.random.default_rng(7)
+    j, t = JaxController(300, budget=12), AdaptiveShardingController(300, 12)
+    for _ in range(5):
+        ids = rng.integers(0, 300, 64)
+        j.observe(ids)
+        t.observe(ids)
+        tp, jp = t.replan(), j.replan()
+        assert (tp.hot_ids, tp.coverage, tp.version) == \
+            (jp.hot_ids, jp.coverage, jp.version)
+        assert t.cold_capacity(64) == j.cold_capacity(64)
+
+
+def test_tokens_and_configs_match_jax():
+    from repro.configs import SHAPES as JSHAPES
+    from repro.configs import get_config as jax_get_config
+    from repro.data.tokens import synthetic_batches as jax_batches
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.data.tokens import synthetic_batches
+
+    assert set(ARCH_IDS) == {"llama3-8b", "qwen1.5-4b", "yi-9b",
+                             "codeqwen1.5-7b"}
+    for arch in ARCH_IDS:
+        for get, jget in ((get_config, jax_get_config),
+                          (get_smoke_config, jax_smoke_config)):
+            mine, theirs = (dataclasses.asdict(get(arch)),
+                            dataclasses.asdict(jget(arch)))
+            # the other families' sub-configs are not ported: unset here
+            assert all(theirs[k] is None for k in set(theirs) - set(mine))
+            assert mine == {k: theirs[k] for k in mine}, arch
+        assert get_config(arch).param_count() == \
+            jax_get_config(arch).param_count()
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
+    cfg = get_smoke_config("qwen1.5-4b")
+    for tb, jb in zip(synthetic_batches(cfg, 3, 17, 3, seed=2, device="cpu"),
+                      jax_batches(jax_smoke_config("qwen1.5-4b"), 3, 17, 3,
+                                  seed=2)):
+        for name in ("tokens", "labels"):
+            np.testing.assert_array_equal(tb[name].numpy(),
+                                          np.asarray(jb[name]))
+
+
+# ------------------------------------------------ (h) unported options
+def test_unported_options_raise():
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import embedding as TE
+
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, LATER
+
+    # the moe (and with it sharded_moe), ssm, hybrid, vlm and audio families
+    assert set(LATER) == set(JAX_ARCH_IDS) - set(ARCH_IDS)
+    for arch, family in LATER.items():
+        for get in (get_config, get_smoke_config):
+            with pytest.raises(NotImplementedError, match="item 12c"):
+                get(arch)
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            build_model(dataclasses.replace(get_smoke_config("llama3-8b"),
+                                            family=family), device="cpu")
+    cfg = get_smoke_config("llama3-8b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        TA.attention(params.blocks[0].attn, x, cfg, window=2)
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        TA.cross_attention(params.blocks[0].attn, x, x, cfg)
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        TA.init_kv_cache(cfg, 1, 4, int8=True, device="cpu")
+    cache = TA.init_kv_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        TA.decode_attention(params.blocks[0].attn, x[:, :1], cache, 0, cfg,
+                            f32_cache_math=False)
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        TE.adaptive_embed(params.embed, None, cfg)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        make_train_step(model)
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        serve.main(["--arch", "llama3-8b", "--smoke", "--int8-kv",
+                    "--device", "cpu"])
+
+
+def test_cuda_entry_points_without_a_card_raise(monkeypatch):
+    from repro_torch.data.tokens import make_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_batch(cfg, 1, 4, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({}, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TT.init_lm_cache(cfg, 1, 4)
+
+
+def test_flash_wrapper_checks_its_operands():
+    q = torch.zeros((1, 4, 3, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 2, 16)))
+    with pytest.raises(ValueError, match="S == 0"):
+        flash_attention(q, torch.zeros((1, 0, 3, 16)), torch.zeros((1, 0, 3, 16)))
+    # on the CPU the wrapper is the plain version, differentiable
+    q.requires_grad_(True)
+    k = torch.randn((1, 5, 1, 16))
+    flash_attention_plain(q, k, k).sum().backward()
+    assert q.grad is not None
+
+
+# -------------------------------------------- (i) the port imports no jax
+def test_lm_serving_imports_neither_jax_nor_repro():
+    """The serving CLI runs end to end on the CPU in a fresh interpreter
+    without pulling in jax or the JAX package."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--arch', 'qwen1.5-4b', '--smoke', '--device', 'cpu',"
+        " '--steps', '3', '--batches', '2'])\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "arch=qwen1.5-4b device=cpu" in out.stdout
+    assert "controller: hot=" in out.stdout
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert all(n.split(".")[0] not in ("jax", "jaxlib", "repro")
+                           for n in names), (path, names)
