@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one NVIDIA H100.  It
-builds the five hand-written CUDA kernels from ``src/repro_torch/csrc``,
+builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (five
+kernels; flash_attention has a bf16 tensor-core and an f32 CUDA-core one),
 holds each against its plain PyTorch version on the card, drives the port's
 two main paths -- the RDF engine (``AdHashEngine(...).query(q)`` with
 ``adaptive=False``) on a LUBM-style graph and on a 32 M-triple Zipf stream,
@@ -15,8 +16,10 @@ exception exits non-zero; without a card it exits 1 before doing anything.
 Phases:
   0 setup   card name and power limit, kernel build seconds
   1 kernels each kernel vs its plain version at main-path shapes: the four
-            DSJ kernels (W = 8) bit-exact (valid lanes only for expand),
-            flash_attention within 1e-4 (f32) / 2e-2 (bf16) absolute and
+            DSJ kernels (W = 8) bit-exact (valid lanes only for expand;
+            unique_compact in int32 and int64), flash_attention (which
+            kernel served each row is printed) within 1e-4 (f32) / 2e-2
+            (bf16) absolute and
             1e-4 / 1e-2 of each output row's largest magnitude, at the
             shape phase 4's prefill gives it (B=4, T=S=4096), variants,
             and 32k rows in bf16 and f32; kernel, plain and library-call
@@ -233,29 +236,35 @@ def phase_kernels(torch) -> dict[str, dict]:
                W * n * (4 * k + 4 + 1) + W * nd * cap * (4 * k + 1) + W * 8,
                4 * W * n, k == 3)
 
-    # ---- unique_compact: n = 2^10 (shared-memory sort) and n = 2^18
-    # (multi-launch global sort), out_cap below n_unique
-    for n, hi_val, cap in ((1 << 10, 800, 256), (1 << 18, 1 << 17, 1 << 16)):
-        vals = rng.integers(0, hi_val, (W, n)).astype(np.int32)
+    # ---- unique_compact: n = 2^10 (one radix tile) and n = 2^18 (the main
+    # path's row, 64 tiles) in int32, and n = 2^18 in int64 (8 digits, the
+    # high ones skipped on the device); out_cap below n_unique
+    for n, hi_val, cap, dtype in ((1 << 10, 800, 256, np.int32),
+                                  (1 << 18, 1 << 17, 1 << 16, np.int32),
+                                  (1 << 18, 1 << 17, 1 << 16, np.int64)):
+        pad = int(np.iinfo(dtype).max)
+        vals = rng.integers(0, hi_val, (W, n)).astype(dtype)
         valid = rng.random((W, n)) < 0.9
         v_t, m_t = cuda(vals), cuda(valid)
-        got = unique_compact_cuda(v_t, m_t, cap, I32MAX)
-        want = relalg.unique_compact_plain(v_t, m_t, cap, I32MAX)
+        got = unique_compact_cuda(v_t, m_t, cap, pad)
+        want = relalg.unique_compact_plain(v_t, m_t, cap, pad)
         err = 0.0
+        tag = f"{np.dtype(dtype).name} n=2^{n.bit_length() - 1}"
         for part, g, w_ in zip(("uniq", "mask", "n_unique"), got, want):
-            err = max(err, assert_equal(f"unique_compact {part} n={n}", g,
+            err = max(err, assert_equal(f"unique_compact {part} {tag}", g,
                                         w_))
         if int(got[2].min()) <= cap:
             raise AssertionError("unique_compact: out_cap not below n_unique")
         offs = torch.arange(W, device=dev, dtype=torch.int64)[:, None] << 32
-        keyed = torch.where(m_t, v_t, I32MAX).to(torch.int64) + offs
-        record("unique_compact", f"n=2^{n.bit_length() - 1} out_cap={cap}",
-               err,
-               lambda: unique_compact_cuda(v_t, m_t, cap, I32MAX),
-               lambda: relalg.unique_compact_plain(v_t, m_t, cap, I32MAX),
+        keyed = torch.where(m_t, v_t, pad).to(torch.int64) + offs
+        isz = np.dtype(dtype).itemsize
+        record("unique_compact", f"{tag} out_cap={cap}", err,
+               lambda: unique_compact_cuda(v_t, m_t, cap, pad),
+               lambda: relalg.unique_compact_plain(v_t, m_t, cap, pad),
                lambda: torch.unique(keyed.view(-1), sorted=True),
-               W * n * 5 + W * cap * 5 + W * 8,
-               W * n * max(1, math.ceil(math.log2(n))), n == 1 << 18)
+               W * n * (isz + 1) + W * cap * (isz + 1) + W * 8,
+               W * n * max(1, math.ceil(math.log2(n))),
+               n == 1 << 18 and dtype == np.int32)
     return rows
 
 
@@ -274,7 +283,7 @@ def phase_flash(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_cuda, flash_attention_plain)
+        flash_attention_cuda, flash_attention_plain, flash_engine)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -353,7 +362,8 @@ def phase_flash(torch) -> dict:
                "variant": variant, "shape": {"B": b, "T": t, "S": t, "H": h,
                                              "KV": kv, "hd": hd},
                "dtype": str(dt).split(".")[1], "causal": causal,
-               "max_abs_err": err, "max_row_rel_err": rel,
+               "engine": flash_engine(dt), "max_abs_err": err,
+               "max_row_rel_err": rel,
                "tolerance": {"abs": tols[dt][0], "row_rel": tols[dt][1]},
                "checked_rows": "last 256 (q_offset=32512)" if long_row
                else "all",
@@ -727,8 +737,9 @@ def main() -> int:
                                   "src/repro/kernels/relalg_ops/bucket.py:72"),
                "unique_compact": ("compact.cu",
                                   "src/repro/kernels/relalg_ops/compact.py:72"),
+               # the main path runs the bf16 kernel; f32 runs flash_attn.cu
                "flash_attention": (
-                   "flash_attn.cu",
+                   "flash_attn_sm90.cu",
                    "src/repro/kernels/flash_attention/flash_attention.py:76")}
     emit({"kernels": [
         {"name": name, "route": "cuda",

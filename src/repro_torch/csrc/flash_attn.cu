@@ -1,8 +1,9 @@
-// flash_attention: the attention forward pass of the dense LM on Hopper.
+// flash_attention, float32: the attention forward pass on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
-// (flash_attention_fwd, pallas_call at :97) and computes the function of
-// repro.models.attention._blocked_attn for window = 0:
+// (flash_attention_fwd :76, pallas_call at :97) for float32 inputs and
+// computes the function of repro.models.attention._blocked_attn for
+// window = 0:
 //
 //   o[b,t,h] = softmax_s(q[b,t,h] . k[b,s,h/g] * hd^-1/2, masked) . v[b,s,h/g]
 //
@@ -10,27 +11,26 @@
 // head in place, nothing is repeated), the mask ``s < S`` and, when causal,
 // ``s <= q_offset + t`` (top-left alignment shifted by q_offset, as the
 // Pallas kernel and _blocked_attn align it).  Inputs are (B, T, H, hd) and
-// (B, S, KV, hd), contiguous, bf16 or f32; T and S are any length (ragged
-// tiles are masked in the kernel, nothing is padded).  Logits, the running
-// max and sum and the accumulator are f32; the output is cast to q's dtype.
+// (B, S, KV, hd), contiguous, float32; T and S are any length (ragged tiles
+// are masked in the kernel, nothing is padded).  bf16 inputs go to the
+// tensor-core kernel of flash_attn_sm90.cu.
 //
-// Bound on the card: operations.  At the main path's shape (T = S = 4096,
-// hd = 128) the function does 4*T*S*hd flops per head (halved when causal)
-// on 2*(T+S)*hd elements, ~1000 flops per byte, far above the H100's ~295
-// bf16 flops per byte of HBM.  This first design is simple and exact rather
-// than fast: f32 FMAs on the CUDA cores (67 TFLOP/s peak, not the 989 of
-// the bf16 tensor cores); wgmma, TMA and pipelining are later work.
+// Bound on the card: operations, on the f32 rate.  At T = S = 4096 and
+// hd = 128 the function does 4*T*S*hd flops per head (halved when causal)
+// on 2*(T+S)*hd elements.  The tensor cores would take f32 only as TF32,
+// which keeps about three decimal digits and would not hold float32's
+// 1e-4, so this kernel runs exact f32 FMAs on the CUDA cores (67 TFLOP/s
+// peak) and keeps every operand in shared memory and registers.
 //
 // Design.  One CTA of 128 threads per (b*H + h, tile of 64 query rows).
 // The CTA stages the scaled Q tile once, then walks the KV tiles of 64 keys
-// (only those at or below the diagonal when causal): K and V are converted
-// to f32 into shared memory, each thread computes a 4 x 8 block of scores
-// (rows ty*4.., columns tx + 8j), keeps its 4 rows' running max and partial
-// sum in registers (the 8 threads of a row reduce with shuffles), writes P
-// over the K buffer and accumulates P.V into its 4 rows' slice of the
-// output.  Causal CTAs run longest-first (the last query tile is blockIdx.x
-// = 0).  Shared memory: 97 KB at hd = 128, two CTAs per SM.
-#include <cuda_bf16.h>
+// (only those at or below the diagonal when causal): K and V go to shared
+// memory, each thread computes a 4 x 8 block of scores (rows ty*4..,
+// columns tx + 8j), keeps its 4 rows' running max and partial sum in
+// registers (the 8 threads of a row reduce with shuffles), writes P over
+// the K buffer and accumulates P.V into its 4 rows' slice of the output.
+// Causal CTAs run longest-first (the last query tile is blockIdx.x = 0).
+// Shared memory: 97 KB at hd = 128, two CTAs per SM.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -45,59 +45,22 @@ constexpr int kCols = 8;       // score columns per thread (tx + 8j)
 constexpr int kPld = kBN + 4;  // row stride of P in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 16 bytes of T as f32 values.
-template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-  }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(b2[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// Rows [0, 64) of a (rows, HD) matrix with row stride ``ld`` (elements of
-// T) into shared memory as f32 times ``mul``, row stride ``sld``; rows at
-// or past ``valid`` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* sm, int sld, const T* g,
+// Rows [0, 64) of a (rows, HD) matrix with row stride ``ld`` into shared
+// memory times ``mul``, row stride ``sld``; rows at or past ``valid`` are
+// zero.
+template <int HD>
+__device__ __forceinline__ void load_tile(float* sm, int sld, const float* g,
                                           int64_t ld, int64_t valid,
                                           float mul) {
-  constexpr int kN = Cvt<T>::kN;
-  constexpr int kPerRow = HD / kN;
+  constexpr int kPerRow = HD / 4;
   for (int i = threadIdx.x; i < kBN * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kN;
-    float vals[kN];
-    if (r < valid) {
-      Cvt<T>::load(g + r * ld + c, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kN; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kN; e += 4)
-      *reinterpret_cast<float4*>(sm + r * sld + c + e) =
-          make_float4(vals[e] * mul, vals[e + 1] * mul, vals[e + 2] * mul,
-                      vals[e + 3] * mul);
+    const int c = (i % kPerRow) * 4;
+    const float4 x = r < valid
+                         ? *reinterpret_cast<const float4*>(g + r * ld + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(sm + r * sld + c) =
+        make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
   }
 }
 
@@ -112,30 +75,6 @@ struct VecF<2> {
   using type = float2;
 };
 
-template <typename T, int VEC>
-__device__ __forceinline__ void store_out(T* p, const float* v);
-
-template <>
-__device__ __forceinline__ void store_out<float, 4>(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-template <>
-__device__ __forceinline__ void store_out<float, 2>(float* p, const float* v) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-template <>
-__device__ __forceinline__ void store_out<__nv_bfloat16, 4>(__nv_bfloat16* p,
-                                                           const float* v) {
-  __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(v[0], v[1]),
-                            __floats2bfloat162_rn(v[2], v[3])};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(pair);
-}
-template <>
-__device__ __forceinline__ void store_out<__nv_bfloat16, 2>(__nv_bfloat16* p,
-                                                           const float* v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-}
-
 template <int HD>
 constexpr int smem_floats() {
   return kBM * HD                                              // Q
@@ -143,10 +82,11 @@ constexpr int smem_floats() {
          + kBN * HD;                                           // V
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int64_t t_len,
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  int64_t t_len,
                   int64_t s_len, int n_heads, int n_kv, int causal,
                   int64_t q_offset, float qscale) {
   // output columns per thread: NCH chunks of VEC at chunk*8*VEC + tx*VEC
@@ -174,11 +114,11 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int64_t q_ld = (int64_t)n_heads * HD;
   const int64_t kv_ld = (int64_t)n_kv * HD;
-  const T* qb = q + ((int64_t)b * t_len * n_heads + h) * HD + m0 * q_ld;
-  const T* kb = k + ((int64_t)b * s_len * n_kv + kh) * HD;
-  const T* vb = v + ((int64_t)b * s_len * n_kv + kh) * HD;
+  const float* qb = q + ((int64_t)b * t_len * n_heads + h) * HD + m0 * q_ld;
+  const float* kb = k + ((int64_t)b * s_len * n_kv + kh) * HD;
+  const float* vb = v + ((int64_t)b * s_len * n_kv + kh) * HD;
 
-  load_tile<T, HD>(Qs, HD, qb, q_ld, t_len - m0, qscale);
+  load_tile<HD>(Qs, HD, qb, q_ld, t_len - m0, qscale);
 
   int64_t n_tiles = (s_len + kBN - 1) / kBN;
   if (causal) {
@@ -201,8 +141,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int64_t tile = 0; tile < n_tiles; ++tile) {
     const int64_t n0 = tile * kBN;
     __syncthreads();  // the previous tile's P and V are consumed
-    load_tile<T, HD>(Ks, KLD, kb + n0 * kv_ld, kv_ld, s_len - n0, 1.f);
-    load_tile<T, HD>(Vs, HD, vb + n0 * kv_ld, kv_ld, s_len - n0, 1.f);
+    load_tile<HD>(Ks, KLD, kb + n0 * kv_ld, kv_ld, s_len - n0, 1.f);
+    load_tile<HD>(Vs, HD, vb + n0 * kv_ld, kv_ld, s_len - n0, 1.f);
     __syncthreads();
 
     // scores: 4 rows x 8 columns per thread, already in log2 units
@@ -313,69 +253,56 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t r = m0 + ty * kRows + i;
     if (r >= t_len) continue;
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + (((int64_t)b * t_len + r) * n_heads + h) * HD;
+    float* orow = o + (((int64_t)b * t_len + r) * n_heads + h) * HD;
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch) {
-      float vals[VEC];
+      VF out;
+      float* vals = reinterpret_cast<float*>(&out);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) vals[e] = acc[i][ch * VEC + e] * inv_l;
-      store_out<T, VEC>(orow + ch * 8 * VEC + tx * VEC, vals);
+      *reinterpret_cast<VF*>(orow + ch * 8 * VEC + tx * VEC) = out;
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int64_t t, int64_t s, int h, int kv, int causal, int64_t q_offset,
            cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((t + kBM - 1) / kBM), (unsigned)(b * h));
   const float qscale = kLog2e / sqrtf((float)HD);
-  flash_attn_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, t, s, h, kv, causal,
-      q_offset, qscale);
+  flash_attn_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, t, s, h,
+      kv, causal, q_offset, qscale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b,
-                int64_t t, int64_t s, int h, int kv, int hd, int causal,
-                int64_t q_offset, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, b, t, s, h, kv, causal, q_offset,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, b, t, s, h, kv, causal, q_offset,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, b, t, s, h, kv, causal, q_offset,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b, t, s, h, kv, causal, q_offset,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o: (b, t, h, hd); k, v: (b, s, kv,
-// hd); all contiguous and 16-byte aligned, h a multiple of kv.
-extern "C" int adhash_flash_attn(const void* q, const void* k, const void* v,
-                                 void* o, int dtype, int b, int64_t t,
-                                 int64_t s, int h, int kv, int hd, int causal,
-                                 int64_t q_offset, void* stream) {
+// q, o: (b, t, h, hd) float32; k, v: (b, s, kv, hd) float32; all contiguous
+// and 16-byte aligned, h a multiple of kv, hd in {16, 32, 64, 128}.
+extern "C" int adhash_flash_attn_f32(const void* q, const void* k,
+                                     const void* v, void* o, int b, int64_t t,
+                                     int64_t s, int h, int kv, int hd,
+                                     int causal, int64_t q_offset,
+                                     void* stream) {
   if (b == 0 || t == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 1
-             ? dispatch_hd<__nv_bfloat16>(q, k, v, o, b, t, s, h, kv, hd,
-                                          causal, q_offset, st)
-             : dispatch_hd<float>(q, k, v, o, b, t, s, h, kv, hd, causal,
-                                  q_offset, st);
+  switch (hd) {
+    case 16:
+      return launch<16>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+    case 32:
+      return launch<32>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+    case 64:
+      return launch<64>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+    case 128:
+      return launch<128>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -20,18 +20,23 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["SOURCES", "SCAN_TILE", "build", "library", "build_log", "check"]
+__all__ = ["SOURCES", "SCAN_TILE", "RADIX_TILE", "build", "library",
+           "build_log", "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu", "flash_attn.cu")
+SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu", "flash_attn.cu",
+           "flash_attn_sm90.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 #: rows per tile of the card-wide scans (kScanTile in csrc/common.cuh); the
 #: wrappers size the (W, n_tiles) scratch with it
 SCAN_TILE = 8192
+#: keys per tile of unique_compact's radix passes (kTile in csrc/compact.cu);
+#: the wrapper sizes the per-tile histograms with it
+RADIX_TILE = 4096
 
 _lib: ctypes.CDLL | None = None
 
@@ -45,12 +50,14 @@ _SIGNATURES = {
     "adhash_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P],
     "adhash_bucket_by_dest": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I,
                               _P],
-    "adhash_unique_compact_i32": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
-                                  ctypes.c_int32, _P],
-    "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
-                                  ctypes.c_int64, _P],
-    "adhash_flash_attn": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _L,
-                          _P],
+    "adhash_unique_compact_i32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                                  _L, ctypes.c_int32, _P],
+    "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                                  _L, ctypes.c_int64, _P],
+    "adhash_flash_attn_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _L,
+                              _P],
+    "adhash_flash_attn_bf16": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
+                               _L, _P],
 }
 
 

@@ -1,5 +1,10 @@
-"""Wrapper of the flash_attention kernel (``csrc/flash_attn.cu``) and its
-plain PyTorch version.
+"""Wrapper of the flash_attention kernels and their plain PyTorch version.
+
+Two hand-written kernels serve a CUDA tensor, chosen by its dtype
+(``flash_engine``): bfloat16 runs on the tensor cores (``wgmma``, TMA and a
+warp-specialised pipeline; ``csrc/flash_attn_sm90.cu``), float32 on the
+CUDA cores (``csrc/flash_attn.cu``), because TF32 tensor-core products
+would not hold float32's 1e-4.  Both count as ``LAUNCHES["flash_attention"]``.
 
 Replaces ``repro.kernels.flash_attention.flash_attention.flash_attention_fwd``
 (the TPU forward kernel) in the function ``repro.models.attention.
@@ -22,12 +27,24 @@ import torch
 from repro_torch.kernels import LAUNCHES, check_cuda, stream_ptr
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
-           "HEAD_DIMS"]
+           "flash_engine", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 #: head dims the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype -> (engine, exported symbol) of the kernel that serves it
+_ENGINES = {torch.bfloat16: ("wgmma", "adhash_flash_attn_bf16"),
+            torch.float32: ("cuda-core", "adhash_flash_attn_f32")}
+
+
+def flash_engine(dtype: torch.dtype) -> str:
+    """The kernel a CUDA tensor of ``dtype`` launches: ``"wgmma"`` (bf16,
+    tensor cores) or ``"cuda-core"`` (float32).  Raises on any other
+    dtype."""
+    if dtype not in _ENGINES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}; the kernels "
+                        "take bfloat16 (tensor cores) or float32 (CUDA cores)")
+    return _ENGINES[dtype][0]
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -72,15 +89,16 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0
                          ) -> torch.Tensor:
-    """Launch the hand-written kernel; forward only."""
+    """Launch the hand-written kernel that ``q``'s dtype selects
+    (``flash_engine``); forward only."""
     from repro_torch.kernels.build import check, library
 
     check_cuda("flash_attention", q, k, v)
     _check_shapes(q, k, v)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k and v must share one dtype, "
-                        f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share one dtype; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    flash_engine(q.dtype)
     b, t, h, hd = q.shape
     s, kvh = k.shape[1:3]
     if hd not in HEAD_DIMS:
@@ -88,6 +106,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds the grid's "
                          "65535")
+    if max(t, s) >= 2**31:
+        raise ValueError(f"flash_attention: T = {t} or S = {s} is not below "
+                         "2^31")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
@@ -100,10 +121,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if b == 0 or t == 0:
         return o
-    check(library().adhash_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPES[q.dtype], b, t, s, h, kvh, hd, int(causal), int(q_offset),
-        stream_ptr(q)), "flash_attention")
+    fn = getattr(library(), _ENGINES[q.dtype][1])
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, s,
+             h, kvh, hd, int(causal), int(q_offset), stream_ptr(q)),
+          "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o
 

@@ -1,4 +1,6 @@
-"""Wrapper of the unique_compact kernel (``csrc/compact.cu``).
+"""Wrapper of the unique_compact kernel (``csrc/compact.cu``): an LSD radix
+sort over 8-bit digits per worker row, then a card-wide scan that keeps the
+first occurrence of each valid value.
 
 Replaces ``repro.kernels.relalg_ops.compact.unique_compact_pallas``.  The
 plain version is ``repro_torch.core.relalg.unique_compact_plain``.
@@ -20,7 +22,8 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(uniq (W, out_cap), mask, n_unique (W,) int64) of
     ``relalg.unique_compact``; the whole output is specified."""
-    from repro_torch.kernels.build import SCAN_TILE, check, library
+    from repro_torch.kernels.build import (RADIX_TILE, SCAN_TILE, check,
+                                           library)
 
     check_cuda("unique_compact", values, valid)
     if values.dtype not in _FN or values.dim() != 2 or \
@@ -31,19 +34,28 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
             f"{tuple(valid.shape)} {valid.dtype}"
         )
     w, n = values.shape
+    if n >= 2**31:
+        raise ValueError(f"unique_compact: row length {n} is not below 2^31")
     dev = values.device
-    n_pad = 1 << max(n - 1, 1).bit_length()  # power of two >= max(n, 2)
+    digits = values.element_size()  # 8-bit radix digits per key
+    n_tiles = -(-n // RADIX_TILE)
     values = values.contiguous()
     valid = valid.contiguous()
-    scratch = torch.empty((w, n_pad), dtype=values.dtype, device=dev)
-    tile_sums = torch.empty((w, -(-n_pad // SCAN_TILE)), dtype=torch.int64,
-                            device=dev)
+    keys = torch.empty((2, w, n), dtype=values.dtype, device=dev)
+    scratch = torch.empty((4 * w + w * digits * 256 * (1 + n_tiles),),
+                          dtype=torch.int32, device=dev)
+    # row bin totals, summed with atomics; a row of one tile sorts without
+    totals = torch.zeros((w, digits, 256), dtype=torch.int32, device=dev) \
+        if n_tiles > 1 else scratch
+    tile_sums = torch.empty((w, -(-max(n, 1) // SCAN_TILE)),
+                            dtype=torch.int64, device=dev)
     uniq = torch.empty((w, out_cap), dtype=values.dtype, device=dev)
     n_unique = torch.empty((w,), dtype=torch.int64, device=dev)
     fn = getattr(library(), _FN[values.dtype])
-    check(fn(values.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
-             tile_sums.data_ptr(), uniq.data_ptr(), n_unique.data_ptr(), w,
-             n, n_pad, out_cap, int(pad), stream_ptr(values)),
+    check(fn(values.data_ptr(), valid.data_ptr(), keys.data_ptr(),
+             scratch.data_ptr(), totals.data_ptr(), tile_sums.data_ptr(),
+             uniq.data_ptr(), n_unique.data_ptr(), w, n, out_cap, int(pad),
+             stream_ptr(values)),
           "unique_compact")
     LAUNCHES["unique_compact"] += 1
     slot = torch.arange(out_cap, dtype=torch.int64, device=dev)

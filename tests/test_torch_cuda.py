@@ -7,9 +7,10 @@ port only, so it runs on a machine without jax:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 The DSJ kernels' outputs are integers and must be bit-exact (valid lanes
-only for ``expand``).  The flash_attention kernel is held to its plain
+only for ``expand``).  The flash_attention kernels are held to their plain
 version within 1e-4 (float32: summation order) and 2e-2 (bfloat16 output
-rounding), atol = rtol.
+rounding), atol = rtol; the bf16 tensor-core cases also within 1e-2 of each
+output row's largest magnitude (one bf16 ulp is at most 2^-7 of it).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.core import relalg as TR
 from repro_torch.kernels import LAUNCHES
 
 I32MAX = 2**31 - 1
+I64MAX = 2**63 - 1
 
 
 @pytest.fixture
@@ -68,7 +70,7 @@ def test_cuda_relalg_kernels_match_plain(cuda_device):
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 
-    for size in (1000, 40000):  # shared-memory and global sort paths
+    for size in (1000, 40000):  # one radix tile, many radix tiles
         vals1 = torch.from_numpy(rng.integers(0, 5000, (w, size))
                                  .astype(np.int32))
         valid1 = torch.from_numpy(rng.random((w, size)) > 0.3)
@@ -244,3 +246,117 @@ def test_cuda_lm_matches_cpu(cuda_device, arch):
         n_c, cache_c = step_c(params_cpu, cache_c, {"tokens": tok, "pos": pos})
         assert torch.equal(n_g.cpu(), n_c)
         tok_g, tok = n_g[:, None], n_c[:, None]
+
+
+def _edge_row(kind, dtype, w, n, rng):
+    """(values, valid, pad) of one edge case of unique_compact's rows."""
+    info = np.iinfo(dtype)
+    pad = int(info.max)
+    valid = rng.random((w, n)) < 0.7
+    if kind == "random":
+        vals = rng.integers(0, 5000, (w, n))
+    elif kind == "all_invalid":
+        vals = rng.integers(0, 5000, (w, n))
+        valid[:] = False
+    elif kind == "all_equal":
+        vals = np.full((w, n), 7)
+        valid[:] = True
+    elif kind == "one_distinct":  # one valid value among invalid noise
+        vals = np.where(valid, 42, rng.integers(0, 5000, (w, n)))
+    elif kind == "negative":
+        vals = rng.integers(info.min // 2, 1 << 10, (w, n))
+    elif kind == "below_pad":
+        vals = rng.integers(pad - 1000, pad, (w, n))
+    else:  # full_range: every key below pad, both signs, all digits
+        vals = rng.integers(info.min, pad, (w, n), dtype=dtype)
+    return vals.astype(dtype), valid, pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "all_invalid", "all_equal",
+                                  "one_distinct", "negative", "below_pad",
+                                  "full_range"])
+@pytest.mark.parametrize("n", [1, 1000, 4096, (1 << 18) + 1])
+@pytest.mark.parametrize("w", [1, 8])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_cuda_unique_compact_edge_rows(cuda_device, dtype, w, n, kind):
+    """The radix sort's edge rows, bit-exact against the plain version:
+    empty and constant rows (every digit skipped), negative keys (the sign
+    flip), keys just below pad, full-range keys (no digit skipped), rows of
+    one key, of one tile exactly, and not a power of two."""
+    rng = np.random.default_rng(n + w + len(kind))
+    vals, valid, pad = _edge_row(kind, dtype, w, n, rng)
+    v_t, m_t = torch.from_numpy(vals), torch.from_numpy(valid)
+    before = LAUNCHES["unique_compact"]
+    for cap in (0, 2048):
+        got = TR.unique_compact(v_t.to(cuda_device), m_t.to(cuda_device),
+                                cap, pad)
+        want = TR.unique_compact_plain(v_t, m_t, cap, pad)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    assert LAUNCHES["unique_compact"] == before + 2
+
+
+def _check_bf16_attention(got, want):
+    """bf16 limits of chip_smoke.py: 2e-2 absolute, 1e-2 of each output
+    row's largest magnitude."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    assert float(d.max()) <= 2e-2, float(d.max())
+    assert float((d / scale).max()) <= 1e-2, float((d / scale).max())
+
+
+def _qkv_bf16(dev, b, t, s, h, kv, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+                 for shape in ((b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [1, 127, 129, 1000])
+@pytest.mark.parametrize("t", [1, 127, 129, 1000])
+def test_cuda_flash_attention_bf16_tensor_cores(cuda_device, t, s, hd, group,
+                                                causal):
+    """The tensor-core kernel at ragged T and S (TMA zero-fills the tiles'
+    tails), every head dim (each swizzle), MHA and GQA."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain, flash_engine)
+
+    assert flash_engine(torch.bfloat16) == "wgmma"
+    q, k, v = _qkv_bf16(cuda_device, 2, t, s, 2 * group, 2, hd,
+                        t * 7 + s + hd)
+    before = LAUNCHES["flash_attention"]
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _check_bf16_attention(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,q_offset", [(1, 200, 333, 133),
+                                            (1, 1, 4097, 4096),
+                                            (1, 130, 70, 5),
+                                            (3, 300, 300, 0),
+                                            (3, 100, 300, 200),
+                                            (3, 129, 1000, 871)])
+def test_cuda_flash_attention_bf16_offsets_and_batches(cuda_device, b, t, s,
+                                                       q_offset):
+    """bf16 with q_offset > 0, and B = 3 with S not a multiple of 128: the
+    4-D tensor map must zero-fill each batch's tail, never read the next
+    batch's keys."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    q, k, v = _qkv_bf16(cuda_device, b, t, s, 8, 2, 128, b * t + s)
+    with torch.inference_mode():
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset)
+            _check_bf16_attention(got, want)

@@ -43,7 +43,8 @@ from repro.models.model_zoo import build_model as jax_build_model
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.adaptive import AdaptiveShardingController
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_engine)
 from repro_torch.launch.serve import serve_loop
 from repro_torch.launch.train import make_serve_step
 from repro_torch.models import attention as TA
@@ -360,6 +361,16 @@ def test_flash_wrapper_checks_its_operands():
     k = torch.randn((1, 5, 1, 16))
     flash_attention_plain(q, k, k).sum().backward()
     assert q.grad is not None
+
+
+def test_flash_engine_is_chosen_by_dtype():
+    """A CUDA tensor's dtype names its kernel, with no fallback: bf16 the
+    tensor-core kernel, float32 the CUDA-core one, anything else raises."""
+    assert flash_engine(torch.bfloat16) == "wgmma"
+    assert flash_engine(torch.float32) == "cuda-core"
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="no kernel"):
+            flash_engine(dtype)
 
 
 # -------------------------------------------- (i) the port imports no jax
