@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
 """Kernel times of two checkouts of the port, in turns, on one GPU.
 
-    python3 chip_ab.py OLD_ROOT NEW_ROOT
+    python3 chip_ab.py OLD_ROOT NEW_ROOT [GROUP ...]
 
 Each root is a checkout holding ``src/repro_torch`` (for instance the parent
 commit unpacked with ``git archive`` beside the change).  The script runs
 one process per tree in the order old, new, new, old, so that both versions
 are timed on the same card in the same call; each process builds its
 tree's kernels and prints one JSON line of medians over CUDA events (20
-launches after 3 warm-ups) at the shapes of ``chip_smoke.py``'s phase 1:
-the bf16 flash_attention rows below 32k and the unique_compact rows, with
-``F.scaled_dot_product_attention`` and ``torch.unique`` beside them.  The
-last line holds each key's times per tree.  Without a card it exits 1.
+launches after 3 warm-ups) at the shapes of ``chip_smoke.py``'s phase 1.
+Groups (all by default):
+
+  dsj     range_search (int64 and int32) and span_search (M = 1) at every
+          row of phase 1, with ``torch.searchsorted`` x2 beside them, and
+          expand at every row; the inputs are phase 1's, rebuilt from their
+          seeds by this checkout's ``chip_smoke.py``
+  flash   the bf16 flash_attention rows below 32k, with
+          ``F.scaled_dot_product_attention`` beside them
+  unique  the unique_compact rows, with ``torch.unique`` beside them
+  lubm    LUBM-100 as phase 2 drives it (W = 8, 60 workload queries after
+          a cold pass): each template's warm p50 (ms) and its device busy
+          time in one profiled warm pass (s)
+
+The last line holds each key's times per tree.  Without a card it exits 1.
 """
 from __future__ import annotations
 
@@ -31,38 +42,56 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 # (n, value range, out_cap, dtype) per worker row, W = 8
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
+GROUPS = ("dsj", "flash", "unique", "lubm")
 
 
-def measure(root: str) -> dict:
+def measure(root: str, groups: list[str]) -> dict:
     """Times of one tree's kernels (runs in a process of its own)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    import chip_smoke  # this checkout's: the inputs of phase 1
+
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     from repro_torch.kernels.relalg_ops.compact import unique_compact_cuda
+    from repro_torch.kernels.relalg_ops.expand import expand_cuda
+    from repro_torch.kernels.semijoin.probe import (range_search_cuda,
+                                                    span_search_cuda)
 
     def time_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(20):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
+        return chip_smoke.time_ms(torch, fn)
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     out: dict[str, float] = {}
+    if "dsj" in groups:
+        for variant, keys, probes, probes_hi, _ in \
+                chip_smoke.range_search_cases():
+            k_t, p_t = cuda(keys), cuda(probes)
+            q_t = p_t if probes_hi is None else cuda(probes_hi)
+            if probes_hi is None:
+                out[f"range_search {variant}"] = time_ms(
+                    lambda: range_search_cuda(k_t, p_t))
+            else:
+                out[f"range_search {variant}"] = time_ms(
+                    lambda: span_search_cuda(k_t, p_t, q_t))
+            side = "right" if probes_hi is None else "left"
+            out[f"torch.searchsorted x2 {variant}"] = time_ms(lambda: (
+                torch.searchsorted(k_t, p_t, side="left", out_int32=True),
+                torch.searchsorted(k_t, q_t, side=side, out_int32=True)))
+            del k_t, p_t, q_t
+        for variant, lo, hi, cap, _ in chip_smoke.expand_cases():
+            lo_t, hi_t = cuda(lo), cuda(hi)
+            out[f"expand {variant}"] = time_ms(
+                lambda: expand_cuda(lo_t, hi_t, cap))
+            del lo_t, hi_t
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
-        for name, b, t, h, kv, hd, causal in FLASH:
+        for name, b, t, h, kv, hd, causal in FLASH if "flash" in groups \
+                else ():
             q, k, v = (torch.randn(shape, generator=gen, device=dev)
                        .to(torch.bfloat16)
                        for shape in ((b, t, h, hd), (b, t, kv, hd),
@@ -74,7 +103,7 @@ def measure(root: str) -> dict:
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
     rng = np.random.default_rng(0)
-    for n, hi, cap, dt in UNIQUE:
+    for n, hi, cap, dt in UNIQUE if "unique" in groups else ():
         vals = torch.from_numpy(rng.integers(0, hi, (8, n)).astype(dt)).to(dev)
         valid = torch.from_numpy(rng.random((8, n)) < 0.9).to(dev)
         pad = int(np.iinfo(dt).max)
@@ -85,22 +114,55 @@ def measure(root: str) -> dict:
         keyed = torch.where(valid, vals, pad).to(torch.int64) + offs
         out[f"torch.unique {tag}"] = time_ms(
             lambda: torch.unique(keyed.view(-1), sorted=True))
+    if "lubm" in groups:
+        out.update(measure_lubm(torch, chip_smoke))
+    return out
+
+
+def measure_lubm(torch, chip_smoke) -> dict[str, float]:
+    """Warm p50 and profiled device busy time of each LUBM-100 template."""
+    import time
+
+    import numpy as np
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(100, 20, 30, 12, 2)
+    eng = AdHashEngine(triples, chip_smoke.W, adaptive=False, device="cuda")
+    queries = Workload(d, seed=0).sample(60)
+    for q in queries:  # the cold pass
+        eng.query(q)
+    torch.cuda.synchronize()
+    lat: dict[str, list[float]] = {}
+    for q in queries:
+        a = time.perf_counter()
+        eng.query(q)
+        torch.cuda.synchronize()
+        lat.setdefault(q.name, []).append(time.perf_counter() - a)
+    out = {f"lubm p50 ms {k}": float(np.percentile(v, 50)) * 1e3
+           for k, v in sorted(lat.items())}
+    for name in sorted(lat):
+        picked = [q for q in queries if q.name == name]
+        prof = chip_smoke.profile_run(
+            torch, lambda: [eng.query(q) for q in picked])
+        out[f"lubm device busy s {name}"] = prof["device_busy_s"]
     return out
 
 
 def main(argv: list[str]) -> int:
     import torch
 
-    if len(argv) == 3 and argv[1] == "--measure":
-        print(json.dumps(measure(argv[2])), flush=True)
+    if len(argv) >= 3 and argv[1] == "--measure":
+        print(json.dumps(measure(argv[2], argv[3:])), flush=True)
         return 0
-    if len(argv) != 3:
+    groups = argv[3:] or list(GROUPS)
+    if len(argv) < 3 or any(g not in GROUPS for g in groups):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 1
-    old, new = argv[1:]
+    old, new = argv[1:3]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -108,8 +170,9 @@ def main(argv: list[str]) -> int:
     print(smi, flush=True)
     runs: dict[str, list[dict]] = {"old": [], "new": []}
     for tag, root in (("old", old), ("new", new), ("new", new), ("old", old)):
-        res = subprocess.run([sys.executable, __file__, "--measure", root],
-                             capture_output=True, text=True, timeout=600)
+        res = subprocess.run(
+            [sys.executable, __file__, "--measure", root, *groups],
+            capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stderr, file=sys.stderr)
             return 1

@@ -17,7 +17,12 @@ Phases:
   0 setup   card name and power limit, kernel build seconds
   1 kernels each kernel vs its plain version at main-path shapes: the four
             DSJ kernels (W = 8) bit-exact (valid lanes only for expand;
-            unique_compact in int32 and int64), flash_attention (which
+            unique_compact in int32 and int64); range_search and expand at
+            the shapes and mixes phase 2's census gives them (the reply
+            probe: int64 keys N = 594,575, M = 2^23, 0.57% live; the
+            finalize probe: int32 keys N = 2^23, M = 2^20, 8.6% live;
+            span_search at M = 1; expand at n = 2^23, 2^20 and 1 into 2^20
+            lanes), then their earlier random rows; flash_attention (which
             kernel served each row is printed) within 1e-4 (f32) / 2e-2
             (bf16) absolute and
             1e-4 / 1e-2 of each output row's largest magnitude, at the
@@ -26,10 +31,12 @@ Phases:
             medians over CUDA events, and the roofline bound
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
-            templates), each kernel's launch count on that run, warm qps and
+            templates), each kernel's launch count on that run and, by
+            shape, each DSJ kernel's (the census), warm qps and
             per-template p50/p99, a warm chain query's host syncs, a
             profiled warm pass per template (device busy time, idle share,
-            top kernels), and two queries per template held against a
+            top kernels, each DSJ kernel's device time), and two queries
+            per template held against a
             device="cpu" engine
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
@@ -54,6 +61,8 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -111,6 +120,106 @@ def assert_equal(name: str, got, want) -> float:
     return 0.0
 
 
+# ------------------------------------------------- phase 1's DSJ inputs
+# The shapes and mixes LUBM-100 gives range_search and expand (phase 2's
+# census): per worker (W = 8), a store row of 594,575 int64 keys; the
+# reply probe's 8 senders x 2^20 lanes, each sender's live probes first
+# and ascending, then the clamped key p*NID in every padding lane;
+# finalize_join's 2^23 sorted int32 candidate keys (invalid ones =
+# INT32_MAX last) probed by 2^20 unsorted relation values.  Each row has a
+# seed of its own, so chip_ab.py rebuilds the same inputs.
+STORE_ROW = 594_575  # keys per worker row of LUBM-100's store at W = 8
+NID = 1 << 21  # composite keys p * NID + id
+SENDERS, CAP_PEER = 8, 1 << 20  # the reply: W senders x cap_peer lanes
+
+
+def range_search_cases():
+    """(variant, keys, probes, probes_hi or None, main) of each range_search
+    row of phase 1 (probes_hi: the span form)."""
+    rng = np.random.default_rng(101)
+    # store keys over 18 predicates, the last eighth padded with INT64_MAX
+    live = STORE_ROW - STORE_ROW // 8
+    keys = np.full((W, STORE_ROW), I64MAX, np.int64)
+    keys[:, :live] = np.sort(rng.integers(0, 18 * NID, (W, live)), axis=1)
+    p = 5  # the probed predicate: padding lanes hold p * NID
+    probes = np.full((W, SENDERS, CAP_PEER), p * NID, np.int64)
+    n_live = round(CAP_PEER * 0.0057)
+    for w in range(W):
+        in_p = keys[w][(keys[w] >= p * NID) & (keys[w] < (p + 1) * NID)]
+        for s in range(SENDERS):
+            hits = rng.choice(in_p, n_live // 2)
+            misses = rng.integers(p * NID, (p + 1) * NID, n_live - n_live // 2)
+            probes[w, s, :n_live] = np.sort(np.concatenate([hits, misses]))
+    yield ("int64 reply N=594575 M=2^23 live 0.57%", keys,
+           probes.reshape(W, -1), None, True)
+    del probes
+    lo_k = np.full((W, 1), p * NID, np.int64)
+    yield ("span_search int64 match_ranges N=594575 M=1", keys, lo_k,
+           lo_k + NID, False)
+
+    rng = np.random.default_rng(102)
+    n, m = 1 << 23, 1 << 20
+    n_keys = n // 10
+    keys = np.full((W, n), I32MAX, np.int32)
+    keys[:, :n_keys] = np.sort(rng.integers(0, 1 << 22, (W, n_keys)), axis=1)
+    hits = keys[np.arange(W)[:, None], rng.integers(0, n_keys, (W, m))]
+    vals = np.where(rng.random((W, m)) < 0.5, hits,
+                    rng.integers(0, 1 << 22, (W, m)))
+    probes = np.where(rng.random((W, m)) < 0.086, vals, I32MAX)
+    yield ("int32 finalize N=2^23 M=2^20 live 8.6%", keys,
+           probes.astype(np.int32), None, False)
+
+    # the earlier rows: N = 2^20 random keys, M = 2^16 probes, half hits
+    rng = np.random.default_rng(103)
+    n, m = 1 << 20, 1 << 16
+    for dtype, pad, hi_val in ((np.int64, I64MAX, 1 << 40),
+                               (np.int32, I32MAX, 1 << 30)):
+        live = n - n // 8  # padded tail, as in a store row
+        keys = np.full((W, n), pad, dtype)
+        keys[:, :live] = np.sort(rng.integers(0, hi_val, (W, live)), axis=1)
+        hit = keys[np.arange(W)[:, None], rng.integers(0, live, (W, m))]
+        miss = rng.integers(0, hi_val, (W, m))
+        probes = np.where(rng.random((W, m)) < 0.5, hit, miss).astype(dtype)
+        probes[:, :16] = pad  # probes equal to the pad: searchsorted result
+        yield (f"{np.dtype(dtype).name} N=2^20 M=2^16 random", keys, probes,
+               None, False)
+
+
+def expand_cases():
+    """(variant, lo, hi, out_cap, main) of each expand row of phase 1."""
+    rng = np.random.default_rng(201)
+    # the reply's gather_rows: 8 senders x 2^20 probe ranges, the first
+    # 1.14% of each sender's lanes live and half of those matched (1-3 rows)
+    k = round(CAP_PEER * 0.0114)
+    lo = np.zeros((W, SENDERS, CAP_PEER), np.int32)
+    lo[..., :k] = np.sort(rng.integers(0, STORE_ROW, (W, SENDERS, k)), axis=2)
+    hi = lo.copy()
+    hi[..., :k] += np.where(rng.random((W, SENDERS, k)) < 0.5,
+                            rng.integers(1, 4, (W, SENDERS, k)), 0
+                            ).astype(np.int32)
+    yield ("n=2^23 out_cap=2^20 reply 0.57% non-empty",
+           lo.reshape(W, -1), hi.reshape(W, -1), 1 << 20, True)
+    del lo, hi
+    # finalize_join: 2^20 relation rows, 8.6% matched (1-4 candidates)
+    n = 1 << 20
+    lo = rng.integers(0, 1 << 23, (W, n)).astype(np.int32)
+    hi = lo + np.where(rng.random((W, n)) < 0.086,
+                       rng.integers(1, 5, (W, n)), 0).astype(np.int32)
+    yield "n=2^20 out_cap=2^20 finalize 8.6% non-empty", lo, hi, 1 << 20, False
+    # match_rows: one range a worker
+    lo = rng.integers(0, 1 << 20, (W, 1)).astype(np.int32)
+    yield "n=1 out_cap=2^20 match_rows", lo, lo + 135_000, 1 << 20, False
+    # the earlier rows: dense short ranges, and a 12% reply-like row
+    n = 1 << 16
+    lo = rng.integers(0, 1 << 20, (W, n)).astype(np.int32)
+    hi = lo + rng.integers(0, 31, (W, n)).astype(np.int32)
+    yield "n=2^16 out_cap=2^20 dense", lo, hi, 1 << 20, False
+    n = 1 << 20
+    lo = rng.integers(0, 1 << 20, (W, n)).astype(np.int32)
+    hi = lo + np.where(rng.random((W, n)) < 0.12, 1, 0).astype(np.int32)
+    yield "n=2^20 out_cap=2^18 12% non-empty", lo, hi, 1 << 18, False
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_kernels(torch) -> dict[str, dict]:
     from repro_torch.core import backend, relalg
@@ -140,43 +249,45 @@ def phase_kernels(torch) -> dict[str, dict]:
         if main:
             rows[name] = row
 
-    # ---- range_search: N = 2^20 keys, M = 2^16 probes per worker
-    n, m = 1 << 20, 1 << 16
-    for dtype, pad, hi_val, main in ((np.int64, I64MAX, 1 << 40, True),
-                                     (np.int32, I32MAX, 1 << 30, False)):
-        live = n - n // 8  # padded tail, as in a store row
-        keys = np.full((W, n), pad, dtype)
-        keys[:, :live] = np.sort(rng.integers(0, hi_val, (W, live)), axis=1)
-        hit = keys[np.arange(W)[:, None], rng.integers(0, live, (W, m))]
-        miss = rng.integers(0, hi_val, (W, m))
-        probes = np.where(rng.random((W, m)) < 0.5, hit, miss).astype(dtype)
-        probes[:, :16] = pad  # probes equal to the pad: searchsorted result
+    # ---- range_search / span_search: the main path's rows (LUBM-100's
+    # census, phase 2), then the earlier random rows as variants
+    for variant, keys, probes, probes_hi, main in range_search_cases():
         k_t, p_t = cuda(keys), cuda(probes)
-        got = range_search_cuda(k_t, p_t)
-        want = backend.range_search_plain(k_t, p_t)
-        err = max(assert_equal("range_search lo", got[0], want[0]),
-                  assert_equal("range_search hi", got[1], want[1]))
-        isz = np.dtype(dtype).itemsize
-        record("range_search", f"{np.dtype(dtype).name} N=2^20 M=2^16", err,
-               lambda: range_search_cuda(k_t, p_t),
-               lambda: backend.range_search_plain(k_t, p_t),
-               lambda: (torch.searchsorted(k_t, p_t, side="left"),
-                        torch.searchsorted(k_t, p_t, side="right")),
-               W * n * isz + W * m * isz + 2 * W * m * 4,
-               2 * W * m * math.ceil(math.log2(n)), main)
-        if main:  # span form (two left searches) on the same keys
-            p2 = cuda(probes + 1 - (probes == pad))
+        q_t = None if probes_hi is None else cuda(probes_hi)
+        if q_t is None:
+            kernel_fn = lambda: range_search_cuda(k_t, p_t)
+            plain_fn = lambda: backend.range_search_plain(k_t, p_t)
+            library_fn = lambda: (
+                torch.searchsorted(k_t, p_t, side="left", out_int32=True),
+                torch.searchsorted(k_t, p_t, side="right", out_int32=True))
+        else:
+            kernel_fn = lambda: span_search_cuda(k_t, p_t, q_t)
+            plain_fn = lambda: backend.span_search_plain(k_t, p_t, q_t)
+            library_fn = lambda: (
+                torch.searchsorted(k_t, p_t, side="left", out_int32=True),
+                torch.searchsorted(k_t, q_t, side="left", out_int32=True))
+        got, want = kernel_fn(), plain_fn()
+        err = max(assert_equal(f"range_search lo {variant}", got[0], want[0]),
+                  assert_equal(f"range_search hi {variant}", got[1], want[1]))
+        if q_t is None and variant.startswith("int64 N=2^20"):
+            # span form (two left searches, q < p in a few) on the same keys
+            pad = torch.iinfo(k_t.dtype).max
+            p2 = torch.where(p_t == pad, p_t, p_t + 1)
+            p2[:, :64] = p_t[:, :64] - 7
             got = span_search_cuda(k_t, p_t, p2)
             want = backend.span_search_plain(k_t, p_t, p2)
             assert_equal("span_search lo", got[0], want[0])
             assert_equal("span_search hi", got[1], want[1])
+        isz = keys.itemsize
+        w, n = keys.shape
+        m = probes.shape[1]
+        n_probe_arrays = 1 if q_t is None else 2
+        record("range_search", variant, err, kernel_fn, plain_fn, library_fn,
+               w * n * isz + n_probe_arrays * w * m * isz + 2 * w * m * 4,
+               2 * w * m * math.ceil(math.log2(max(n, 2))), main)
+        del k_t, p_t, q_t, got, want
 
-    # ---- expand: n = 2^16 ranges, out_cap = 2^20 lanes per worker
-    n, cap = 1 << 16, 1 << 20
-    lo = rng.integers(0, 1 << 20, (W, n)).astype(np.int32)
-    hi = lo + rng.integers(0, 31, (W, n)).astype(np.int32)
-    lo_t, hi_t = cuda(lo), cuda(hi)
-
+    # ---- expand: the main path's rows, then the earlier rows as variants
     def check_expand(lo_t, hi_t, cap, tag):
         got = expand_cuda(lo_t, hi_t, cap)
         want = relalg.expand_plain(lo_t, hi_t, cap)
@@ -186,7 +297,16 @@ def phase_kernels(torch) -> dict[str, dict]:
         assert_equal(f"expand left {tag}", got[0][v], want[0][v])
         return assert_equal(f"expand right_pos {tag}", got[1][v], want[1][v])
 
-    err = check_expand(lo_t, hi_t, cap, "main")
+    for variant, lo, hi, cap, main in expand_cases():
+        lo_t, hi_t = cuda(lo), cuda(hi)
+        err = check_expand(lo_t, hi_t, cap, variant)
+        w, n = lo.shape
+        record("expand", variant, err,
+               lambda: expand_cuda(lo_t, hi_t, cap),
+               lambda: relalg.expand_plain(lo_t, hi_t, cap), None,
+               2 * w * n * 4 + w * cap * 9 + w * 8,
+               w * n + w * cap * math.ceil(math.log2(max(n, 2))), main)
+        del lo_t, hi_t
     # the int64-total case: 8 ranges of 2^30 rows -> total 2^33
     big_lo = cuda(np.zeros((W, 8), np.int32))
     big_hi = cuda(np.full((W, 8), 1 << 30, np.int32))
@@ -194,23 +314,7 @@ def phase_kernels(torch) -> dict[str, dict]:
     tot = expand_cuda(big_lo, big_hi, 32)[3]
     if int(tot.min()) != 8 << 30:
         raise AssertionError(f"expand total wrapped: {tot.tolist()}")
-    record("expand", "n=2^16 out_cap=2^20", err,
-           lambda: expand_cuda(lo_t, hi_t, cap),
-           lambda: relalg.expand_plain(lo_t, hi_t, cap), None,
-           2 * W * n * 4 + W * cap * 9 + W * 8,
-           W * n + W * cap * math.ceil(math.log2(n)), True)
-    # the reply path's shape: 2^20 probe ranges per worker (8 senders x
-    # 2^17 values), most of them empty, into 2^18 lanes
-    n, cap = 1 << 20, 1 << 18
-    lo = rng.integers(0, 1 << 20, (W, n)).astype(np.int32)
-    hi = lo + np.where(rng.random((W, n)) < 0.12, 1, 0).astype(np.int32)
-    lo_t, hi_t = cuda(lo), cuda(hi)
-    err = check_expand(lo_t, hi_t, cap, "reply")
-    record("expand", "n=2^20 out_cap=2^18", err,
-           lambda: expand_cuda(lo_t, hi_t, cap),
-           lambda: relalg.expand_plain(lo_t, hi_t, cap), None,
-           2 * W * n * 4 + W * cap * 9 + W * 8,
-           W * n + W * cap * math.ceil(math.log2(n)), False)
+    torch.cuda.empty_cache()
 
     # ---- bucket_by_dest: n = 2^18 rows, 8 destinations, cap_peer = 2^15;
     # destination 0 takes ~30% of the rows (~63K valid > cap_peer)
@@ -235,6 +339,25 @@ def phase_kernels(torch) -> dict[str, dict]:
                None,
                W * n * (4 * k + 4 + 1) + W * nd * cap * (4 * k + 1) + W * 8,
                4 * W * n, k == 3)
+    # the shape LUBM-100 gives it (phase 2's census): 2^20 rows into 8
+    # destinations of cap_peer = 2^20, a tenth of the rows valid
+    n = cap = 1 << 20
+    dest = rng.integers(0, nd, (W, n)).astype(np.int32)
+    valid = rng.random((W, n)) < 0.1
+    vals = rng.integers(0, 1 << 30, (W, n, 3)).astype(np.int32)
+    v_t, d_t, m_t = cuda(vals), cuda(dest), cuda(valid)
+    got = bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap)
+    want = relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap)
+    for part, g, w_ in zip(("send", "send_valid", "max"), got, want):
+        err = assert_equal(f"bucket_by_dest {part} LUBM shape", g, w_)
+    del got, want
+    record("bucket_by_dest", "n=2^20 k=3 n_dest=8 cap_peer=2^20 10% valid",
+           err, lambda: bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap),
+           lambda: relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap), None,
+           W * n * (4 * 3 + 4 + 1) + W * nd * cap * (4 * 3 + 1) + W * 8,
+           4 * W * n, False)
+    del v_t, d_t, m_t
+    torch.cuda.empty_cache()
 
     # ---- unique_compact: n = 2^10 (one radix tile) and n = 2^18 (the main
     # path's row, 64 tiles) in int32, and n = 2^18 in int64 (8 digits, the
@@ -380,10 +503,18 @@ def phase_flash(torch) -> dict:
 
 
 # ------------------------------------------------------------------ phase 2
+# device kernels of each DSJ kernel's wrapper, by a part of their names
+PORT_KERNELS = {"range_search": ("probe_kernel",),
+                "expand": ("expand_scan", "expand_lanes"),
+                "bucket_by_dest": ("bucket_",),
+                "unique_compact": ("radix_", "compact_", "tile_sums")}
+
+
 def profile_run(torch, fn) -> dict:
     """``fn()`` once under torch.profiler: wall time, device busy time (sum
-    of kernel self times), the idle share of the wall, and the kernels
-    taking the most device time."""
+    of kernel self times), the idle share of the wall, the kernels taking
+    the most device time, and the device time of each DSJ kernel of the
+    port (ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -399,10 +530,60 @@ def profile_run(torch, fn) -> dict:
         getattr(e, "self_cuda_time_total", 0)
     busy = sum(self_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=self_us, reverse=True)[:5]
+    port = {name: sum(self_us(e) for e in kernels
+                      if any(part in e.key for part in parts)) / 1e3
+            for name, parts in PORT_KERNELS.items()}
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1 - busy / wall, "kernel_kinds": len(kernels),
             "top": [{"kernel": e.key[:60], "ms": self_us(e) / 1e3,
-                     "calls": e.count} for e in top]}
+                     "calls": e.count} for e in top],
+            "port_kernels_ms": port}
+
+
+@contextmanager
+def shape_census():
+    """Counts the DSJ wrappers' launches by shape while open: the four
+    wrapper functions are replaced by counting ones in their modules (the
+    core modules import them at each call) and put back on exit."""
+    from repro_torch.kernels.relalg_ops import bucket, compact, expand
+    from repro_torch.kernels.semijoin import probe
+
+    counts: Counter = Counter()
+
+    def probe_shape(name):
+        return lambda keys, probes, *_: (
+            name, ("N", keys.shape[1]), ("M", probes.shape[1]),
+            ("dtype", str(keys.dtype).split(".")[1]))
+
+    shapes = {
+        (probe, "range_search_cuda"): probe_shape("range_search"),
+        (probe, "span_search_cuda"): probe_shape("span_search"),
+        (expand, "expand_cuda"): lambda lo, hi, out_cap: (
+            "expand", ("n", lo.shape[1]), ("out_cap", out_cap)),
+        (bucket, "bucket_by_dest_cuda"):
+            lambda values, dest, valid, n_dest, cap_peer, *_: (
+                "bucket_by_dest", ("n", values.shape[1]),
+                ("k", values.shape[2]), ("n_dest", n_dest),
+                ("cap_peer", cap_peer)),
+        (compact, "unique_compact_cuda"): lambda values, valid, out_cap, pad: (
+            "unique_compact", ("n", values.shape[1]), ("out_cap", out_cap),
+            ("dtype", str(values.dtype).split(".")[1])),
+    }
+    originals = {key: getattr(*key) for key in shapes}
+
+    def counting(fn, shape):
+        def wrapper(*args):
+            counts[shape(*args)] += 1
+            return fn(*args)
+        return wrapper
+
+    for (mod, name), shape in shapes.items():
+        setattr(mod, name, counting(originals[(mod, name)], shape))
+    try:
+        yield counts
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
 
 
 def phase_lubm(torch) -> dict[str, int]:
@@ -425,11 +606,21 @@ def phase_lubm(torch) -> dict[str, int]:
 
     # the main path: counts set to 0 just before, read just after
     reset_launches()
-    t1 = time.perf_counter()
-    cold = [eng.query(q) for q in queries]
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t1
+    with shape_census() as census:
+        t1 = time.perf_counter()
+        cold = [eng.query(q) for q in queries]
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t1
     launches = dict(LAUNCHES)
+    by_kernel: dict[str, int] = {}
+    for (name, *_), count in census.items():
+        name = "range_search" if name == "span_search" else name
+        by_kernel[name] = by_kernel.get(name, 0) + count
+    if any(by_kernel.get(k, 0) != launches[k] for k in RDF_KERNELS):
+        raise AssertionError(f"census {by_kernel} != launches {launches}")
+    emit({"phase": "lubm-census", "what": "launches by shape, cold pass",
+          "shapes": [{"kernel": name, "shape": dict(shape), "launches": c}
+                     for (name, *shape), c in census.most_common()]})
     missing = [k for k in RDF_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the LUBM path: "

@@ -36,16 +36,19 @@ def reset_launches() -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s device (the raw handle:
+    building a ``torch.cuda.Stream`` object costs a launch's worth of host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Every operand of a kernel is a CUDA tensor on one device."""
-    dev = tensors[0].device
+    """Every operand of a kernel is a CUDA tensor on one device (compared
+    by device index: a CPU tensor's is -1)."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
+        if dev < 0 or t.get_device() != dev:
             raise ValueError(
-                f"{name}: every operand must be a CUDA tensor on {dev}, got "
-                f"one on {t.device}"
+                f"{name}: every operand must be a CUDA tensor on "
+                f"{tensors[0].device}, got one on {t.device}"
             )

@@ -47,7 +47,7 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "adhash_range_search_i64": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "adhash_range_search_i32": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "adhash_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P],
+    "adhash_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P],
     "adhash_bucket_by_dest": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I,
                               _P],
     "adhash_unique_compact_i32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
@@ -141,6 +141,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.adhash_expand_scratch_bytes.argtypes = [_I, _L, _L]
+        lib.adhash_expand_scratch_bytes.restype = ctypes.c_int64
         _lib = lib
     return _lib
 

@@ -17,7 +17,7 @@ def expand_cuda(lo: torch.Tensor, hi: torch.Tensor, out_cap: int
                            torch.Tensor]:
     """(left_idx, right_pos, valid, total) of ``relalg.expand``; only valid
     lanes are specified."""
-    from repro_torch.kernels.build import SCAN_TILE, check, library
+    from repro_torch.kernels.build import check, library
 
     check_cuda("expand", lo, hi)
     if lo.dtype != torch.int32 or hi.dtype != torch.int32 or \
@@ -28,8 +28,8 @@ def expand_cuda(lo: torch.Tensor, hi: torch.Tensor, out_cap: int
         )
     w, n = lo.shape
     dev = lo.device
-    left = torch.empty((w, out_cap), dtype=torch.int32, device=dev)
-    right_pos = torch.empty((w, out_cap), dtype=torch.int32, device=dev)
+    out = torch.empty((2, w, out_cap), dtype=torch.int32, device=dev)
+    left, right_pos = out[0], out[1]
     valid = torch.empty((w, out_cap), dtype=torch.bool, device=dev)
     total = torch.empty((w,), dtype=torch.int64, device=dev)
     if n == 0:  # no ranges: every lane invalid, nothing to launch
@@ -40,12 +40,12 @@ def expand_cuda(lo: torch.Tensor, hi: torch.Tensor, out_cap: int
         return left, right_pos, valid, total
     lo = lo.contiguous()
     hi = hi.contiguous()
-    tile_sums = torch.empty((w, -(-n // SCAN_TILE)), dtype=torch.int64,
-                            device=dev)
-    cum = torch.empty((w, n), dtype=torch.int64, device=dev)
-    check(library().adhash_expand(
-        lo.data_ptr(), hi.data_ptr(), tile_sums.data_ptr(), cum.data_ptr(),
-        total.data_ptr(), left.data_ptr(), right_pos.data_ptr(),
-        valid.data_ptr(), w, n, out_cap, stream_ptr(lo)), "expand")
+    lib = library()
+    scratch = torch.empty(lib.adhash_expand_scratch_bytes(w, n, out_cap),
+                          dtype=torch.uint8, device=dev)
+    check(lib.adhash_expand(
+        lo.data_ptr(), hi.data_ptr(), scratch.data_ptr(), total.data_ptr(),
+        out.data_ptr(), out.data_ptr() + 4 * w * out_cap, valid.data_ptr(),
+        w, n, out_cap, stream_ptr(lo)), "expand")
     LAUNCHES["expand"] += 1
     return left, right_pos, valid, total

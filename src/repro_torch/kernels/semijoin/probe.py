@@ -1,8 +1,8 @@
 """Wrapper of the range_search kernel (``csrc/probe.cu``).
 
 Replaces ``repro.kernels.semijoin.semijoin.semijoin_probe`` (the TPU
-masked-compare probe) with a binary search per (worker, probe), holding
-``torch.searchsorted`` semantics.  The plain version is
+masked-compare probe) with a sampled binary search per distinct probe,
+holding ``torch.searchsorted`` semantics.  The plain version is
 ``repro_torch.core.backend.range_search_plain`` / ``span_search_plain``.
 """
 from __future__ import annotations
@@ -22,34 +22,34 @@ def _launch(keys: torch.Tensor, probes: torch.Tensor,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     from repro_torch.kernels.build import check, library
 
-    operands = (keys, probes) + ((probes_hi,) if probes_hi is not None
-                                 else ())
-    check_cuda("range_search", *operands)
-    if keys.dtype not in _FN or any(t.dtype != keys.dtype for t in operands):
+    span = probes_hi is not None
+    hi_src = probes_hi if span else probes
+    check_cuda("range_search", keys, probes, hi_src)
+    dtype = keys.dtype
+    if dtype not in _FN or probes.dtype != dtype or hi_src.dtype != dtype:
         raise TypeError(
             "range_search: keys and probes must share one dtype, int64 or "
-            f"int32; got {[t.dtype for t in operands]}"
+            f"int32; got {keys.dtype}, {probes.dtype}, {hi_src.dtype}"
         )
     if keys.dim() != 2 or probes.dim() != 2 or \
-            probes.shape[0] != keys.shape[0] or \
-            (probes_hi is not None and probes_hi.shape != probes.shape):
+            probes.shape[0] != keys.shape[0] or hi_src.shape != probes.shape:
         raise ValueError(
             f"range_search: expected keys (W, N) and probes (W, M); got "
             f"{tuple(keys.shape)} and {tuple(probes.shape)}"
         )
     keys = keys.contiguous()
     probes = probes.contiguous()
-    hi_src = probes_hi.contiguous() if probes_hi is not None else probes
+    hi_src = hi_src.contiguous()
     w, n = keys.shape
     m = probes.shape[1]
-    lo = torch.empty((w, m), dtype=torch.int32, device=keys.device)
-    hi = torch.empty((w, m), dtype=torch.int32, device=keys.device)
-    fn = getattr(library(), _FN[keys.dtype])
-    check(fn(keys.data_ptr(), probes.data_ptr(), hi_src.data_ptr(),
-             lo.data_ptr(), hi.data_ptr(), w, n, m,
-             int(probes_hi is not None), stream_ptr(keys)), "range_search")
+    out = torch.empty((2, w, m), dtype=torch.int32, device=keys.device)
+    lo_ptr = out.data_ptr()  # lo is out[0], hi out[1]
+    check(getattr(library(), _FN[dtype])(
+        keys.data_ptr(), probes.data_ptr(), hi_src.data_ptr(), lo_ptr,
+        lo_ptr + 4 * w * m, w, n, m, int(span), stream_ptr(keys)),
+        "range_search")
     LAUNCHES["range_search"] += 1
-    return lo, hi
+    return out[0], out[1]
 
 
 def range_search_cuda(keys: torch.Tensor, probes: torch.Tensor

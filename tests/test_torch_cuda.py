@@ -33,17 +33,154 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _probe_case(kind, dtype, w, n, m, rng):
+    """(keys, probes) of one range_search case: sorted keys with duplicates
+    and a dtype-max padded tail, probes in the mix ``kind`` names."""
+    pad = int(np.iinfo(dtype).max)
+    live = n - n // 8
+    keys = np.full((w, n), pad, np.int64)
+    keys[:, :live] = np.sort(rng.integers(0, 4 * n, (w, live)), axis=1)
+    hit = keys[np.arange(w)[:, None], rng.integers(0, max(live, 1), (w, m))]
+    probes = np.where(rng.random((w, m)) < 0.5, hit,
+                      rng.integers(-5, 4 * n + 5, (w, m)))
+    if kind == "ascending":
+        probes = np.sort(probes, axis=1)
+    elif kind == "padding":  # the reply's mix: a few live probes, ascending,
+        n_live = max(1, m // 100)  # then one clamped key in every lane
+        live_probes = np.sort(probes[:, :n_live], axis=1)
+        probes[:] = keys[:, :1]
+        probes[:, :n_live] = live_probes
+    elif kind == "odd_lane":  # warps of one probe, one other lane in each
+        probes[:] = hit[:, :1]
+        probes[:, 5::32] = hit[:, 5::32]
+    elif kind == "below":
+        probes = keys[:, :1] - 1 - rng.integers(0, 3, (w, m))
+    elif kind == "pad":
+        probes[:, ::3] = pad
+    return keys.astype(dtype), probes.astype(dtype)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
-def test_cuda_range_search_matches_plain(cuda_device, dtype):
-    g = torch.Generator().manual_seed(0)
-    keys = torch.sort(torch.randint(0, 1 << 20, (4, 5000), generator=g),
-                      dim=1).values.to(dtype)
-    probes = torch.randint(-5, (1 << 20) + 5, (4, 777), generator=g).to(dtype)
+@pytest.mark.parametrize("kind", ["random", "ascending", "padding",
+                                  "odd_lane", "below", "pad"])
+@pytest.mark.parametrize("n,m", [(5000, 777), (1, 100), (33, 1), (1000, 5),
+                                 (4097, 70000), (100_003, 3000)])
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_cuda_range_search_matches_plain(cuda_device, dtype, n, m, kind):
+    """Bit-exact at key rows shorter and longer than the sampled stride
+    (N not a multiple of it), one probe a worker, and the probe mixes the
+    kernel special-cases: warps of one probe (padding), one odd lane, probes
+    below every key or equal to the pad, ascending and random orders."""
+    rng = np.random.default_rng(n + m + len(kind))
+    keys, probes = (torch.from_numpy(a) for a in
+                    _probe_case(kind, dtype, 4, n, m, rng))
+    before = LAUNCHES["range_search"]
     got = TB.range_search(keys.to(cuda_device), probes.to(cuda_device))
     want = TB.range_search_plain(keys, probes)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+    lo_keys, hi_keys = probes, torch.flip(probes, [1])  # q < p in half
+    got = TB.span_search(keys.to(cuda_device), lo_keys.to(cuda_device),
+                         hi_keys.to(cuda_device))
+    want = TB.span_search_plain(keys, lo_keys, hi_keys)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert LAUNCHES["range_search"] == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_range_search_int32_finalize_shape(cuda_device):
+    """finalize_join's probe: int32 keys, N = 2^23 per worker (mostly pad),
+    2^20 unsorted probes, about 9% live and the rest equal to the pad."""
+    rng = np.random.default_rng(23)
+    w, n, m = 2, 1 << 23, 1 << 20
+    keys = np.full((w, n), I32MAX, np.int32)
+    live = n // 10
+    keys[:, :live] = np.sort(rng.integers(0, 1 << 24, (w, live)), axis=1)
+    probes = np.where(rng.random((w, m)) < 0.09,
+                      rng.integers(0, 1 << 24, (w, m)), I32MAX)
+    keys, probes = torch.from_numpy(keys), torch.from_numpy(
+        probes.astype(np.int32))
+    got = TB.range_search(keys.to(cuda_device), probes.to(cuda_device))
+    want = TB.range_search_plain(keys, probes)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_span_search_one_probe(cuda_device):
+    """match_ranges' form: one [lo_key, hi_key) span a worker over a store
+    row, including an empty span with hi_key < lo_key."""
+    rng = np.random.default_rng(1)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 1 << 40, (8, 594_575)),
+                                    axis=1))
+    for a, b in ((1 << 38, 1 << 39), (1 << 39, 1 << 38), (0, I64MAX - 1)):
+        lo_k = torch.full((8, 1), a, dtype=torch.int64)
+        hi_k = torch.full((8, 1), b, dtype=torch.int64)
+        got = TB.span_search(keys.to(cuda_device), lo_k.to(cuda_device),
+                             hi_k.to(cuda_device))
+        want = TB.span_search_plain(keys, lo_k, hi_k)
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y)
+
+
+def _expand_case(kind, rng):
+    """(lo, hi, out_cap) of one expand edge case, W = 3."""
+    w = 3
+    if kind == "all_zero":
+        lo = rng.integers(0, 100, (w, 10_000))
+        return lo, lo, 5000
+    if kind == "row_over_cap":  # one row's count alone exceeds out_cap
+        lo = rng.integers(0, 100, (w, 100))
+        hi = lo + rng.integers(0, 3, (w, 100))
+        hi[:, 40] = lo[:, 40] + 1_000_000
+        return lo, hi, 5000
+    if kind == "empty_runs":  # non-empty rows only next to tile borders,
+        n = 3 * 4096 + 17    # their lanes crossing lane blocks of 2048
+        lo = rng.integers(0, 1000, (w, n))
+        hi = lo.copy()
+        for r in (0, 4095, 4096, 8191, 8192, n - 1):
+            hi[:, r] = lo[:, r] + rng.integers(1000, 3000)
+        return lo, hi, 1 << 14
+    if kind == "first_lane_at_cap":  # row 7 starts exactly at out_cap
+        lo = np.zeros((w, 20), np.int64)
+        hi = np.full((w, 20), 3)
+        hi[:, 3] = 0
+        return lo, hi, 7 * 3 - 3
+    if kind == "ragged_cap":  # out_cap not a multiple of a lane block
+        lo = rng.integers(0, 1 << 20, (w, 5000))
+        return lo, lo + rng.integers(0, 6, (w, 5000)), 2048 * 3 + 5
+    if kind == "one_row":  # match_rows: n = 1
+        lo = rng.integers(0, 1000, (w, 1))
+        return lo, lo + 135_000, (1 << 17) + 3
+    if kind == "mostly_empty":  # the reply: 2^20 rows, ~0.6% non-empty
+        n = 1 << 20
+        lo = rng.integers(0, 1 << 20, (w, n))
+        return lo, lo + (rng.random((w, n)) < 0.006), 1 << 17
+    # total past 2^31 (2^33): the retry ladder reads it unwrapped
+    lo = np.zeros((w, 8), np.int64)
+    return lo, np.full((w, 8), 1 << 30), 5000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all_zero", "row_over_cap", "empty_runs",
+                                  "first_lane_at_cap", "ragged_cap",
+                                  "one_row", "mostly_empty", "total_2_33"])
+def test_cuda_expand_edges(cuda_device, kind):
+    """Bit-exact on the valid lanes, the valid mask and the int64 total."""
+    lo, hi, cap = _expand_case(kind, np.random.default_rng(len(kind)))
+    lo = torch.from_numpy(lo.astype(np.int32))
+    hi = torch.from_numpy(hi.astype(np.int32))
+    before = LAUNCHES["expand"]
+    got = TR.expand(lo.to(cuda_device), hi.to(cuda_device), cap)
+    want = TR.expand_plain(lo, hi, cap)
+    assert LAUNCHES["expand"] == before + 1
+    v = want[2]
+    assert torch.equal(got[2].cpu(), v) and torch.equal(got[3].cpu(), want[3])
+    assert torch.equal(got[0].cpu()[v], want[0][v])
+    assert torch.equal(got[1].cpu()[v], want[1][v])
+    if kind == "total_2_33":
+        assert got[3].tolist() == [8 << 30] * 3
 
 
 @pytest.mark.cuda

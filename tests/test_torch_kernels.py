@@ -128,6 +128,53 @@ def test_range_search_batched(w):
     np.testing.assert_array_equal(_np(hi), _np(rhi))
 
 
+def _probe_mix(kind, dtype, n, m, rng):
+    """(keys, probes) in the mixes the LUBM path gives range_search: store
+    keys with a dtype-max padded tail; the reply's probes (a few live ones,
+    ascending, then one clamped key in every padding lane); warps of one
+    probe with one odd lane; probes below every key; finalize_join's
+    unsorted probes, most of them equal to the pad."""
+    pad = int(np.iinfo(dtype).max)
+    live = n - n // 8
+    keys = np.full(n, pad, np.int64)
+    keys[:live] = np.sort(rng.integers(0, 4 * n, live))
+    hits = keys[rng.integers(0, live, m)]
+    if kind == "padding":
+        probes = np.full(m, keys[0] + 1)
+        probes[: m // 100 + 1] = np.sort(hits[: m // 100 + 1])
+    elif kind == "odd_lane":
+        probes = np.full(m, hits[0])
+        probes[5::32] = hits[5::32]
+    elif kind == "below":
+        probes = keys[0] - 1 - rng.integers(0, 3, m)
+    else:  # "finalize": unsorted, 9% live, the rest equal to the pad
+        probes = np.where(rng.random(m) < 0.09, hits, pad)
+    return keys.astype(dtype), probes.astype(dtype)
+
+
+@pytest.mark.parametrize("kind", ["padding", "odd_lane", "below",
+                                  "finalize"])
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_range_search_main_path_mixes(kind, dtype):
+    """The probe mixes the Hopper kernel special-cases (a lane reuses its
+    last answers, a warp searches each distinct probe once), through the
+    plain version against the Pallas kernel and its searchsorted oracle.
+    The Pallas kernel counts a probe equal to the pad as the padded length
+    (see test_range_search_probe_at_pad_is_searchsorted): those lanes are
+    held to the oracle only."""
+    rng = np.random.default_rng(len(kind) + np.dtype(dtype).itemsize)
+    keys, probes = _probe_mix(kind, dtype, 300, 256, rng)
+    lo, hi = TB.range_search(_t(keys), _t(probes))
+    rlo, rhi = semijoin_probe_ref(jnp.asarray(keys), jnp.asarray(probes))
+    np.testing.assert_array_equal(_np(lo)[0], _np(rlo))
+    np.testing.assert_array_equal(_np(hi)[0], _np(rhi))
+    plo, phi = semijoin_probe(jnp.asarray(keys), jnp.asarray(probes),
+                              interpret=True)
+    below_pad = probes != np.iinfo(dtype).max
+    np.testing.assert_array_equal(_np(lo)[0][below_pad], _np(plo)[below_pad])
+    np.testing.assert_array_equal(_np(hi)[0][below_pad], _np(phi)[below_pad])
+
+
 # ------------------------------------------------------------------- expand
 def _assert_expand_match(lo, hi, cap, pallas=True):
     left, pos, valid, total = TR.expand(_t(lo), _t(hi), cap)
@@ -165,6 +212,34 @@ def test_expand_parity_edge_cases():
     # reversed ranges count as empty
     _assert_expand_match(np.array([5, 3], np.int32),
                          np.array([2, 6], np.int32), 8)
+
+
+def _expand_mix(kind, rng):
+    """(lo, hi, out_cap) in the shapes the LUBM path gives expand: most rows
+    empty (the reply), long runs of empty rows between non-empty ones, a
+    non-empty row whose first lane is exactly out_cap, one long row."""
+    if kind == "mostly_empty":  # ~1% of 600 rows non-empty
+        lo = rng.integers(0, 1000, 600)
+        return lo, lo + (rng.random(600) < 0.01) * rng.integers(1, 4, 600), 64
+    if kind == "empty_runs":
+        lo = rng.integers(0, 1000, 500)
+        hi = lo.copy()
+        hi[[0, 1, 250, 499]] += [3, 1, 40, 7]
+        return lo, hi, 128
+    if kind == "first_lane_at_cap":  # row 7 starts at lane 18 = out_cap
+        lo = np.zeros(20, np.int64)
+        hi = np.full(20, 3)
+        hi[3] = 0
+        return lo, hi, 18
+    lo = rng.integers(0, 1000, 1)  # "one_row": match_rows, count > out_cap
+    return lo, lo + 500, 300
+
+
+@pytest.mark.parametrize("kind", ["mostly_empty", "empty_runs",
+                                  "first_lane_at_cap", "one_row"])
+def test_expand_main_path_mixes(kind):
+    lo, hi, cap = _expand_mix(kind, np.random.default_rng(len(kind)))
+    _assert_expand_match(lo.astype(np.int32), hi.astype(np.int32), cap)
 
 
 def test_expand_no_ranges():
