@@ -15,6 +15,12 @@ Groups (all by default):
           row of phase 1, with ``torch.searchsorted`` x2 beside them, and
           expand at every row; the inputs are phase 1's, rebuilt from their
           seeds by this checkout's ``chip_smoke.py``
+  bucket  bucket_by_dest at every row of phase 1 (the reply routing and
+          hash exchange rows at LUBM-100's shapes and mixes, then the
+          overflow and random rows), rebuilt from their seeds by this
+          checkout's ``chip_smoke.py``; beside each row's time, one call's
+          device time, in all and for its five longest kernels
+          (torch.profiler)
   flash   the bf16 flash_attention rows below 32k, with
           ``F.scaled_dot_product_attention`` beside them
   unique  the unique_compact rows, with ``torch.unique`` beside them
@@ -42,7 +48,7 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 # (n, value range, out_cap, dtype) per worker row, W = 8
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
-GROUPS = ("dsj", "flash", "unique", "lubm")
+GROUPS = ("dsj", "bucket", "flash", "unique", "lubm")
 
 
 def measure(root: str, groups: list[str]) -> dict:
@@ -55,6 +61,7 @@ def measure(root: str, groups: list[str]) -> dict:
 
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.relalg_ops.bucket import bucket_by_dest_cuda
     from repro_torch.kernels.relalg_ops.compact import unique_compact_cuda
     from repro_torch.kernels.relalg_ops.expand import expand_cuda
     from repro_torch.kernels.semijoin.probe import (range_search_cuda,
@@ -65,7 +72,7 @@ def measure(root: str, groups: list[str]) -> dict:
 
     dev = torch.device("cuda")
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    out: dict[str, float] = {}
+    out: dict = {}
     if "dsj" in groups:
         for variant, keys, probes, probes_hi, _ in \
                 chip_smoke.range_search_cases():
@@ -87,6 +94,18 @@ def measure(root: str, groups: list[str]) -> dict:
             out[f"expand {variant}"] = time_ms(
                 lambda: expand_cuda(lo_t, hi_t, cap))
             del lo_t, hi_t
+        torch.cuda.empty_cache()
+    if "bucket" in groups:
+        for variant, vals, dest, valid, nd, cap, _ in \
+                chip_smoke.bucket_cases():
+            v_t, d_t, m_t = cuda(vals), cuda(dest), cuda(valid)
+            fn = lambda: bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap)
+            out[f"bucket_by_dest {variant}"] = time_ms(fn)
+            prof = chip_smoke.profile_run(torch, fn)
+            out[f"bucket_by_dest device ms {variant}"] = {
+                "all": prof["device_busy_s"] * 1e3,
+                **{t["kernel"]: t["ms"] for t in prof["top"]}}
+            del v_t, d_t, m_t
         torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():

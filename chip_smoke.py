@@ -22,10 +22,16 @@ Phases:
             probe: int64 keys N = 594,575, M = 2^23, 0.57% live; the
             finalize probe: int32 keys N = 2^23, M = 2^20, 8.6% live;
             span_search at M = 1; expand at n = 2^23, 2^20 and 1 into 2^20
-            lanes), then their earlier random rows; flash_attention (which
-            kernel served each row is printed) within 1e-4 (f32) / 2e-2
-            (bf16) absolute and
-            1e-4 / 1e-2 of each output row's largest magnitude, at the
+            lanes), then their earlier random rows; bucket_by_dest at the
+            shapes and mixes of its two callers (n = 2^20 rows into 8 x 2^20
+            slots, a valid prefix of 4.57%: the reply routing, k = 3, with
+            senders in order; the hash exchange, k = 1, with hashed
+            destinations), then its earlier rows (n = 2^18 overflowing
+            cap_peer = 2^15, k = 1 and 3; random destinations, 10% valid);
+            the bound counts the bytes the function must move;
+            flash_attention (which kernel served each row is printed)
+            within 1e-4 (f32) / 2e-2 (bf16) absolute and 1e-4 / 1e-2 of
+            each output row's largest magnitude, at the
             shape phase 4's prefill gives it (B=4, T=S=4096), variants,
             and 32k rows in bf16 and f32; kernel, plain and library-call
             medians over CUDA events, and the roofline bound
@@ -35,9 +41,10 @@ Phases:
             shape, each DSJ kernel's (the census), warm qps and
             per-template p50/p99, a warm chain query's host syncs, a
             profiled warm pass per template (device busy time, idle share,
-            top kernels, each DSJ kernel's device time), and two queries
-            per template held against a
-            device="cpu" engine
+            top kernels, each DSJ kernel's device time), in a pass of its
+            own the mix each bucket_by_dest shape gets (valid share, valid
+            prefix, destinations in order), and two queries per template
+            held against a device="cpu" engine
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
@@ -220,6 +227,83 @@ def expand_cases():
     yield "n=2^20 out_cap=2^18 12% non-empty", lo, hi, 1 << 18, False
 
 
+# The mixes LUBM-100 gives bucket_by_dest (phase 2's ``lubm-bucket-mix``
+# census, on an NVIDIA H100 80GB HBM3 at 700.00 W).  Both callers pass
+# n = 2^20 rows into 8 destinations of cap_peer = 2^20 slots, and in every
+# call the valid rows formed a prefix.
+# The reply routing (k = 3, 50 calls) gets expand's lanes: a median of
+# 4.57% of the rows valid, senders that never decrease (all 50 calls), and
+# lanes past the prefix are left = n - 1, the last sender; the census saw
+# no holes, and the row keeps a few (0.1% of the prefix) where the
+# residual mask can drop a row.  The hash exchange (k = 1, 41 calls) gets
+# project_unique's sorted uniques: the same median share, the rest -1,
+# destinations splitmix64(v) % 8.
+REPLY_SHARE, REPLY_DENSITY = 0.0457, 0.999
+HASH_SHARE = 0.0457
+
+
+def bucket_cases():
+    """(variant, values, dest, valid, n_dest, cap_peer, main) of each
+    bucket_by_dest row of phase 1; each row has a seed of its own."""
+    from repro_torch.core.placement import splitmix64_np
+
+    n = cap = 1 << 20
+    rng = np.random.default_rng(301)
+    live = round(n * REPLY_SHARE / REPLY_DENSITY)
+    valid = np.zeros((W, n), bool)
+    valid[:, :live] = rng.random((W, live)) < REPLY_DENSITY
+    # senders in order, each taking a random share of the prefix
+    cuts = np.sort(rng.integers(0, live, (W, SENDERS - 1)), axis=1)
+    dest = np.full((W, n), SENDERS - 1, np.int32)
+    for w in range(W):
+        dest[w, :live] = np.searchsorted(cuts[w], np.arange(live),
+                                         side="right")
+    vals = np.where(valid[..., None],
+                    rng.integers(0, 1 << 30, (W, n, 3)), -1).astype(np.int32)
+    yield (f"reply n=2^20 k=3 n_dest=8 cap_peer=2^20 prefix "
+           f"{REPLY_SHARE:.2%} sorted", vals, dest, valid, SENDERS, cap, True)
+    del vals, valid, dest
+
+    rng = np.random.default_rng(302)
+    n_u = round(n * HASH_SHARE)
+    vals = np.full((W, n), -1, np.int64)
+    for w in range(W):
+        vals[w, :n_u] = np.sort(rng.choice(1 << 22, n_u, replace=False))
+    valid = vals >= 0
+    dest = (splitmix64_np(vals) % SENDERS).astype(np.int32)
+    yield (f"hash n=2^20 k=1 n_dest=8 cap_peer=2^20 prefix "
+           f"{HASH_SHARE:.2%} hashed", vals.astype(np.int32)[..., None],
+           dest, valid, SENDERS, cap, False)
+    del vals, valid, dest
+
+    # the earlier rows: n = 2^18 into cap_peer = 2^15, destination 0 taking
+    # ~30% of the rows (~63K valid > cap_peer), and the LUBM shape with
+    # random destinations and a random tenth of the rows valid
+    rng = np.random.default_rng(303)
+    n, cap = 1 << 18, 1 << 15
+    dest = np.where(rng.random((W, n)) < 0.3, 0,
+                    rng.integers(0, SENDERS, (W, n))).astype(np.int32)
+    valid = rng.random((W, n)) < 0.8
+    for k in (1, 3):
+        vals = rng.integers(0, 1 << 30, (W, n, k)).astype(np.int32)
+        yield (f"overflow n=2^18 k={k} n_dest=8 cap_peer=2^15", vals, dest,
+               valid, SENDERS, cap, False)
+    rng = np.random.default_rng(304)
+    n = cap = 1 << 20
+    yield ("random n=2^20 k=3 n_dest=8 cap_peer=2^20 10% valid",
+           rng.integers(0, 1 << 30, (W, n, 3)).astype(np.int32),
+           rng.integers(0, SENDERS, (W, n)).astype(np.int32),
+           rng.random((W, n)) < 0.1, SENDERS, cap, False)
+
+
+def bucket_bytes(vals, valid, n_dest: int, cap: int) -> int:
+    """Bytes bucket_by_dest must move: ``valid`` of every row, ``dest`` and
+    ``values`` of the valid rows, all of send and send_valid, max_wanted."""
+    w, _, k = vals.shape
+    return (valid.size + int(valid.sum()) * (4 + 4 * k) +
+            w * n_dest * cap * (4 * k + 1) + 8 * w)
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_kernels(torch) -> dict[str, dict]:
     from repro_torch.core import backend, relalg
@@ -316,47 +400,25 @@ def phase_kernels(torch) -> dict[str, dict]:
         raise AssertionError(f"expand total wrapped: {tot.tolist()}")
     torch.cuda.empty_cache()
 
-    # ---- bucket_by_dest: n = 2^18 rows, 8 destinations, cap_peer = 2^15;
-    # destination 0 takes ~30% of the rows (~63K valid > cap_peer)
-    n, nd, cap = 1 << 18, W, 1 << 15
-    dest = np.where(rng.random((W, n)) < 0.3, 0,
-                    rng.integers(0, nd, (W, n))).astype(np.int32)
-    valid = rng.random((W, n)) < 0.8
-    for k in (1, 3):
-        vals = rng.integers(0, 1 << 30, (W, n, k)).astype(np.int32)
+    # ---- bucket_by_dest: the main path's rows (reply routing, hash
+    # exchange), then the earlier rows (overflow, random destinations)
+    for variant, vals, dest, valid, nd, cap, main in bucket_cases():
         v_t, d_t, m_t = cuda(vals), cuda(dest), cuda(valid)
         got = bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap)
         want = relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap)
         err = 0.0
         for part, g, w_ in zip(("send", "send_valid", "max"), got, want):
-            err = max(err, assert_equal(f"bucket_by_dest {part} k={k}", g,
-                                        w_))
-        if int(got[2].min()) <= cap:
+            err = max(err, assert_equal(f"bucket_by_dest {part} {variant}",
+                                        g, w_))
+        if "overflow" in variant and int(got[2].min()) <= cap:
             raise AssertionError("bucket_by_dest: no destination overflowed")
-        record("bucket_by_dest", f"n=2^18 k={k} n_dest=8 cap_peer=2^15", err,
+        del got, want
+        record("bucket_by_dest", variant, err,
                lambda: bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap),
                lambda: relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap),
-               None,
-               W * n * (4 * k + 4 + 1) + W * nd * cap * (4 * k + 1) + W * 8,
-               4 * W * n, k == 3)
-    # the shape LUBM-100 gives it (phase 2's census): 2^20 rows into 8
-    # destinations of cap_peer = 2^20, a tenth of the rows valid
-    n = cap = 1 << 20
-    dest = rng.integers(0, nd, (W, n)).astype(np.int32)
-    valid = rng.random((W, n)) < 0.1
-    vals = rng.integers(0, 1 << 30, (W, n, 3)).astype(np.int32)
-    v_t, d_t, m_t = cuda(vals), cuda(dest), cuda(valid)
-    got = bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap)
-    want = relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap)
-    for part, g, w_ in zip(("send", "send_valid", "max"), got, want):
-        err = assert_equal(f"bucket_by_dest {part} LUBM shape", g, w_)
-    del got, want
-    record("bucket_by_dest", "n=2^20 k=3 n_dest=8 cap_peer=2^20 10% valid",
-           err, lambda: bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap),
-           lambda: relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap), None,
-           W * n * (4 * 3 + 4 + 1) + W * nd * cap * (4 * 3 + 1) + W * 8,
-           4 * W * n, False)
-    del v_t, d_t, m_t
+               None, bucket_bytes(vals, valid, nd, cap), 4 * vals.shape[0] *
+               vals.shape[1], main)
+        del v_t, d_t, m_t
     torch.cuda.empty_cache()
 
     # ---- unique_compact: n = 2^10 (one radix tile) and n = 2^18 (the main
@@ -586,6 +648,40 @@ def shape_census():
             setattr(mod, name, fn)
 
 
+@contextmanager
+def bucket_mix_census(torch):
+    """Records, while open, the mix of every bucket_by_dest call by shape:
+    its valid share, whether each worker's valid rows form a prefix (and
+    the share of that prefix's span that is valid), and whether each
+    worker's valid destinations never decrease.  Reads back to the host at
+    every call, so it runs in a pass of its own."""
+    from repro_torch.kernels.relalg_ops import bucket
+
+    calls: dict[tuple, list[tuple[float, bool, float, bool]]] = {}
+    original = bucket.bucket_by_dest_cuda
+
+    def wrapper(values, dest, valid, n_dest, cap_peer, *rest):
+        w, n, k = values.shape
+        idx = torch.arange(n, device=valid.device)
+        span = (torch.where(valid, idx + 1, 0).amax(dim=1)
+                if n else torch.zeros(w, dtype=torch.int64))
+        count = valid.sum(dim=1)
+        dv = torch.where(valid, dest.to(torch.int64), -1)
+        ordered = bool((~valid | (dv == torch.cummax(dv, dim=1).values))
+                       .all()) if n else True
+        calls.setdefault((n, k, n_dest, cap_peer), []).append(
+            (float(count.sum()) / max(w * n, 1),
+             bool((count == span).all()),
+             float(count.sum()) / max(float(span.sum()), 1.0), ordered))
+        return original(values, dest, valid, n_dest, cap_peer, *rest)
+
+    bucket.bucket_by_dest_cuda = wrapper
+    try:
+        yield calls
+    finally:
+        bucket.bucket_by_dest_cuda = original
+
+
 def phase_lubm(torch) -> dict[str, int]:
     from repro_torch.core.engine import AdHashEngine
     from repro_torch.core.substrate import trace_host_syncs
@@ -677,6 +773,22 @@ def phase_lubm(torch) -> dict[str, int]:
         emit({"phase": "lubm-profile", "template": name,
               "queries": len(picked),
               **profile_run(torch, lambda: [eng.query(q) for q in picked])})
+
+    # the mix each bucket_by_dest shape gets, in a pass of its own
+    with bucket_mix_census(torch) as mixes:
+        for q in queries:
+            eng.query(q)
+    emit({"phase": "lubm-bucket-mix", "what": "bucket_by_dest mixes by shape",
+          "shapes": [
+              {"shape": dict(zip(("n", "k", "n_dest", "cap_peer"), shape)),
+               "calls": len(rows),
+               "median_valid_share": float(np.median([r[0] for r in rows])),
+               "valid_prefix_share": float(np.mean([r[1] for r in rows])),
+               "median_prefix_density": float(np.median([r[2]
+                                                         for r in rows])),
+               "dest_sorted_share": float(np.mean([r[3] for r in rows]))}
+              for shape, rows in sorted(mixes.items(),
+                                        key=lambda kv: -len(kv[1]))]})
 
     # two queries per template against a CPU engine on the same triples
     cpu = AdHashEngine(triples, W, adaptive=False, device="cpu")

@@ -73,6 +73,68 @@ __device__ __forceinline__ int64_t upper_bound(const T* a, int64_t lo,
 }
 
 // ---------------------------------------------------------------------------
+// Single-pass decoupled look-back (expand.cu, bucket.cu).  Tiles of a scan
+// take their order from an atomic ticket, so a tile waits only on tiles
+// that are already running.  Each tile owns one 64-bit state word per
+// scanned quantity (expand: one; bucket_by_dest: one per destination): a
+// flag in the top two bits and the value below them (values stay below
+// 2^62).  A tile publishes its aggregate, then its inclusive prefix, each
+// as one aligned 64-bit store of flag and value together, and readers load
+// the whole word: a reader that sees a flag sees the value written with
+// it, so no fence is needed between values and flags.  No other data is
+// handed from tile to tile through these words.
+constexpr unsigned long long kStateAggregate = 1ull << 62;
+constexpr unsigned long long kStatePrefix = 2ull << 62;
+constexpr unsigned long long kStateValue = kStateAggregate - 1;
+
+__device__ __forceinline__ void publish_state(unsigned long long* p,
+                                              unsigned long long flag,
+                                              int64_t value) {
+  *(volatile unsigned long long*)p = flag | (unsigned long long)value;
+}
+
+__device__ __forceinline__ unsigned long long read_state(
+    const unsigned long long* p) {
+  return *(const volatile unsigned long long*)p;
+}
+
+__device__ __forceinline__ int64_t warp_sum(int64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v += __shfl_xor_sync(ADHASH_FULL_MASK, v, o);
+  return v;
+}
+
+// Sum of the values of tiles [0, tile), tile >= 1, by one whole warp; tile
+// j's state word is states[j * stride].  Lane i reads tile - 1 - i, then
+// 32 tiles further back each round; the walk stops at the nearest
+// inclusive prefix, as soon as every tile between has published its
+// aggregate.  The caller has published this tile's aggregate and
+// publishes its prefix.
+__device__ inline int64_t look_back(const unsigned long long* states,
+                                   int64_t stride, int64_t tile) {
+  const int lane = threadIdx.x & 31;
+  int64_t excl = 0;
+  for (int64_t j = tile - 1 - lane;; j -= 32) {
+    unsigned long long st;
+    unsigned prefixes, upto;
+    while (true) {
+      st = kStatePrefix;  // before tile 0: an empty prefix
+      if (j >= 0) st = read_state(states + j * stride);
+      const unsigned ready = __ballot_sync(ADHASH_FULL_MASK, st >> 62 != 0);
+      prefixes = __ballot_sync(ADHASH_FULL_MASK, st >> 62 == 2);
+      // the lanes up to the nearest prefix (bit 31 wraps to all lanes)
+      upto = prefixes ? ((prefixes & (0u - prefixes)) << 1) - 1u
+                      : ADHASH_FULL_MASK;
+      if ((ready & upto) == upto) break;
+    }
+    excl += warp_sum((upto >> lane) & 1u ? (int64_t)(st & kStateValue) : 0);
+    if (prefixes) break;
+  }
+  return excl;
+}
+
+// ---------------------------------------------------------------------------
 // Per-worker scan over tiles, in parallel across the whole card.  A scan of
 // f(w, i) over i < n for every worker w runs as
 //   1. tile_sums       grid (n_tiles, W): the sum of each tile of kScanTile

@@ -45,12 +45,6 @@ constexpr int kTile = kThreads * kItems;
 constexpr int kLaneBlock = 2048;  // lanes of a piece, and of a fill block
 constexpr int64_t kDirect = 16384;  // most lanes a tile writes itself
 
-// A tile's state word: flag in the top two bits, an int64 sum below them
-// (counts < 2^32, rows < 2^31: sums stay below 2^62).
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-constexpr unsigned long long kValue = kAggregate - 1;
-
 // shared-memory index of count i, one word of padding per 32 so that both
 // the striped writes and the blocked reads are free of bank conflicts
 __host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
@@ -85,48 +79,22 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ void publish(unsigned long long* p,
-                                        unsigned long long v) {
-  *(volatile unsigned long long*)p = v;
-}
-
-__device__ __forceinline__ int64_t warp_sum(int64_t v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(ADHASH_FULL_MASK, v, o);
-  return v;
-}
-
-// Sum of the tiles before ``tile`` (one warp; ``agg`` is this tile's sum).
-// Lane i reads the state of tile - 1 - i; the walk stops at the nearest
-// inclusive prefix, as soon as every tile between has published its sum.
-__device__ int64_t look_back(unsigned long long* states, int64_t tile,
-                             int64_t agg) {
+// Sum of the tiles before ``tile`` (one warp; ``agg`` is this tile's sum):
+// publishes the tile's aggregate, looks back (common.cuh), publishes its
+// inclusive prefix.  Counts < 2^32 and rows < 2^31 keep the sums below
+// 2^62, as the state words require.
+__device__ int64_t tile_prefix(unsigned long long* states, int64_t tile,
+                               int64_t agg) {
   const int lane = threadIdx.x & 31;
   if (tile == 0) {
-    if (lane == 0) publish(states, kPrefix | (unsigned long long)agg);
+    if (lane == 0) adhash::publish_state(states, adhash::kStatePrefix, agg);
     return 0;
   }
-  if (lane == 0) publish(states + tile, kAggregate | (unsigned long long)agg);
-  int64_t excl = 0;
-  for (int64_t j = tile - 1 - lane;; j -= 32) {
-    unsigned long long st;
-    unsigned prefixes, upto;
-    while (true) {
-      st = kPrefix;  // before tile 0: an empty prefix
-      if (j >= 0) st = *(volatile unsigned long long*)(states + j);
-      const unsigned ready = __ballot_sync(ADHASH_FULL_MASK, st >> 62 != 0);
-      prefixes = __ballot_sync(ADHASH_FULL_MASK, st >> 62 == 2);
-      // the lanes up to the nearest prefix (bit 31 wraps to all lanes)
-      upto = prefixes ? ((prefixes & (0u - prefixes)) << 1) - 1u
-                      : ADHASH_FULL_MASK;
-      if ((ready & upto) == upto) break;
-    }
-    excl += warp_sum((upto >> lane) & 1u ? (int64_t)(st & kValue) : 0);
-    if (prefixes) break;
-  }
   if (lane == 0)
-    publish(states + tile, kPrefix | (unsigned long long)(excl + agg));
+    adhash::publish_state(states + tile, adhash::kStateAggregate, agg);
+  const int64_t excl = adhash::look_back(states, 1, tile);
+  if (lane == 0)
+    adhash::publish_state(states + tile, adhash::kStatePrefix, excl + agg);
   return excl;
 }
 
@@ -215,7 +183,7 @@ expand_scan(const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
   const int32_t* lw = lo + w * n;
   const int64_t agg = prefix_rows(lw, hi + w * n, r0, nr, sh);
   if (threadIdx.x < 32) {
-    const int64_t excl = look_back(states + w * n_tiles, tile, agg);
+    const int64_t excl = tile_prefix(states + w * n_tiles, tile, agg);
     if (threadIdx.x == 0) {
       sh.first = excl;
       if (tile == n_tiles - 1) total[w] = excl + agg;

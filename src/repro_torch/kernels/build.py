@@ -48,8 +48,8 @@ _SIGNATURES = {
     "adhash_range_search_i64": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "adhash_range_search_i32": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "adhash_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P],
-    "adhash_bucket_by_dest": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I,
-                              _P],
+    "adhash_bucket_by_dest": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L,
+                              _I, _P],
     "adhash_unique_compact_i32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                   _L, ctypes.c_int32, _P],
     "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
@@ -143,6 +143,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.adhash_expand_scratch_bytes.argtypes = [_I, _L, _L]
         lib.adhash_expand_scratch_bytes.restype = ctypes.c_int64
+        lib.adhash_bucket_scratch_bytes.argtypes = [_I, _L, _I]
+        lib.adhash_bucket_scratch_bytes.restype = ctypes.c_int64
         _lib = lib
     return _lib
 

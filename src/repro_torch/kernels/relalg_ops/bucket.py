@@ -11,8 +11,7 @@ from repro_torch.kernels import LAUNCHES, check_cuda, stream_ptr
 
 __all__ = ["bucket_by_dest_cuda", "MAX_DEST"]
 
-MAX_DEST = 256  # shared-memory rank table bound (32 warps x n_dest int32)
-_TILE = 1024  # rows per tile, as in bucket.cu
+MAX_DEST = 256  # one destination a thread of bucket.cu's 256-thread blocks
 
 
 def bucket_by_dest_cuda(values: torch.Tensor, dest: torch.Tensor,
@@ -45,17 +44,18 @@ def bucket_by_dest_cuda(values: torch.Tensor, dest: torch.Tensor,
     values = values.contiguous()
     dest = dest.to(torch.int32).contiguous()
     valid = valid.contiguous()
-    n_tiles = -(-n // _TILE)
-    tile_counts = torch.empty((w, n_tiles, n_dest), dtype=torch.int32,
-                              device=dev)
-    counts = torch.empty((w, n_dest), dtype=torch.int32, device=dev)
     send = torch.empty((w, n_dest, cap_peer, k), dtype=torch.int32,
                        device=dev)
-    check(library().adhash_bucket_by_dest(
+    send_valid = torch.empty((w, n_dest, cap_peer), dtype=torch.bool,
+                             device=dev)
+    max_wanted = torch.empty((w,), dtype=torch.int64, device=dev)
+    lib = library()
+    scratch = torch.empty(lib.adhash_bucket_scratch_bytes(w, n, n_dest),
+                          dtype=torch.uint8, device=dev)
+    check(lib.adhash_bucket_by_dest(
         values.data_ptr(), dest.data_ptr(), valid.data_ptr(),
-        tile_counts.data_ptr(), counts.data_ptr(), send.data_ptr(), w, n, k,
-        n_dest, cap_peer, pad, stream_ptr(values)), "bucket_by_dest")
+        scratch.data_ptr(), send.data_ptr(), send_valid.data_ptr(),
+        max_wanted.data_ptr(), w, n, k, n_dest, cap_peer, pad,
+        stream_ptr(values)), "bucket_by_dest")
     LAUNCHES["bucket_by_dest"] += 1
-    slot = torch.arange(cap_peer, dtype=torch.int32, device=dev)
-    send_valid = slot < counts[..., None]
-    return send, send_valid, counts.amax(dim=1).to(torch.int64)
+    return send, send_valid, max_wanted

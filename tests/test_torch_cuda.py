@@ -183,6 +183,90 @@ def test_cuda_expand_edges(cuda_device, kind):
         assert got[3].tolist() == [8 << 30] * 3
 
 
+def _bucket_case(kind, k, rng):
+    """(values, dest, valid, n_dest, cap_peer) of one bucket_by_dest case.
+    The default n (three tiles of 4096 and 17 rows) is no multiple of the
+    tile or of 16, so workers after the first take the unaligned loads."""
+    w, n, nd, cap = 4, 3 * 4096 + 17, 8, 4096
+    if kind == "empty":
+        n = 0
+    elif kind == "one_row":
+        n = 1
+    elif kind == "prefix_sorted":  # the reply routing: many tiles
+        n, cap = 50_000, 1 << 14
+    elif kind == "one_dest":
+        nd = 1
+    elif kind == "dest_256":
+        nd, cap = 256, 40  # several destinations overflow
+    elif kind in ("cap_1", "cap_3", "cap_5"):
+        cap = int(kind[-1])
+    elif kind == "overflow_mid_tile":
+        cap = 3000  # destination 0 passes it in the second tile
+    vals = rng.integers(-5, 1 << 30, (w, n, k)).astype(np.int32)
+    dest = rng.integers(0, nd, (w, n)).astype(np.int32)
+    valid = rng.random((w, n)) < 0.7
+    if kind == "all_invalid":
+        valid[:] = False
+    elif kind in ("prefix_sorted", "prefix_hashed"):
+        live = n * 2 // 5
+        valid[:, live:] = False
+        valid[:, :live] = rng.random((w, live)) < (0.9 if kind ==
+                                                   "prefix_sorted" else 1.0)
+        if kind == "prefix_sorted":
+            dest = np.sort(dest, axis=1)
+            dest[:, live:] = nd - 1
+    elif kind == "overflow_mid_tile":
+        dest = np.where(rng.random((w, n)) < 0.6, 0, dest).astype(np.int32)
+    elif kind == "bad_dest":  # valid rows outside [0, n_dest) are dropped
+        dest = rng.integers(-3, nd + 3, (w, n)).astype(np.int32)
+    return vals, dest, valid, nd, cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "prefix_sorted", "prefix_hashed",
+                                  "overflow_mid_tile", "all_invalid", "empty",
+                                  "one_row", "one_dest", "dest_256", "cap_1",
+                                  "cap_3", "cap_5", "bad_dest"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_cuda_bucket_by_dest_edges(cuda_device, k, kind):
+    """Bit-exact (send, send_valid, max_wanted) against the plain version:
+    the path's mixes over many tiles, a destination overflowing cap_peer
+    mid-tile, no valid row, n = 0 and 1, n not a multiple of the tile, one
+    and 256 destinations, cap_peer odd and below 4 (the 16-byte stores'
+    head and tail), destinations out of range; one launch a call."""
+    rng = np.random.default_rng(len(kind) * 7 + k)
+    vals, dest, valid, nd, cap = _bucket_case(kind, k, rng)
+    args = [torch.from_numpy(a) for a in (vals, dest, valid)]
+    pad = -7 if k == 3 else -1
+    before = LAUNCHES["bucket_by_dest"]
+    got = TR.bucket_by_dest(*[a.to(cuda_device) for a in args], nd, cap, pad)
+    assert LAUNCHES["bucket_by_dest"] == before + 1
+    want = TR.bucket_by_dest_plain(*args, nd, cap, pad)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_by_dest_past_int32_index(cuda_device):
+    """send of 8 x 8 x 2^24 x 3 int32: the last destinations' slots lie past
+    flat element 2^31.  The live slots equal the plain version's at a
+    capacity that holds every row; every later slot is pad."""
+    w, n, nd, cap, k = 8, 5000, 8, 1 << 24, 3
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(a) for a in (
+        rng.integers(0, 1 << 30, (w, n, k)).astype(np.int32),
+        rng.integers(0, nd, (w, n)).astype(np.int32),
+        rng.random((w, n)) < 0.8)]
+    send, svalid, maxw = TR.bucket_by_dest(
+        *[a.to(cuda_device) for a in args], nd, cap)
+    want = TR.bucket_by_dest_plain(*args, nd, n)
+    assert torch.equal(send[:, :, :n].cpu(), want[0])
+    assert torch.equal(svalid[:, :, :n].cpu(), want[1])
+    assert torch.equal(maxw.cpu(), want[2])
+    assert bool((send[:, :, n:] == -1).all())
+    assert not bool(svalid[:, :, n:].any())
+
+
 @pytest.mark.cuda
 def test_cuda_relalg_kernels_match_plain(cuda_device):
     before = dict(LAUNCHES)

@@ -43,6 +43,7 @@ from repro.kernels.semijoin.ops import batched_semijoin_probe
 from repro.kernels.semijoin.ref import semijoin_probe_ref
 from repro.kernels.semijoin.semijoin import semijoin_probe
 from repro_torch.core import backend as TB
+from repro_torch.core.placement import splitmix64_np
 from repro_torch.core import relalg as TR
 from repro_torch.kernels import LAUNCHES
 
@@ -279,11 +280,26 @@ def _assert_bucket_match(vals, dest, valid, w, cap_peer, pad=-1):
                                           (65, 7, 8), (128, 1, 128)])
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("k", [1, 3])
-def test_bucket_parity_random(n, w, cap_peer, seed, k):
+@pytest.mark.parametrize("mix", ["random", "prefix_sorted", "prefix_hashed"])
+def test_bucket_parity_random(n, w, cap_peer, seed, k, mix):
+    """Random rows, and the two mixes the LUBM path gives the kernel: the
+    reply routing's valid prefix (a few holes) with destinations that never
+    decrease, and the hash exchange's valid prefix of sorted unique values
+    with destinations splitmix64(v) % W."""
     rng = np.random.default_rng(seed)
     vals = rng.integers(0, 1000, (n, k)).astype(np.int32)
     dest = rng.integers(0, w, n).astype(np.int32)
     valid = rng.random(n) > 0.2
+    if mix != "random":
+        live = n * 3 // 5
+        valid = np.arange(n) < live
+    if mix == "prefix_sorted":
+        valid[rng.integers(0, live, 2)] = False
+        dest = np.where(valid, np.sort(dest), w - 1).astype(np.int32)
+    elif mix == "prefix_hashed":
+        vals[:live, 0] = np.sort(rng.choice(1 << 20, live, replace=False))
+        vals[live:] = -1
+        dest = (splitmix64_np(vals[:, 0]) % w).astype(np.int32)
     _assert_bucket_match(vals, dest, valid, w, cap_peer)
 
 
