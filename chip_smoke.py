@@ -7,10 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (five
 kernels; flash_attention has a bf16 tensor-core and an f32 CUDA-core one),
 holds each against its plain PyTorch version on the card, drives the port's
-two main paths -- the RDF engine (``AdHashEngine(...).query(q)`` with
-``adaptive=False``) on a LUBM-style graph and on a 32 M-triple Zipf stream,
-and the dense LM's serving path (prefill and decode of llama3-8b) --
-checks the answers, and prints one JSON line per phase.  Any mismatch or
+main paths -- the RDF engine on a LUBM-style graph (``query`` with
+``adaptive=False``, ``query_batch``, and the adaptive engine through both)
+and on a 32 M-triple Zipf stream, and the dense LM's serving path (prefill
+and decode of llama3-8b) -- checks the answers, and prints one JSON line
+per phase.  Any mismatch or
 exception exits non-zero; without a card it exits 1 before doing anything.
 
 Phases:
@@ -33,8 +34,10 @@ Phases:
             within 1e-4 (f32) / 2e-2 (bf16) absolute and 1e-4 / 1e-2 of
             each output row's largest magnitude, at the
             shape phase 4's prefill gives it (B=4, T=S=4096), variants,
-            and 32k rows in bf16 and f32; kernel, plain and library-call
-            medians over CUDA events, and the roofline bound
+            and 32k rows in bf16 and f32; each DSJ kernel's main row again
+            folded as query_batch folds a bucket of 16 queries (128 rows,
+            or 16x the probes a row, phase 2b's census); kernel, plain and
+            library-call medians over CUDA events, and the roofline bound
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run and, by
@@ -45,6 +48,22 @@ Phases:
             own the mix each bucket_by_dest shape gets (valid share, valid
             prefix, destinations in order), and two queries per template
             held against a device="cpu" engine
+  2b lubm-batch  the same 60 queries through ``query_batch`` on that
+            engine, cold and warm: answers, comm_cells and mode equal to
+            the cold pass; buckets, batched dispatches, warm queries/s,
+            launches against the warm sequential pass, peak memory, the
+            census of folded shapes, a profiled bucket per template
+  2c lubm-adaptive  two adaptive engines (frequency threshold 3), one
+            through ``query``, one through ``query_batch``, two passes
+            each: every answer equal to phase 2's, the two engines equal in
+            comm_cells, modes, vars, report, history and pattern-index
+            fingerprint; per pass queries/s, comm_cells, modes, IRD
+            seconds, replication ratio, load balance, replica bytes; a
+            profiled adapted pass; then an engine whose replication budget
+            is half the largest per-worker replica count must evict
+  2d adaptive-parity  lubm_like(2, 2, 2, 2), W = 4, 40 queries: the
+            adaptive engine on the card against the CPU port through
+            ``query`` and ``query_batch``, replica stores bit-exact
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
@@ -138,6 +157,11 @@ def assert_equal(name: str, got, want) -> float:
 STORE_ROW = 594_575  # keys per worker row of LUBM-100's store at W = 8
 NID = 1 << 21  # composite keys p * NID + id
 SENDERS, CAP_PEER = 8, 1 << 20  # the reply: W senders x cap_peer lanes
+# query_batch folds a bucket of B queries into each kernel's launch: B*W
+# rows for expand, bucket_by_dest and unique_compact, B*M probes a worker
+# row for range_search.  Buckets of the 60-query LUBM-100 workload hold
+# 8-13 queries, padded to B = 16 (``quantize_batch``).
+FOLD_B = 16
 
 
 def range_search_cases():
@@ -300,7 +324,7 @@ def bucket_bytes(vals, valid, n_dest: int, cap: int) -> int:
     """Bytes bucket_by_dest must move: ``valid`` of every row, ``dest`` and
     ``values`` of the valid rows, all of send and send_valid, max_wanted."""
     w, _, k = vals.shape
-    return (valid.size + int(valid.sum()) * (4 + 4 * k) +
+    return (valid.numel() + int(valid.sum()) * (4 + 4 * k) +
             w * n_dest * cap * (4 * k + 1) + 8 * w)
 
 
@@ -333,8 +357,30 @@ def phase_kernels(torch) -> dict[str, dict]:
         if main:
             rows[name] = row
 
+    def fold_range_search(k_t, p_t, q_t, variant):
+        if q_t is None:
+            kernel_fn = lambda: range_search_cuda(k_t, p_t)
+            plain_fn = lambda: backend.range_search_plain(k_t, p_t)
+        else:
+            kernel_fn = lambda: span_search_cuda(k_t, p_t, q_t)
+            plain_fn = lambda: backend.span_search_plain(k_t, p_t, q_t)
+        got, want = kernel_fn(), plain_fn()
+        err = max(assert_equal(f"range_search lo {variant}", got[0], want[0]),
+                  assert_equal(f"range_search hi {variant}", got[1], want[1]))
+        del got, want
+        library_fn = lambda: [torch.searchsorted(
+            k_t, x, side=side, out_int32=True) for x, side in (
+                (p_t, "left"), (p_t if q_t is None else q_t,
+                                "right" if q_t is None else "left"))]
+        (w, n), m, isz = k_t.shape, p_t.shape[1], k_t.element_size()
+        record("range_search", variant, err, kernel_fn, plain_fn, library_fn,
+               w * n * isz + (1 if q_t is None else 2) * w * m * isz +
+               2 * w * m * 4, 2 * w * m * math.ceil(math.log2(max(n, 2))),
+               False)
+
     # ---- range_search / span_search: the main path's rows (LUBM-100's
-    # census, phase 2), then the earlier random rows as variants
+    # census, phase 2), then the earlier random rows as variants, and the
+    # main rows folded as query_batch folds a bucket of FOLD_B queries
     for variant, keys, probes, probes_hi, main in range_search_cases():
         k_t, p_t = cuda(keys), cuda(probes)
         q_t = None if probes_hi is None else cuda(probes_hi)
@@ -369,7 +415,16 @@ def phase_kernels(torch) -> dict[str, dict]:
         record("range_search", variant, err, kernel_fn, plain_fn, library_fn,
                w * n * isz + n_probe_arrays * w * m * isz + 2 * w * m * 4,
                2 * w * m * math.ceil(math.log2(max(n, 2))), main)
-        del k_t, p_t, q_t, got, want
+        del got, want
+        if main:  # the reply probe of a bucket: B*M probes a worker row
+            fold_range_search(k_t, p_t.repeat(1, FOLD_B), None,
+                              f"folded B={FOLD_B}: {variant} -> M=16x2^23")
+        elif q_t is not None:  # match_ranges of a bucket: the span form
+            p = torch.arange(FOLD_B, device=dev, dtype=torch.int64) * NID
+            fold_range_search(k_t, p.expand(W, -1).contiguous(),
+                              (p + NID).expand(W, -1).contiguous(),
+                              f"folded B={FOLD_B}: {variant} -> M=16")
+        del k_t, p_t, q_t
 
     # ---- expand: the main path's rows, then the earlier rows as variants
     def check_expand(lo_t, hi_t, cap, tag):
@@ -381,16 +436,24 @@ def phase_kernels(torch) -> dict[str, dict]:
         assert_equal(f"expand left {tag}", got[0][v], want[0][v])
         return assert_equal(f"expand right_pos {tag}", got[1][v], want[1][v])
 
-    for variant, lo, hi, cap, main in expand_cases():
-        lo_t, hi_t = cuda(lo), cuda(hi)
+    def record_expand(lo_t, hi_t, cap, variant, main):
         err = check_expand(lo_t, hi_t, cap, variant)
-        w, n = lo.shape
+        w, n = lo_t.shape
         record("expand", variant, err,
                lambda: expand_cuda(lo_t, hi_t, cap),
                lambda: relalg.expand_plain(lo_t, hi_t, cap), None,
                2 * w * n * 4 + w * cap * 9 + w * 8,
                w * n + w * cap * math.ceil(math.log2(max(n, 2))), main)
+
+    for variant, lo, hi, cap, main in expand_cases():
+        lo_t, hi_t = cuda(lo), cuda(hi)
+        record_expand(lo_t, hi_t, cap, variant, main)
+        if main:  # the reply's gather_rows of a bucket: B*W rows
+            record_expand(lo_t.repeat(FOLD_B, 1), hi_t.repeat(FOLD_B, 1),
+                          cap, f"folded B={FOLD_B}: {variant} -> "
+                          f"{FOLD_B * W} rows", False)
         del lo_t, hi_t
+        torch.cuda.empty_cache()
     # the int64-total case: 8 ranges of 2^30 rows -> total 2^33
     big_lo = cuda(np.zeros((W, 8), np.int32))
     big_hi = cuda(np.full((W, 8), 1 << 30, np.int32))
@@ -402,8 +465,7 @@ def phase_kernels(torch) -> dict[str, dict]:
 
     # ---- bucket_by_dest: the main path's rows (reply routing, hash
     # exchange), then the earlier rows (overflow, random destinations)
-    for variant, vals, dest, valid, nd, cap, main in bucket_cases():
-        v_t, d_t, m_t = cuda(vals), cuda(dest), cuda(valid)
+    def record_bucket(v_t, d_t, m_t, nd, cap, variant, main):
         got = bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap)
         want = relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap)
         err = 0.0
@@ -413,13 +475,45 @@ def phase_kernels(torch) -> dict[str, dict]:
         if "overflow" in variant and int(got[2].min()) <= cap:
             raise AssertionError("bucket_by_dest: no destination overflowed")
         del got, want
+        torch.cuda.empty_cache()
         record("bucket_by_dest", variant, err,
                lambda: bucket_by_dest_cuda(v_t, d_t, m_t, nd, cap),
                lambda: relalg.bucket_by_dest_plain(v_t, d_t, m_t, nd, cap),
-               None, bucket_bytes(vals, valid, nd, cap), 4 * vals.shape[0] *
-               vals.shape[1], main)
+               None, bucket_bytes(v_t, m_t, nd, cap),
+               4 * v_t.shape[0] * v_t.shape[1], main)
+
+    for variant, vals, dest, valid, nd, cap, main in bucket_cases():
+        v_t, d_t, m_t = cuda(vals), cuda(dest), cuda(valid)
+        record_bucket(v_t, d_t, m_t, nd, cap, variant, main)
+        if main:  # the reply routing of a bucket: B*W rows, n_dest = W
+            record_bucket(v_t.repeat(FOLD_B, 1, 1), d_t.repeat(FOLD_B, 1),
+                          m_t.repeat(FOLD_B, 1), nd, cap,
+                          f"folded B={FOLD_B}: {variant} -> "
+                          f"{FOLD_B * W} rows", False)
         del v_t, d_t, m_t
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+
+    def record_unique(v_t, m_t, cap, tag, main, overflow):
+        pad = torch.iinfo(v_t.dtype).max
+        got = unique_compact_cuda(v_t, m_t, cap, pad)
+        want = relalg.unique_compact_plain(v_t, m_t, cap, pad)
+        err = 0.0
+        for part, g, w_ in zip(("uniq", "mask", "n_unique"), got, want):
+            err = max(err, assert_equal(f"unique_compact {part} {tag}", g,
+                                        w_))
+        if overflow and int(got[2].min()) <= cap:
+            raise AssertionError("unique_compact: out_cap not below n_unique")
+        del got, want
+        w, n = v_t.shape
+        offs = torch.arange(w, device=dev, dtype=torch.int64)[:, None] << 32
+        keyed = torch.where(m_t, v_t, pad).to(torch.int64) + offs
+        isz = v_t.element_size()
+        record("unique_compact", f"{tag} out_cap={cap}", err,
+               lambda: unique_compact_cuda(v_t, m_t, cap, pad),
+               lambda: relalg.unique_compact_plain(v_t, m_t, cap, pad),
+               lambda: torch.unique(keyed.view(-1), sorted=True),
+               w * n * (isz + 1) + w * cap * (isz + 1) + w * 8,
+               w * n * max(1, math.ceil(math.log2(n))), main)
 
     # ---- unique_compact: n = 2^10 (one radix tile) and n = 2^18 (the main
     # path's row, 64 tiles) in int32, and n = 2^18 in int64 (8 digits, the
@@ -427,29 +521,25 @@ def phase_kernels(torch) -> dict[str, dict]:
     for n, hi_val, cap, dtype in ((1 << 10, 800, 256, np.int32),
                                   (1 << 18, 1 << 17, 1 << 16, np.int32),
                                   (1 << 18, 1 << 17, 1 << 16, np.int64)):
-        pad = int(np.iinfo(dtype).max)
-        vals = rng.integers(0, hi_val, (W, n)).astype(dtype)
-        valid = rng.random((W, n)) < 0.9
-        v_t, m_t = cuda(vals), cuda(valid)
-        got = unique_compact_cuda(v_t, m_t, cap, pad)
-        want = relalg.unique_compact_plain(v_t, m_t, cap, pad)
-        err = 0.0
-        tag = f"{np.dtype(dtype).name} n=2^{n.bit_length() - 1}"
-        for part, g, w_ in zip(("uniq", "mask", "n_unique"), got, want):
-            err = max(err, assert_equal(f"unique_compact {part} {tag}", g,
-                                        w_))
-        if int(got[2].min()) <= cap:
-            raise AssertionError("unique_compact: out_cap not below n_unique")
-        offs = torch.arange(W, device=dev, dtype=torch.int64)[:, None] << 32
-        keyed = torch.where(m_t, v_t, pad).to(torch.int64) + offs
-        isz = np.dtype(dtype).itemsize
-        record("unique_compact", f"{tag} out_cap={cap}", err,
-               lambda: unique_compact_cuda(v_t, m_t, cap, pad),
-               lambda: relalg.unique_compact_plain(v_t, m_t, cap, pad),
-               lambda: torch.unique(keyed.view(-1), sorted=True),
-               W * n * (isz + 1) + W * cap * (isz + 1) + W * 8,
-               W * n * max(1, math.ceil(math.log2(n))),
-               n == 1 << 18 and dtype == np.int32)
+        v_t = cuda(rng.integers(0, hi_val, (W, n)).astype(dtype))
+        m_t = cuda(rng.random((W, n)) < 0.9)
+        record_unique(v_t, m_t, cap,
+                      f"{np.dtype(dtype).name} n=2^{n.bit_length() - 1}",
+                      n == 1 << 18 and dtype == np.int32, True)
+    # project_unique of a bucket: B*W rows of the census's shape (n = 2^20
+    # into out_cap = 2^20, int32); a valid prefix of 4.57% of each row, the
+    # share bucket_by_dest's census saw downstream, ids below 2^21
+    n = 1 << 20
+    gen = torch.Generator(device=dev).manual_seed(401)
+    v_t = torch.randint(0, 1 << 21, (FOLD_B * W, n), device=dev,
+                        dtype=torch.int32, generator=gen)
+    m_t = (torch.arange(n, device=dev) < round(n * HASH_SHARE)).expand(
+        FOLD_B * W, n).contiguous()
+    record_unique(v_t, m_t, n, f"folded B={FOLD_B}: project_unique int32 "
+                  f"n=2^20 prefix {HASH_SHARE:.2%} -> {FOLD_B * W} rows",
+                  False, False)
+    del v_t, m_t
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -604,9 +694,10 @@ def profile_run(torch, fn) -> dict:
 
 @contextmanager
 def shape_census():
-    """Counts the DSJ wrappers' launches by shape while open: the four
-    wrapper functions are replaced by counting ones in their modules (the
-    core modules import them at each call) and put back on exit."""
+    """Counts the DSJ wrappers' launches by shape (rows: the leading axis,
+    W or a batch's B*W) while open: the four wrapper functions are replaced
+    by counting ones in their modules (the core modules import them at
+    each call) and put back on exit."""
     from repro_torch.kernels.relalg_ops import bucket, compact, expand
     from repro_torch.kernels.semijoin import probe
 
@@ -614,21 +705,23 @@ def shape_census():
 
     def probe_shape(name):
         return lambda keys, probes, *_: (
-            name, ("N", keys.shape[1]), ("M", probes.shape[1]),
-            ("dtype", str(keys.dtype).split(".")[1]))
+            name, ("rows", keys.shape[0]), ("N", keys.shape[1]),
+            ("M", probes.shape[1]), ("dtype", str(keys.dtype).split(".")[1]))
 
     shapes = {
         (probe, "range_search_cuda"): probe_shape("range_search"),
         (probe, "span_search_cuda"): probe_shape("span_search"),
         (expand, "expand_cuda"): lambda lo, hi, out_cap: (
-            "expand", ("n", lo.shape[1]), ("out_cap", out_cap)),
+            "expand", ("rows", lo.shape[0]), ("n", lo.shape[1]),
+            ("out_cap", out_cap)),
         (bucket, "bucket_by_dest_cuda"):
             lambda values, dest, valid, n_dest, cap_peer, *_: (
-                "bucket_by_dest", ("n", values.shape[1]),
-                ("k", values.shape[2]), ("n_dest", n_dest),
-                ("cap_peer", cap_peer)),
+                "bucket_by_dest", ("rows", values.shape[0]),
+                ("n", values.shape[1]), ("k", values.shape[2]),
+                ("n_dest", n_dest), ("cap_peer", cap_peer)),
         (compact, "unique_compact_cuda"): lambda values, valid, out_cap, pad: (
-            "unique_compact", ("n", values.shape[1]), ("out_cap", out_cap),
+            "unique_compact", ("rows", values.shape[0]),
+            ("n", values.shape[1]), ("out_cap", out_cap),
             ("dtype", str(values.dtype).split(".")[1])),
     }
     originals = {key: getattr(*key) for key in shapes}
@@ -682,7 +775,22 @@ def bucket_mix_census(torch):
         bucket.bucket_by_dest_cuda = original
 
 
-def phase_lubm(torch) -> dict[str, int]:
+def canon(rel, q):
+    """A query's answer as its distinct rows in the query's variable order,
+    sorted (``torch.unique`` on the answer's device), on the host: routes
+    may bind the same rows in another column order."""
+    import torch
+
+    from repro_torch.core.relalg import select_cols
+
+    cols = select_cols(rel.cols, tuple(rel.col_of(v) for v in q.vars))
+    return torch.unique(cols[rel.valid], dim=0).cpu()
+
+
+def phase_lubm(torch) -> dict:
+    """Returns what the later LUBM phases reuse: the triples, the engine,
+    the queries, the cold pass's answers and stats, the launches of the
+    cold and warm passes, and the warm queries/s."""
     from repro_torch.core.engine import AdHashEngine
     from repro_torch.core.substrate import trace_host_syncs
     from repro_torch.data.synthetic_rdf import Workload, lubm_like
@@ -724,6 +832,7 @@ def phase_lubm(torch) -> dict[str, int]:
 
     # warm pass: same queries again, one at a time
     lat: dict[str, list[float]] = {k: [] for k in names}
+    reset_launches()
     t1 = time.perf_counter()
     for q in queries:
         a = time.perf_counter()
@@ -731,6 +840,7 @@ def phase_lubm(torch) -> dict[str, int]:
         torch.cuda.synchronize()
         lat[q.name].append(time.perf_counter() - a)
     warm_s = time.perf_counter() - t1
+    warm_launches = dict(LAUNCHES)
 
     # a warm case-(i) chain (q1) makes exactly one counted host sync; the
     # sync-debug mode of the CUDA runtime counts the real ones
@@ -807,7 +917,292 @@ def phase_lubm(torch) -> dict[str, int]:
         checked[q.name] = checked.get(q.name, 0) + 1
     emit({"phase": "lubm-parity", "checked": checked,
           "equal": ["to_set", "comm_cells", "mode", "route", "n_retries"]})
-    return launches
+    ref = [(canon(rel, q), st.comm_cells, st.mode)
+           for q, (rel, st) in zip(queries, cold)]
+    return {"launches": launches, "warm_launches": warm_launches,
+            "warm_qps": len(queries) / warm_s, "eng": eng, "d": d,
+            "triples": triples, "queries": queries, "ref": ref}
+
+
+# ------------------------------------------------------- phases 2b to 2d
+def emit_census(phase: str, what: str, census: Counter) -> None:
+    emit({"phase": phase, "what": what,
+          "shapes": [{"kernel": name, "shape": dict(shape), "launches": c}
+                     for (name, *shape), c in census.most_common()]})
+
+
+def check_answers(tag: str, queries, results, ref) -> None:
+    """Each answer, comm_cells and mode against phase 2's cold pass (held
+    there against a CPU engine): answers always, the stats where
+    ``ref`` gives them."""
+    import torch
+
+    for i, (q, (rel, st)) in enumerate(zip(queries, results)):
+        want, cells, mode = ref[i]
+        got = canon(rel, q)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: query {i} ({q.name}) has "
+                                 f"{len(got)} rows, phase 2 {len(want)}")
+        if cells is not None and (st.comm_cells, st.mode) != (cells, mode):
+            raise AssertionError(f"{tag}: query {i} ({q.name}) "
+                                 f"{(st.comm_cells, st.mode)} != phase 2 "
+                                 f"{(cells, mode)}")
+
+
+def phase_lubm_batch(torch, lubm: dict) -> None:
+    """The 60 LUBM-100 queries through ``query_batch`` on phase 2's
+    non-adaptive engine, cold and warm: answers, comm_cells and mode equal
+    to phase 2's cold sequential pass; launches per kernel against phase
+    2's warm sequential pass; the census of the folded launch shapes."""
+    from repro_torch.core.batcher import WorkloadBatcher, quantize_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    eng, queries = lubm["eng"], lubm["queries"]
+    # the buckets query_batch files these queries into (no IRD runs on a
+    # non-adaptive engine, so no bucket is popped early)
+    batcher = WorkloadBatcher()
+    for i, q in enumerate(queries):
+        plan = eng.planner.plan(q)
+        batcher.add(i, q, plan.ordering, plan.join_vars,
+                    max(eng.capacity, plan.capacity_hint()))
+    buckets = [{"templates": sorted({queries[t].name for t in b.tags}),
+                "B": len(b), "B_pad": quantize_batch(len(b))}
+               for b in batcher.buckets()]
+    dispatches0 = eng.report.n_batch_dispatches
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    with shape_census() as census:
+        t0 = time.perf_counter()
+        res = eng.query_batch(queries)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    cold_launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_answers("lubm-batch cold", queries, res, lubm["ref"])
+    missing = [k for k in RDF_KERNELS if cold_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by query_batch: "
+                             f"{missing}")
+    del res
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.query_batch(queries)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = dict(LAUNCHES)
+    dispatches = eng.report.n_batch_dispatches - dispatches0
+    check_answers("lubm-batch warm", queries, res, lubm["ref"])
+    del res
+    emit_census("lubm-batch-census", "launches by shape, cold batch pass",
+                census)
+    # where the device time goes, per template: each template's queries as
+    # one query_batch call, i.e. its bucket (profiler on, as lubm-profile)
+    for name in sorted({q.name for q in queries}):
+        picked = [q for q in queries if q.name == name]
+        emit({"phase": "lubm-batch-profile", "template": name,
+              "queries": len(picked),
+              **profile_run(torch, lambda: eng.query_batch(picked))})
+    emit({"phase": "lubm-batch", "queries": len(queries),
+          "buckets": buckets,
+          "n_batch_dispatches": dispatches,  # the cold and warm passes
+          "cold_s": cold_s, "warm_s": warm_s,
+          "warm_qps": len(queries) / warm_s,
+          "sequential_warm_qps": lubm["warm_qps"],
+          "launches_cold": cold_launches,
+          "launches_warm": warm_launches,
+          "sequential_launches_warm": lubm["warm_launches"],
+          "max_memory_allocated": peak,
+          "max_memory_above_phase2": peak - base,
+          "equal_to_phase2": ["answers", "comm_cells", "mode"]})
+
+
+def time_ird(eng) -> list[float]:
+    """Accumulates the host seconds of ``eng``'s redistributions, from the
+    enqueue to the end of the barrier (``finalize``), into the returned
+    one-element list."""
+    spent = [0.0]
+    enqueue = eng.ird.redistribute_deferred
+
+    def timed(hot):
+        t0 = time.perf_counter()
+        pending = enqueue(hot)
+        spent[0] += time.perf_counter() - t0
+        barrier = pending.finalize
+
+        def finalize():
+            t1 = time.perf_counter()
+            out = barrier()
+            spent[0] += time.perf_counter() - t1
+            return out
+
+        pending.finalize = finalize
+        return pending
+
+    eng.ird.redistribute_deferred = timed
+    return spent
+
+
+REPORT_FIELDS = ("n_queries", "n_parallel", "n_parallel_replica",
+                 "n_distributed", "comm_cells", "ird_comm_cells",
+                 "ird_triples", "n_redistributions", "n_evictions")
+
+
+def phase_lubm_adaptive(torch, lubm: dict) -> None:
+    """Two adaptive engines (frequency threshold 3, as the JAX package's
+    query benchmark sets it), one answering the 60 queries through
+    ``query``, one through ``query_batch``, each twice (the second pass is
+    the adapted one): equal to each other query by query and in their
+    reports and pattern indexes, every answer equal to phase 2's.  Then an
+    engine with half the first one's largest per-worker replica count as
+    its budget must evict, with unchanged answers."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    triples, queries = lubm["triples"], lubm["queries"]
+    answers = [(a, None, None) for a, _, _ in lubm["ref"]]
+    make = lambda **kw: AdHashEngine(triples, W, frequency_threshold=3,
+                                     device="cuda", **kw)
+    seq, bat = make(), make()
+    runs = {"query": (seq, lambda: [seq.query(q) for q in queries]),
+            "query_batch": (bat, lambda: bat.query_batch(queries))}
+    ird_s = {name: time_ird(eng) for name, (eng, _) in runs.items()}
+    results: dict[str, list] = {}  # (comm_cells, mode, vars) per query
+    reset_launches()
+    for name, (eng, run) in runs.items():
+        for pass_ in ("first", "adapted"):
+            before = {f: getattr(eng.report, f) for f in REPORT_FIELDS}
+            ird0 = ird_s[name][0]
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check_answers(f"lubm-adaptive {name} {pass_}", queries, res,
+                          answers)
+            results.setdefault(name, []).extend(
+                (st.comm_cells, st.mode, [v.name for v in rel.vars])
+                for rel, st in res)
+            emit({"phase": "lubm-adaptive-pass", "entry": name,
+                  "pass": pass_, "queries": len(queries),
+                  "qps": len(queries) / dt, "wall_s": dt,
+                  "comm_cells": sum(st.comm_cells for _, st in res),
+                  "modes": dict(Counter(st.mode for _, st in res)),
+                  "report_delta": {f: getattr(eng.report, f) - before[f]
+                                   for f in REPORT_FIELDS},
+                  "ird_s": ird_s[name][0] - ird0,
+                  "replication_ratio": eng.replication_ratio(),
+                  "load_balance": eng.load_balance(),
+                  "replica_modules": len(eng.replicas.modules),
+                  "replica_bytes": eng.replicas.nbytes()})
+    launches = dict(LAUNCHES)
+    missing = [k for k in RDF_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the adaptive "
+                             f"engines: {missing}")
+
+    # the sequential and the batched engine drove one state machine
+    for i, (a, b) in enumerate(zip(results["query"], results["query_batch"])):
+        if a != b:
+            raise AssertionError(f"query {i} ({queries[i % len(queries)].name}"
+                                 f"): query() {a} != query_batch() {b}")
+    for f in REPORT_FIELDS:
+        if getattr(seq.report, f) != getattr(bat.report, f):
+            raise AssertionError(f"report {f}: {getattr(seq.report, f)} != "
+                                 f"{getattr(bat.report, f)}")
+    if [h[:2] for h in seq.report.history] != \
+            [h[:2] for h in bat.report.history]:
+        raise AssertionError("report history differs")
+    if seq.pattern_index.fingerprint() != bat.pattern_index.fingerprint():
+        raise AssertionError("pattern index fingerprints differ")
+    if seq.report.n_redistributions == 0:
+        raise AssertionError("no redistribution at threshold 3")
+
+    # where the time goes once adapted (profiler on: a third pass each)
+    for name, (eng, run) in runs.items():
+        emit({"phase": "lubm-adaptive-profile", "entry": name,
+              "pass": "third (adapted)", **profile_run(torch, run)})
+    most = int(seq.replicas.per_worker_triples().max())
+    emit({"phase": "lubm-adaptive", "queries": len(queries),
+          "frequency_threshold": 3, "launches": launches,
+          "n_redistributions": seq.report.n_redistributions,
+          "fingerprint_edges": seq.pattern_index.n_edges(),
+          "max_replica_triples_per_worker": most,
+          "equal": ["answers (vs phase 2)", "comm_cells", "mode", "vars",
+                    *REPORT_FIELDS, "history[:2]", "fingerprint"]})
+    del seq, bat, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a budget of half that count: LRU eviction, unchanged answers
+    budget = most // 2
+    eng = make(replication_budget=budget)
+    t0 = time.perf_counter()
+    check_answers("lubm-adaptive budget", queries,
+                  [eng.query(q) for q in queries], answers)
+    torch.cuda.synchronize()
+    if eng.report.n_evictions == 0:
+        raise AssertionError(f"budget {budget}: no eviction")
+    emit({"phase": "lubm-adaptive-budget", "replication_budget": budget,
+          "wall_s": time.perf_counter() - t0,
+          "n_evictions": eng.report.n_evictions,
+          "n_redistributions": eng.report.n_redistributions,
+          "n_parallel_replica": eng.report.n_parallel_replica,
+          "max_replica_triples_per_worker":
+              int(eng.replicas.per_worker_triples().max()),
+          "replication_ratio": eng.replication_ratio()})
+
+
+def phase_adaptive_parity(torch) -> None:
+    """The adaptive engine on the card against the CPU port at a small
+    size, through ``query`` and through ``query_batch``: answers, stats,
+    the pattern index's fingerprint, the heat map's state and every replica
+    store's five tensors, bit for bit."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    queries = Workload(d, seed=0).sample(40)
+    out = {}
+    for entry in ("query", "query_batch"):
+        gpu, cpu = (AdHashEngine(triples, 4, frequency_threshold=2,
+                                 device=dev) for dev in ("cuda", "cpu"))
+        if entry == "query":
+            g_res = [gpu.query(q) for q in queries]
+            c_res = [cpu.query(q) for q in queries]
+        else:
+            g_res, c_res = gpu.query_batch(queries), cpu.query_batch(queries)
+        for i, ((gr, gs), (cr, cs)) in enumerate(zip(g_res, c_res)):
+            got = (gr.to_set(), gs.comm_cells, gs.mode, gs.route,
+                   gs.n_retries)
+            want = (cr.to_set(), cs.comm_cells, cs.mode, cs.route,
+                    cs.n_retries)
+            if got != want:
+                raise AssertionError(f"adaptive-parity {entry} query {i}: "
+                                     f"gpu {got[1:]} != cpu {want[1:]}")
+        if gpu.pattern_index.fingerprint() != cpu.pattern_index.fingerprint():
+            raise AssertionError(f"adaptive-parity {entry}: fingerprints")
+        if gpu.heatmap.to_state() != cpu.heatmap.to_state():
+            raise AssertionError(f"adaptive-parity {entry}: heat maps")
+        if sorted(gpu.replicas.modules) != sorted(cpu.replicas.modules):
+            raise AssertionError(f"adaptive-parity {entry}: replica ids")
+        for sid, st in cpu.replicas.modules.items():
+            for a, b in zip(gpu.replicas.modules[sid].leaves(), st.leaves()):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"adaptive-parity {entry}: replica "
+                                         f"{sid} differs")
+        if gpu.report.n_redistributions == 0:
+            raise AssertionError(f"adaptive-parity {entry}: no IRD")
+        out[entry] = {"n_redistributions": gpu.report.n_redistributions,
+                      "n_parallel_replica": gpu.report.n_parallel_replica,
+                      "replica_modules": len(gpu.replicas.modules),
+                      "n_batch_dispatches": gpu.report.n_batch_dispatches}
+    emit({"phase": "adaptive-parity", "triples": int(len(triples)),
+          "workers": 4, "frequency_threshold": 2, "queries": len(queries),
+          **out, "equal": ["to_set", "comm_cells", "mode", "route",
+                           "n_retries", "fingerprint", "heatmap.to_state",
+                           "replica stores (5 tensors each)"]})
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1018,10 +1413,24 @@ def main() -> int:
     rows["flash_attention"] = phase_flash(torch)
     walls["kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches = phase_lubm(torch)
+    lubm = phase_lubm(torch)
+    launches = lubm["launches"]
     walls["lubm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_lubm_batch(torch, lubm)
+    walls["lubm_batch_s"] = time.perf_counter() - t0
+    del lubm["eng"]
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_lubm_adaptive(torch, lubm)
+    walls["lubm_adaptive_s"] = time.perf_counter() - t0
+    del lubm
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_adaptive_parity(torch)
+    walls["adaptive_parity_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_scale(torch)
     walls["scale_s"] = time.perf_counter() - t0

@@ -1,4 +1,5 @@
-"""AdHash core, PyTorch port (main path: ingest, plan, execute, answer).
+"""AdHash core, PyTorch port (ingest, plan, execute — one query or a batch
+— answer, adapt).
 
 Modules (each the counterpart of the same name in ``repro.core``):
   dictionary  string <-> id encoding (master, §3.1)
@@ -11,10 +12,17 @@ Modules (each the counterpart of the same name in ``repro.core``):
   relalg      fixed-capacity relational primitives (expand/compact/bucket)
   relation    fixed-capacity sharded intermediate results
   ingest      streaming bootstrap (one-shot == chunked)
-  dsj         distributed semi-join stages (§4.1)
+  dsj         distributed semi-join stages (§4.1) + their batched variants
   substrate   single-device substrate + host-sync chokepoints
   planner     DP cost-based optimizer (§4.2, §4.3)
-  executor    locality-aware distributed execution (Algorithm 1)
-  engine      non-adaptive engine facade (§3.4, AdHash-NA)
+  executor    locality-aware distributed execution (Algorithm 1), one query
+              or one shape bucket
+  batcher     workload shape-bucketing for batched multi-query execution
+  health      worker health and the degraded-route predicate (DESIGN §9)
+  transform   core-vertex selection + redistribution tree (Alg. 2, §5.1-5.2)
+  heatmap     hierarchical workload heat map (§5.4)
+  pattern_index  pattern index + replica index + LRU eviction (§5.5)
+  ird         incremental redistribution (Algorithm 3, §5.3)
+  engine      the engine facade (§3.4): adaptive AdHash, or AdHash-NA
   adaptive    the adaptivity loop for LM embedding rows (DESIGN §2b)
 """

@@ -1,9 +1,10 @@
 """Distributed Semi-Join data plane (paper §4.1, Algorithm 1 internals).
 
-PyTorch port of the single-query stages of ``repro.core.dsj``.  Every stage
-is a plain function over tensors with a leading worker axis W (the JAX
-package ``vmap``s per-worker bodies over it).  On one device the worker
-exchanges are in-memory transposes:
+PyTorch port of ``repro.core.dsj``.  Every stage is a plain function over
+tensors with a leading worker axis W (the JAX package ``vmap``s per-worker
+bodies over it); each ``*_batch`` stage takes a further leading batch axis
+B of queries that share one plan (the JAX package ``vmap``s the stage over
+it).  On one device the worker exchanges are in-memory transposes:
 
   * the (W_sender, W_receiver) block transpose in ``exchange_hash`` and in
     the ``probe_and_reply`` reply route is the paper's hash distribution /
@@ -31,8 +32,8 @@ from .placement import splitmix64
 from .query import O, P, S, TriplePattern, Var
 from .relalg import I32MAX, bucket_by_dest, expand, gather_rows_of, \
     select_cols, unique_compact
-from .triples import ShardedTripleStore, gather_rows, match_ranges, \
-    probe_values
+from .triples import ShardedTripleStore, gather_rows, gather_rows_batch, \
+    match_ranges, match_ranges_batch, probe_values, probe_values_batch
 
 __all__ = [
     "PatternSpec",
@@ -50,6 +51,16 @@ __all__ = [
     "local_probe_join",
     "local_chain",
     "local_chain_from",
+    "match_rows_batch",
+    "match_first_batch",
+    "project_unique_batch",
+    "exchange_hash_batch",
+    "exchange_broadcast_batch",
+    "probe_and_reply_batch",
+    "finalize_join_batch",
+    "local_probe_join_batch",
+    "local_chain_batch",
+    "local_chain_from_batch",
 ]
 
 
@@ -98,7 +109,9 @@ def _residual_mask(rows: torch.Tensor, valid: torch.Tensor,
                    spec: PatternSpec, consts: torch.Tensor,
                    probed: tuple[int, ...]) -> torch.Tensor:
     """Enforce pattern constants not already enforced by the index probe,
-    plus same-variable (?x p ?x) equality."""
+    plus same-variable (?x p ?x) equality.  ``consts[c]`` is column c's
+    constant, broadcastable against ``rows[..., c]`` (a batch passes
+    ``_batch_consts``)."""
     for c, is_c in ((S, spec.s_const), (P, spec.p_const), (O, spec.o_const)):
         if is_c and c not in probed:
             valid = valid & (rows[..., c] == consts[c])
@@ -198,9 +211,12 @@ def hash_send_buffers(
 
 
 def _off_diagonal(svalid: torch.Tensor) -> torch.Tensor:
-    """Valid cells sent to another worker (w -> w stays local), int64."""
-    diag = torch.diagonal(svalid, dim1=0, dim2=1).sum()
-    return (svalid.sum() - diag).to(torch.int64)
+    """Valid cells sent to another worker (w -> w stays local), int64.
+    ``svalid`` is (..., W, W, cap); one count per leading index."""
+    lead = svalid.dim() - 3
+    diag = torch.diagonal(svalid, dim1=lead, dim2=lead + 1)
+    return (svalid.sum(dim=(-3, -2, -1)) - diag.sum(dim=(-2, -1))
+            ).to(torch.int64)
 
 
 def exchange_hash(
@@ -306,6 +322,16 @@ def finalize_join(
 
     New columns are appended for the pattern's variables not yet bound.
     Returns (out_cols (W, cap_out, k + new), out_valid, max_total)."""
+    out, valid, total = _finalize_rows(rel_cols, rel_valid, cand, cand_valid,
+                                       join_col_rel, probe_col, shared_checks,
+                                       append_cols, cap_out)
+    return out, valid, total.max()
+
+
+def _finalize_rows(rel_cols, rel_valid, cand, cand_valid, join_col_rel,
+                   probe_col, shared_checks, append_cols, cap_out):
+    """``finalize_join`` row by row: every op works within one worker row,
+    so a batch runs it on its B*W rows.  Returns the per-row totals."""
     w, r, cc, _ = cand.shape
     flat_cand = cand.reshape(w, r * cc, 3)
     flat_cvalid = cand_valid.reshape(w, r * cc)
@@ -313,17 +339,19 @@ def finalize_join(
     key = torch.where(flat_cvalid, flat_cand[..., probe_col], big)
     # stable, like jnp.argsort: tied candidates keep their routed order
     skey, order = torch.sort(key, dim=1, stable=True)
-    scand = gather_rows_of(flat_cand, order)
+    del key
     probe = torch.where(rel_valid, rel_cols[..., join_col_rel],
                         torch.full_like(rel_valid, I32MAX, dtype=torch.int32))
     lo, hi = range_search(skey, probe)
     hi = torch.where(rel_valid & (probe != I32MAX), hi, lo)
     left, pos, valid, total = expand(lo, hi, cap_out)
     ltuple = gather_rows_of(rel_cols, left)
-    rtriple = gather_rows_of(scand, pos)
+    # the sorted candidates' rows at ``pos``, gathered through ``order``:
+    # the whole sorted candidate table (R*cap_cand rows) is never built
+    rtriple = gather_rows_of(flat_cand, gather_rows_of(order, pos))
     out, valid = _join_output(ltuple, rtriple, valid, shared_checks,
                               append_cols)
-    return out, valid, total.max()
+    return out, valid, total
 
 
 # ----------------------------------------------------- case (i): no-comm join
@@ -405,4 +433,255 @@ def local_chain_from(
         totals.append(t)
     stacked = (torch.stack(totals) if totals else
                torch.zeros(0, dtype=torch.int64, device=rel_cols.device))
+    return tuple(rels), stacked
+
+
+# ===================================================== batched (multi-query)
+# One call evaluates a whole shape bucket of queries stacked on a leading
+# batch axis B (the JAX package vmaps the stages above over it).  All
+# queries of a bucket share the static arguments (PatternSpec, capacities,
+# join structure: what WorkloadBatcher buckets on); only the pattern
+# constants, (B, 3), and the flowing tensors differ per query.  Per-query
+# scalars (comm cells, overflow totals) come back as (B,) tensors so the
+# executor keeps the paper's per-query communication accounting exact.
+#
+# How a batch folds into the kernels, one launch per stage for the bucket:
+#   * probes of the shared store (range_search, span_search): the (B, W, M)
+#     probes become (W, B*M) rows of the store's (W, N) keys (triples.py's
+#     batched probes); ``match_ranges`` is the span form at M = B;
+#   * expand, unique_compact, bucket_by_dest and finalize_join's probe of
+#     its own sorted candidates work row by row: (B, W, ...) operands are
+#     B*W rows, and bucket_by_dest keeps n_dest = W.
+def _batch_consts(consts: torch.Tensor) -> torch.Tensor:
+    """(B, 3) constants as the (3, B, 1, 1) columns ``_residual_mask``
+    broadcasts against (B, W, cap) rows."""
+    return consts.t()[:, :, None, None]
+
+
+def match_rows_batch(
+    store: ShardedTripleStore,
+    consts: torch.Tensor,  # (B, 3) int32, -1 = variable
+    spec: PatternSpec,
+    cap_out: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``match_rows``: (rows (B, W, cap_out, 3), valid, max_total
+    (B,)); one span_search launch at M = B and one expand over B*W rows."""
+    nid = store.n_ids
+    none = torch.full_like(consts[:, 0], -1)
+    if spec.p_const and spec.s_const:
+        use_po, probed = False, (P, S)
+        lo, hi = match_ranges_batch(store, consts[:, P], consts[:, S], False,
+                                    nid)
+    elif spec.p_const and spec.o_const:
+        use_po, probed = True, (P, O)
+        lo, hi = match_ranges_batch(store, consts[:, P], consts[:, O], True,
+                                    nid)
+    elif spec.p_const:
+        use_po, probed = False, (P,)
+        lo, hi = match_ranges_batch(store, consts[:, P], none, False, nid)
+    else:
+        use_po, probed = False, ()
+        lo, hi = match_ranges_batch(store, none, none, False, nid)
+    rows, _, valid, totals = gather_rows_batch(store, lo[..., None],
+                                               hi[..., None], cap_out,
+                                               use_po=use_po)
+    valid = _residual_mask(rows, valid, spec, _batch_consts(consts), probed)
+    return rows, valid, totals.amax(dim=1)
+
+
+def match_first_batch(
+    store: ShardedTripleStore,
+    consts: torch.Tensor,  # (B, 3) int32, -1 = variable
+    spec: PatternSpec,
+    cap_out: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``match_first``: (cols (B, W, cap_out, k), valid, total
+    (B,))."""
+    rows, valid, max_total = match_rows_batch(store, consts, spec, cap_out)
+    cols = select_cols(rows, spec.var_cols)
+    cols = torch.where(valid[..., None], cols, torch.full_like(cols, -1))
+    return cols, valid, max_total
+
+
+def project_unique_batch(
+    cols: torch.Tensor,  # (B, W, capR, k)
+    valid: torch.Tensor,
+    col_idx: int,
+    cap_proj: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``project_unique``: (proj (B, W, cap_proj), valid, max
+    (B,)); one unique_compact launch over B*W rows."""
+    b, w, n = valid.shape
+    u, uv, nu = unique_compact(cols[..., col_idx].reshape(b * w, n),
+                               valid.reshape(b * w, n), cap_proj, I32MAX)
+    u = torch.where(uv, u, torch.full_like(u, -1))
+    return (u.view(b, w, cap_proj), uv.view(b, w, cap_proj),
+            nu.view(b, w).amax(dim=1))
+
+
+def exchange_hash_batch(
+    proj: torch.Tensor,  # (B, W, cap_proj)
+    proj_valid: torch.Tensor,
+    cap_peer: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``exchange_hash``: (recv (B, W_recv, W_send, cap_peer),
+    recv_valid, cells (B,), max_bucket (B,)); one bucket_by_dest launch over
+    B*W rows with n_dest = W."""
+    b, w, n = proj.shape
+    send, svalid, maxw = hash_send_buffers(proj.reshape(b * w, n),
+                                           proj_valid.reshape(b * w, n), w,
+                                           cap_peer)
+    send = send.view(b, w, w, cap_peer)
+    svalid = svalid.view(b, w, w, cap_peer)
+    return (send.transpose(1, 2).contiguous(),
+            svalid.transpose(1, 2).contiguous(), _off_diagonal(svalid),
+            maxw.view(b, w).amax(dim=1))
+
+
+def exchange_broadcast_batch(
+    proj: torch.Tensor, proj_valid: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``exchange_broadcast``: (recv (B, W_recv, W_send, cap_proj),
+    recv_valid, cells (B,))."""
+    b, w, n = proj.shape
+    recv = proj[:, None].expand(b, w, w, n)
+    recv_valid = proj_valid[:, None].expand(b, w, w, n)
+    cells = proj_valid.sum(dim=(1, 2), dtype=torch.int64) * (w - 1)
+    return recv, recv_valid, cells
+
+
+def probe_and_reply_batch(
+    store: ShardedTripleStore,
+    recv: torch.Tensor,  # (B, W, W_send, cap_peer)
+    recv_valid: torch.Tensor,
+    consts: torch.Tensor,  # (B, 3)
+    spec: PatternSpec,
+    probe_col: int,
+    cap_flat: int,
+    cap_cand: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Batched ``probe_and_reply``: (cand (B, W_sender, W_replier,
+    cap_cand, 3), cand_valid, cells (B,), max_flat (B,), max_bucket (B,)).
+    One range_search over (W, B*W_send*cap_peer) probes, one expand and one
+    bucket_by_dest over the B*W rows, kept worker-major so the rows gather
+    from the store and feed bucket_by_dest without a copy."""
+    b, w, n_send, cap_peer = recv.shape
+    lo, hi = probe_values_batch(store, consts[:, P],
+                                recv.reshape(b, w, n_send * cap_peer),
+                                recv_valid.reshape(b, w, n_send * cap_peer),
+                                probe_col, store.n_ids)
+    rows, src, valid, totals = gather_rows_batch(store, lo, hi, cap_flat,
+                                                 use_po=(probe_col == O))
+    del lo, hi
+    valid = _residual_mask(rows, valid, spec, _batch_consts(consts),
+                           probed=(P, probe_col))
+    sender = torch.div(src, cap_peer, rounding_mode="floor")
+    wm = lambda x: x.transpose(0, 1).reshape((w * b,) + x.shape[2:])
+    send, svalid, maxb = bucket_by_dest(wm(rows), wm(sender), wm(valid),
+                                        n_send, cap_cand)
+    del rows, sender, valid
+    # (W_replier, B, W_sender, cap, ...) -> (B, W_sender, W_replier, cap, ...)
+    cand = send.view(w, b, n_send, cap_cand, 3).permute(1, 2, 0, 3, 4
+                                                        ).contiguous()
+    del send
+    cand_valid = svalid.view(w, b, n_send, cap_cand).permute(1, 2, 0, 3
+                                                              ).contiguous()
+    return (cand, cand_valid, _off_diagonal(cand_valid) * 3,
+            totals.amax(dim=1), maxb.view(w, b).amax(dim=0))
+
+
+def finalize_join_batch(
+    rel_cols: torch.Tensor,  # (B, W, capR, k)
+    rel_valid: torch.Tensor,
+    cand: torch.Tensor,  # (B, W, R, cap_cand, 3)
+    cand_valid: torch.Tensor,
+    join_col_rel: int,
+    probe_col: int,
+    shared_checks: tuple[tuple[int, int], ...],
+    append_cols: tuple[int, ...],
+    cap_out: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``finalize_join``: (out (B, W, cap_out, k+new), valid,
+    max_total (B,)); each kernel launches once over the B*W rows."""
+    b, w = rel_valid.shape[:2]
+    rows = lambda x: x.reshape((b * w,) + x.shape[2:])
+    out, valid, total = _finalize_rows(
+        rows(rel_cols), rows(rel_valid), rows(cand), rows(cand_valid),
+        join_col_rel, probe_col, shared_checks, append_cols, cap_out)
+    return (out.view((b, w) + out.shape[1:]), valid.view(b, w, cap_out),
+            total.view(b, w).amax(dim=1))
+
+
+def local_probe_join_batch(
+    store: ShardedTripleStore,
+    rel_cols: torch.Tensor,  # (B, W, capR, k)
+    rel_valid: torch.Tensor,
+    consts: torch.Tensor,  # (B, 3)
+    spec: PatternSpec,
+    join_col_rel: int,
+    probe_col: int,
+    shared_checks: tuple[tuple[int, int], ...],
+    append_cols: tuple[int, ...],
+    cap_out: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``local_probe_join`` (store shared, queries batched):
+    (out (B, W, cap_out, k+new), valid, max_total (B,))."""
+    b, w, cap_r, k = rel_cols.shape
+    lo, hi = probe_values_batch(store, consts[:, P],
+                                rel_cols[..., join_col_rel], rel_valid,
+                                probe_col, store.n_ids)
+    rows, src, valid, totals = gather_rows_batch(store, lo, hi, cap_out,
+                                                 use_po=(probe_col == O))
+    valid = _residual_mask(rows, valid, spec, _batch_consts(consts),
+                           probed=(P, probe_col))
+    ltuple = gather_rows_of(rel_cols.reshape(b * w, cap_r, k),
+                            src.reshape(b * w, cap_out)
+                            ).view(b, w, cap_out, k)
+    out, valid = _join_output(ltuple, rows, valid, shared_checks, append_cols)
+    return out, valid, totals.amax(dim=1)
+
+
+def local_chain_batch(
+    store: ShardedTripleStore,
+    consts: torch.Tensor,  # (B, 1+N, 3)
+    first_spec: PatternSpec,
+    first_keep: tuple[int, ...],
+    steps: tuple[ChainStep, ...],
+    caps: tuple[int, ...],
+) -> tuple[tuple[tuple[torch.Tensor, torch.Tensor], ...], torch.Tensor]:
+    """Batched fused chain for a whole shape bucket: rels[i] leaves gain a
+    leading B axis; totals comes back (1+N, B), stage-major, so the
+    executor's single host sync takes per-stage maxima."""
+    cols, valid, t0 = match_first_batch(store, consts[:, 0], first_spec,
+                                        caps[0])
+    if len(first_keep) != len(first_spec.var_cols):
+        cols = select_cols(cols, first_keep)
+    rels, totals = local_chain_from_batch(store, cols, valid, consts[:, 1:],
+                                          steps, caps[1:])
+    return ((cols, valid),) + rels, torch.cat([t0[None], totals])
+
+
+def local_chain_from_batch(
+    store: ShardedTripleStore,
+    rel_cols: torch.Tensor,  # (B, W, capR, k)
+    rel_valid: torch.Tensor,
+    consts: torch.Tensor,  # (B, N_tail, 3)
+    steps: tuple[ChainStep, ...],
+    caps: tuple[int, ...],
+) -> tuple[tuple[tuple[torch.Tensor, torch.Tensor], ...], torch.Tensor]:
+    """Batched suffix restart; totals (N_tail, B) stage-major."""
+    cols, valid = rel_cols, rel_valid
+    rels = []
+    totals = []
+    for i, stp in enumerate(steps):
+        cols, valid, t = local_probe_join_batch(
+            store, cols, valid, consts[:, i], stp.spec, stp.join_col_rel,
+            stp.probe_col, stp.shared_checks, stp.append_cols, caps[i],
+        )
+        rels.append((cols, valid))
+        totals.append(t)
+    stacked = (torch.stack(totals) if totals else
+               torch.zeros((0, rel_cols.shape[0]), dtype=torch.int64,
+                           device=rel_cols.device))
     return tuple(rels), stacked

@@ -1,19 +1,22 @@
-"""AdHash engine facade (paper §3, system overview §3.4) — the port's
-non-adaptive engine.
+"""AdHash engine facade (paper §3, system overview §3.4).
 
-PyTorch port of ``repro.core.engine`` with ``adaptive=False`` (the paper's
-AdHash-NA baseline).  Bootstraps like the paper: encode -> subject-hash
-partition -> load worker shards -> collect statistics -> answer queries.
-Per query:
+PyTorch port of ``repro.core.engine``.  Bootstraps like the paper: encode
+-> subject-hash partition -> load worker shards -> collect statistics ->
+answer queries.  Per query:
 
-  1. a subject star (every join case (i)) runs the fused chain over the
-     main index in parallel mode,
-  2. otherwise the locality-aware DP plan runs distributed (Algorithm 1).
+  1. transform Q into its redistribution tree Q' (Algorithm 2),
+  2. if Q' is contained in the Pattern Index -> parallel mode over the
+     replica index (zero communication),
+  3. else if Q is a subject-star -> parallel mode over the main index,
+  4. else -> locality-aware DP plan + distributed execution (Algorithm 1),
+  5. adaptivity: update the heat map, detect hot patterns, trigger IRD,
+     enforce the replication budget via LRU eviction.
 
-The ablation flags (§6.3.1) pass through to the executor.  Adaptivity
-(heat map, IRD, pattern index), batched queries, directory placement and
-the mesh substrates are later slices of the port and raise
-``NotImplementedError`` here.
+``adaptive=False`` yields the paper's AdHash-NA baseline.  The ablation
+flags (§6.3.1) pass through to the distributed executor.  ``query_batch``
+evaluates a workload with one batched pipeline per shape bucket.  Directory
+placement (hot-key rebalancing) and the mesh substrates are later slices of
+the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -24,14 +27,20 @@ import numpy as np
 import torch
 
 from .backend import quantize_capacity, resolve_device
+from .batcher import WorkloadBatcher
 from .dictionary import Dictionary
-from .executor import Executor, QueryStats
+from .executor import Executor, ExecutorError, QueryStats
+from .health import HealthState
+from .heatmap import HeatMap
 from .ingest import StreamIngestor
+from .ird import IncrementalRedistributor
+from .pattern_index import ParallelExecutor, PatternIndex, ReplicaIndex
 from .placement import resolve_placement
 from .planner import LocalityAwarePlanner
 from .query import Query, TriplePattern
 from .relation import Relation
-from .substrate import SingleDeviceSubstrate
+from .substrate import SingleDeviceSubstrate, host_fetch
+from .transform import build_redistribution_tree
 
 __all__ = ["AdHashEngine", "EngineReport"]
 
@@ -42,22 +51,33 @@ class EngineReport:
 
     n_queries: int = 0
     n_parallel: int = 0
+    n_parallel_replica: int = 0
     n_distributed: int = 0
     comm_cells: int = 0
+    ird_comm_cells: int = 0
+    ird_triples: int = 0
+    n_redistributions: int = 0
+    n_evictions: int = 0
+    n_rebalances: int = 0  # hot-key splits published (directory placement)
+    rebalance_comm_cells: int = 0  # main-store cells moved by rebalances
+    n_degraded: int = 0  # shard-local queries (PI hits + main-index chains)
+    # demoted to the distributed route by a dark shard (DESIGN §9/§11)
+    n_batch_dispatches: int = 0  # batched-pipeline launches (query_batch)
     wall_time_s: float = 0.0
     history: list[tuple[str, int, float]] = field(default_factory=list)
 
     @property
     def comm_bytes(self) -> int:
-        return self.comm_cells * 4
+        return (self.comm_cells + self.ird_comm_cells) * 4
 
 
 class AdHashEngine:
     """``triples`` may be a host array (one-shot bootstrap) or an iterator
     of (n, 3) chunks (streaming bootstrap) — both flow through
     :class:`repro_torch.core.ingest.StreamIngestor`, so a chunked ingest
-    produces a store bit-identical to the one-shot build.  The store lives
-    on ``device`` (default ``"cuda"``; ``"cuda"`` without a card raises)."""
+    produces a store bit-identical to the one-shot build.  The store and
+    the replica modules live on ``device`` (default ``"cuda"``; ``"cuda"``
+    without a card raises)."""
 
     def __init__(
         self,
@@ -66,21 +86,20 @@ class AdHashEngine:
         *,
         dictionary: Dictionary | None = None,
         adaptive: bool = True,
+        frequency_threshold: int = 10,
+        replication_budget: int | None = None,  # max replica triples / worker
+        heuristic: str = "high_low",
         locality_aware: bool = True,
         pinned_opt: bool = True,
         capacity: int = 1 << 12,
         use_count_oracle: bool = True,
         substrate=None,
         placement=None,
+        skew_threshold: float = 2.0,
         local_chain: bool = True,
         device: str | torch.device = "cuda",
     ):
         t0 = time.perf_counter()
-        if adaptive:
-            raise NotImplementedError(
-                "adaptive=True is not ported yet (ROADMAP.md §1 item 6, "
-                "adaptivity); pass adaptive=False"
-            )
         if substrate is not None and not isinstance(substrate,
                                                     SingleDeviceSubstrate):
             raise NotImplementedError(
@@ -91,11 +110,15 @@ class AdHashEngine:
         self.w = n_workers
         self.dictionary = dictionary
         self.adaptive = adaptive
+        self.threshold = frequency_threshold
+        self.budget = replication_budget
+        self.heuristic = heuristic
         self.capacity = quantize_capacity(capacity)
         self.substrate = substrate if substrate is not None else \
             SingleDeviceSubstrate()
         self.substrate.check_workers(n_workers)
         self.placement = resolve_placement(placement, n_workers)
+        self.skew_threshold = float(skew_threshold)
 
         # bootstrap (paper §3.4): partition, load, collect statistics — one
         # code path for a host array (one chunk) and a chunk iterator
@@ -109,13 +132,35 @@ class AdHashEngine:
                 ingestor.add_chunk(chunk)
         self.store, self.stats, self.n_ids = ingestor.finish(self.device)
 
+        # worker health: while any shard is failed, PI hits and main-index
+        # chains are demoted from the shard-local routes to the distributed
+        # route and adaptivity writes are suspended (DESIGN §9) — created
+        # before the Executor so route selection can consult it
+        self.health = HealthState(n_workers)
+
         oracle = self._count_pattern if use_count_oracle else None
         self.planner = LocalityAwarePlanner(self.stats, n_workers, oracle)
         self.executor = Executor(
             self.store, n_workers, locality_aware, pinned_opt,
-            substrate=self.substrate, placement=self.placement, health=None,
-            local_chain=local_chain,
+            substrate=self.substrate, placement=self.placement,
+            health=self.health, local_chain=local_chain,
         )
+        self.heatmap = HeatMap()
+        self.pattern_index = PatternIndex()
+        self.replicas = ReplicaIndex(n_workers)
+        self.parallel_exec = ParallelExecutor(
+            self.store, self.replicas, n_workers, substrate=self.substrate,
+        )
+        self.ird = IncrementalRedistributor(
+            self.store, self.replicas, n_workers, self.capacity,
+            substrate=self.substrate, placement=self.placement,
+        )
+        self._no_redistribute: set = set()
+        # brownout rung 1 (DESIGN §10): a serving front-end sets this under
+        # overload to shed *adaptivity* work before shedding queries — IRD
+        # is deferred exactly like a degraded episode (the heat map keeps
+        # counting, catch-up fires on the first unpaused query)
+        self.adaptivity_paused = False
         self.report = EngineReport()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -154,15 +199,45 @@ class AdHashEngine:
     # ------------------------------------------------------------------ query
     def query(self, q: Query) -> tuple[Relation, QueryStats]:
         t0 = time.perf_counter()
-        plan = self.planner.plan(q)
-        rel, qstats = self.executor.execute(
-            q, plan.ordering, plan.join_vars,
-            capacity=max(self.capacity, plan.capacity_hint()),
+        # the redistribution tree only feeds the adaptivity machinery
+        tree = (
+            build_redistribution_tree(q, self.stats, self.heuristic)
+            if self.adaptive else None
         )
-        if qstats.mode == "parallel":
-            self.report.n_parallel += 1
+
+        # (2) pattern-index hit -> parallel mode over replicas.  While a
+        # shard is failed the hit is *demoted*: replica modules would be
+        # probed shard-locally — including on the dead shard — so the query
+        # runs the distributed route over the main index instead, exact but
+        # with communication (DESIGN §9).
+        matches = self.pattern_index.match(tree) if self.adaptive else None
+        degraded = matches is not None and self.health.degraded
+        if matches is not None and not degraded:
+            rel, qstats = self.parallel_exec.execute(
+                tree, matches, self.capacity
+            )
+            self.report.n_parallel_replica += 1
         else:
-            self.report.n_distributed += 1
+            plan = self.planner.plan(q)
+            rel, qstats = self.executor.execute(
+                q, plan.ordering, plan.join_vars,
+                capacity=max(self.capacity, plan.capacity_hint()),
+            )
+            if degraded:
+                qstats.route = f"{self.substrate.name}-degraded"
+            # count every demotion once, by route suffix: PI hits demoted
+            # here and main-index chains demoted inside the Executor
+            if qstats.route.endswith("-degraded"):
+                self.report.n_degraded += 1
+            if qstats.mode == "parallel":
+                self.report.n_parallel += 1
+            else:
+                self.report.n_distributed += 1
+
+        # (5) adaptivity: monitor + IRD + hot-key rebalancing
+        if self.adaptive:
+            self._post_query_adaptivity(tree)
+
         dt = time.perf_counter() - t0
         self.report.n_queries += 1
         self.report.comm_cells += qstats.comm_cells
@@ -170,8 +245,351 @@ class AdHashEngine:
         self.report.history.append((qstats.mode, qstats.comm_cells, dt))
         return rel, qstats
 
-    def query_batch(self, queries: list[Query]):
-        raise NotImplementedError(
-            "query_batch is not ported yet (ROADMAP.md §1 item 5, batched "
-            "execution); call query() per query"
+    # ------------------------------------------------------------ batch query
+    def query_batch(
+        self, queries: list[Query]
+    ) -> list[tuple[Relation, QueryStats]]:
+        """Evaluate a workload with batched multi-query execution.
+
+        Semantically identical to ``[self.query(q) for q in queries]`` —
+        results, per-query communication accounting and the adaptivity loop
+        (heat-map inserts, IRD triggers, pattern-index state, evictions) all
+        behave as if the queries ran sequentially — but same-shape queries
+        are stacked on a leading batch axis and evaluated by one pass of
+        the batched DSJ stages (one kernel launch per stage for the bucket).
+
+        Two-pass structure, exact by construction:
+
+        1. *Control pass* (sequential, host-side): per query, in order —
+           transform, pattern-index match, plan, then heat-map insert + IRD.
+           This replays the adaptivity state machine exactly: the routing
+           decision for query i sees precisely the redistributions triggered
+           by queries 0..i-1.  Pattern-index hits execute immediately (the
+           sequential fallback — their replica modules could be evicted by a
+           later query's budget enforcement); distributed/parallel queries
+           are deferred into :class:`WorkloadBatcher` shape buckets, which is
+           safe because they only read the immutable main index.
+        2. *Execution pass*: one batched pipeline per bucket (singleton
+           buckets run on the sequential executor), then the workload
+           report is filled in query order.
+
+        *Overlapped IRD*: when the control pass triggers a redistribution,
+        its device work is enqueued without waiting
+        (``redistribute_deferred``) and the oldest ready shape bucket is
+        planned and launched while that work runs (same stream: the
+        overlap hides host work); the barrier
+        (``PendingRedistribution.finalize``) runs before the pattern index
+        publishes the new entries, so routing decisions for later queries —
+        and hence the whole adaptivity state machine — are identical to the
+        sequential order.  Overlap only changes *when* already-decided
+        buckets execute (they read nothing but the immutable main index),
+        never what any query computes.
+
+        Error semantics differ from the sequential loop: if a query is
+        genuinely unexecutable (retry budget exhausted even sequentially)
+        the same ``ExecutorError`` propagates, but the adaptivity control
+        pass has by then processed the *whole* workload — equivalent to the
+        failing query having been last — and no partial results or report
+        entries are recorded.  That holds on the overlapped path too: an
+        error from a bucket evaluated inside an IRD window is deferred until
+        the control pass completes, then re-raised.  Only ``ExecutorError``
+        is handled so: any other error (out of memory, a CUDA error)
+        propagates at once.
+        """
+        # per query: (Relation, QueryStats, wall seconds)
+        results: list[tuple | None] = [None] * len(queries)
+        batcher = WorkloadBatcher(
+            self.executor.locality_aware, self.executor.pinned_opt,
+            self.placement.local_join_safe,
         )
+        t_all = time.perf_counter()
+
+        # an overlapped bucket hitting a genuinely unexecutable query must
+        # not abort the control pass mid-workload: the error is deferred and
+        # re-raised once adaptivity has processed every query, preserving
+        # the documented error semantics ("equivalent to the failing query
+        # having been last")
+        deferred_errors: list[ExecutorError] = []
+
+        def overlap():
+            # evaluate the oldest ready multi-query bucket while the IRD
+            # work runs; popped buckets are closed — later same-shape
+            # queries open a fresh bucket, which only affects grouping, not
+            # results.  Singletons stay put (see WorkloadBatcher.pop_bucket:
+            # no batched work to overlap, and popping them would perturb the
+            # steady-state batch shapes).
+            bucket = batcher.pop_bucket()
+            if bucket is not None:
+                try:
+                    self.execute_bucket(bucket, results)
+                except ExecutorError as e:
+                    deferred_errors.append(e)
+
+        # ---- pass 1: adaptivity control, replica-mode execution, bucketing
+        demoted: list[int] = []  # PI hits deferred to the distributed route
+        for i, q in enumerate(queries):
+            executed, was_demoted = self.stream_control_step(
+                q, batcher, i, overlap=overlap
+            )
+            if executed is not None:
+                results[i] = executed
+            elif was_demoted:
+                demoted.append(i)
+
+        # the adaptivity control pass is complete for the whole workload;
+        # now surface any failure an overlapped bucket hit (no results or
+        # report entries are recorded, matching the sequential error path)
+        if deferred_errors:
+            raise deferred_errors[0]
+
+        # ---- pass 2: one dispatch per remaining shape bucket
+        for bucket in batcher.buckets():
+            self.execute_bucket(bucket, results)
+
+        # route-tag the demoted PI hits (each bucket member carries its own
+        # QueryStats instance, so the tag never leaks to healthy queries)
+        for i in demoted:
+            assert results[i] is not None
+            results[i][1].route = f"{self.substrate.name}-degraded"
+
+        # ---- workload report, in original query order
+        out: list[tuple[Relation, QueryStats]] = []
+        for item in results:
+            assert item is not None
+            rel, qstats, dt = item
+            # demotions counted once by route suffix — covers PI hits tagged
+            # above and main-index chains demoted inside the Executor
+            if qstats.route.endswith("-degraded"):
+                self.report.n_degraded += 1
+            if qstats.mode == "parallel-replica":
+                self.report.n_parallel_replica += 1
+            elif qstats.mode == "parallel":
+                self.report.n_parallel += 1
+            else:
+                self.report.n_distributed += 1
+            self.report.n_queries += 1
+            self.report.comm_cells += qstats.comm_cells
+            self.report.history.append((qstats.mode, qstats.comm_cells, dt))
+            out.append((rel, qstats))
+        self.report.wall_time_s += time.perf_counter() - t_all
+        return out
+
+    def stream_control_step(self, q: Query, batcher: WorkloadBatcher,
+                            tag, overlap=None):
+        """One admitted request through the ``query_batch`` control pass —
+        the unit an online serving loop repeats per dequeued request, so a
+        served stream and an offline ``query_batch`` of the same query
+        sequence drive one state machine by construction.
+
+        In order: transform, pattern-index match (a healthy hit executes
+        inline over the replica index and is returned), otherwise plan and
+        file the query into ``batcher`` under ``tag``; finally the shared
+        post-query adaptivity hook (heat-map insert -> IRD -> rebalancing,
+        suspended while degraded or ``adaptivity_paused``).
+
+        Returns ``(executed, demoted)``: ``executed`` is the
+        ``(relation, stats, seconds)`` triple when the query ran inline
+        (PI hit), else None once the query joined its shape bucket;
+        ``demoted`` flags a PI hit deferred to the distributed route because
+        the mesh is degraded (DESIGN §9) — the caller route-tags its stats
+        after the bucket executes."""
+        tree = (
+            build_redistribution_tree(q, self.stats, self.heuristic)
+            if self.adaptive else None
+        )
+        matches = self.pattern_index.match(tree) if self.adaptive else None
+        executed = None
+        demoted = False
+        if matches is not None and not self.health.degraded:
+            t0 = time.perf_counter()
+            rel, qstats = self.parallel_exec.execute(
+                tree, matches, self.capacity
+            )
+            executed = (rel, qstats, time.perf_counter() - t0)
+        else:
+            # degraded demotion (DESIGN §9): the PI hit joins the shape
+            # buckets like any distributed query — it only reads the
+            # immutable main index
+            demoted = matches is not None
+            plan = self.planner.plan(q)
+            batcher.add(tag, q, plan.ordering, plan.join_vars,
+                        max(self.capacity, plan.capacity_hint()))
+        if self.adaptive:
+            self._post_query_adaptivity(tree, overlap=overlap)
+        return executed, demoted
+
+    def record_served(self, qstats: QueryStats, dt: float) -> None:
+        """Fold one answered request into the workload report — the serving
+        front-end's per-completion accounting, the same counters
+        ``query_batch`` fills in for an offline workload."""
+        if qstats.route.endswith("-degraded"):
+            self.report.n_degraded += 1
+        if qstats.mode == "parallel-replica":
+            self.report.n_parallel_replica += 1
+        elif qstats.mode == "parallel":
+            self.report.n_parallel += 1
+        else:
+            self.report.n_distributed += 1
+        self.report.n_queries += 1
+        self.report.comm_cells += qstats.comm_cells
+        self.report.wall_time_s += dt
+        self.report.history.append((qstats.mode, qstats.comm_cells, dt))
+
+    def execute_bucket(self, bucket, results) -> None:
+        """Evaluate one shape bucket and fill its members' result slots
+        (``results[tag] = (relation, stats, seconds)`` — any indexable
+        container keyed by the tags the bucket was filed under)."""
+        t0 = time.perf_counter()
+        if len(bucket) == 1:
+            rels_stats = [self._run_sequential(bucket, 0)]
+        else:
+            try:
+                rels, stats_l = self.executor.execute_batch(
+                    bucket.plan, bucket.stacked_consts()
+                )
+                self.report.n_batch_dispatches += 1
+                rels_stats = list(zip(rels, stats_l))
+            except ExecutorError:
+                # overflow pathologies: per-query sequential fallback (only
+                # ExecutorError; any other failure propagates)
+                rels_stats = [
+                    self._run_sequential(bucket, j)
+                    for j in range(len(bucket))
+                ]
+        dt = (time.perf_counter() - t0) / max(len(bucket), 1)
+        for tag, (rel, qstats) in zip(bucket.tags, rels_stats):
+            results[tag] = (rel, qstats, dt)
+
+    def _run_sequential(self, bucket, j: int) -> tuple[Relation, QueryStats]:
+        """Sequential-executor fallback for one bucket member."""
+        rel, qstats = self.executor.execute(
+            bucket.queries[j], bucket.orderings[j], bucket.join_vars[j],
+            capacity=max(self.capacity, bucket.capacities[j]),
+        )
+        return rel, qstats
+
+    # ------------------------------------------------------------- adaptivity
+    def observe(self, q: Query) -> None:
+        """Feed one query through the adaptivity state machine *without*
+        executing it — the replay path of the paper's §3.1 recovery story.
+
+        Performs exactly the adaptivity side effects of :meth:`query` in the
+        same order: the pattern-index containment check (whose LRU touch
+        ticks the PI clock on a hit, just like a live query), then the
+        shared post-query hook (heat-map insert -> IRD -> rebalancing).  A
+        replayed workload therefore reproduces heat-map state, PI
+        fingerprints (structure, storage ids, LRU timestamps), placement
+        and replica footprints bit-identically."""
+        if not self.adaptive:
+            return
+        tree = build_redistribution_tree(q, self.stats, self.heuristic)
+        self.pattern_index.match(tree)  # LRU touch, as in query()
+        self._post_query_adaptivity(tree)
+
+    def _post_query_adaptivity(self, tree, overlap=None) -> None:
+        """The single post-query adaptivity hook: heat-map insert, then IRD,
+        then hot-key rebalancing.  ``query``, ``query_batch`` and the
+        recovery replay all come through here — one code path, one state
+        machine.  While the mesh is degraded the monitor keeps counting but
+        redistribution and rebalancing are suspended: both would place
+        replica rows onto the failed shard (DESIGN §9); they resume — and
+        catch up from the accumulated heat-map counts — once the shard
+        recovers."""
+        self.heatmap.insert(tree)
+        if self.health.degraded or self.adaptivity_paused:
+            return
+        self._maybe_redistribute(overlap=overlap)
+        self._maybe_rebalance(overlap=overlap)
+
+    def _maybe_redistribute(self, overlap=None) -> None:
+        """Trigger IRD for newly hot patterns.
+
+        ``overlap``, when given, is a zero-argument callable run *between*
+        enqueueing a redistribution and its barrier: the IRD device work is
+        in flight while it executes (``query_batch`` passes a callback that
+        evaluates the next ready shape bucket).  The barrier
+        (``PendingRedistribution.finalize``) always precedes the pattern-
+        index publication, so the adaptivity state machine is sequential-
+        equivalent whether or not anything was overlapped."""
+        for hot in self.heatmap.hot_patterns(self.threshold):
+            key = tuple(sorted(map(tuple, hot.edge_paths)))
+            if key in self._no_redistribute:
+                continue
+            if self.pattern_index.contains(hot.rtree):
+                continue  # already redistributed (peek: no LRU touch)
+            pending = self.ird.redistribute_deferred(hot)
+            try:
+                if overlap is not None:
+                    overlap()  # IRD device work overlaps this evaluation
+            finally:
+                # the dispatched redistribution is completed and published
+                # even if the overlapped bucket raised (ExecutorError on a
+                # pathological member): its replica modules are already
+                # registered in the ReplicaIndex, and skipping the publish
+                # would orphan them — unevictable, silently inflating the
+                # budget accounting forever
+                storage, ird_stats = pending.finalize()  # barrier first
+                self.pattern_index.insert(hot.rtree, storage)
+                self.report.n_redistributions += 1
+                self.report.ird_comm_cells += ird_stats.comm_cells
+                self.report.ird_triples += ird_stats.triples_indexed
+                self._enforce_budget()
+                # pattern too large for the budget even alone: don't thrash
+                if (
+                    self.budget is not None
+                    and not self.pattern_index.contains(hot.rtree)
+                ):
+                    self._no_redistribute.add(key)
+
+    def _maybe_rebalance(self, overlap=None) -> None:
+        """Detect hot-key skew and schedule directory-placement splits.
+        Only a placement that can split a subject's star has work here; the
+        hash placement never can, so this returns at once, as the
+        reference's does for it.  Splitting placements are ROADMAP.md §1
+        item 7."""
+        if not self.placement.supports_split:
+            return
+        raise NotImplementedError(
+            "hot-key rebalancing is not ported yet (ROADMAP.md §1 item 7, "
+            "placement and rebalancing)"
+        )
+
+    def _publish_store(self, store) -> None:
+        """Swap the main store into every component that holds a reference
+        (host-side pointer swaps; device work already fenced)."""
+        self.store = store
+        self.executor.store = store
+        self.parallel_exec.main = store
+        self.ird.main = store
+
+    def _enforce_budget(self) -> None:
+        if self.budget is None:
+            return
+        guard = 0
+        while self.replicas.max_per_worker() > self.budget and guard < 64:
+            sids = self.pattern_index.evict_lru_root()
+            if sids is None:  # nothing evictable remains
+                break
+            for sid in sids:
+                self.replicas.drop(sid)
+            self.report.n_evictions += 1
+            guard += 1
+
+    # ------------------------------------------------------------- inspection
+    def replication_ratio(self) -> float:
+        """Replicated triples as a fraction of the original data."""
+        total = int(host_fetch(self.store.counts.sum(dtype=torch.int64)))
+        rep = int(self.replicas.per_worker_triples().sum())
+        return rep / max(total, 1)
+
+    def load_balance(self) -> dict:
+        main = host_fetch(self.store.counts).astype(np.int64)
+        rep = self.replicas.per_worker_triples()
+        tot = main + rep
+        return {
+            "max": int(tot.max()),
+            "min": int(tot.min()),
+            "mean": float(tot.mean()),
+            "std": float(tot.std()),
+            "replication_ratio": self.replication_ratio(),
+        }

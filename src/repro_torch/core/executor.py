@@ -1,7 +1,8 @@
 """Locality-Aware Distributed Execution (paper Algorithm 1).
 
-PyTorch port of ``repro.core.executor`` (single-query execution).  For each
-join step the executor picks the paper's four cases (§4.1.3):
+PyTorch port of ``repro.core.executor``: single-query execution and the
+batched execution of a shape bucket.  For each join step the executor picks
+the paper's four cases (§4.1.3):
 
   (i)   c2 = subject  and c2 = pinned_subject  -> local join, zero comm
   (ii)  c2 = subject  and c2 != pinned_subject -> DSJ, hash-distributed column
@@ -41,16 +42,17 @@ class ExecutorError(RuntimeError):
 
 @dataclass
 class QueryStats:
-    mode: str = "distributed"  # or "parallel"
+    mode: str = "distributed"  # or "parallel" / "parallel-replica"
     comm_cells: int = 0  # int32 cells on the wire
     n_dsj: int = 0
     n_local_joins: int = 0
     n_retries: int = 0
     plan: list[str] = field(default_factory=list)
     # which substrate route executed the query: "" for the staged path,
-    # "<substrate>-local-main" when a case-(i) chain ran the fused route
-    # over the main index, "<substrate>-degraded" when a dark shard demoted
-    # the chain to the staged path
+    # "<substrate>-local" when a pattern-index hit ran over the replica
+    # index, "<substrate>-local-main" when a case-(i) chain ran the fused
+    # route over the main index, "<substrate>-degraded" when a dark shard
+    # demoted either fast route to the staged path
     route: str = ""
 
     @property
@@ -468,3 +470,232 @@ class Executor:
         if stats.n_dsj == 0:
             stats.mode = "parallel"
         return rel, stats
+
+    # ---------------------------------------------------- batched execution
+    def execute_batch(
+        self, bplan, consts: np.ndarray
+    ) -> tuple[list[Relation], list[QueryStats]]:
+        """Evaluate one shape bucket in a single batched pipeline.
+
+        ``bplan`` is a :class:`repro_torch.core.batcher.BatchPlan`;
+        ``consts`` is (B, n_patterns, 3) pattern constants in plan order.
+        Same retry discipline as ``execute`` — a stage retries with a
+        doubled capacity class when *any* bucket member overflows (results
+        are unchanged: a stage is only accepted once no query drops rows).
+        Communication is accounted per query from the stages' (B,) cell
+        counts.  Each returned Relation is a view of lane i of the bucket's
+        output, on the device."""
+        from .batcher import quantize_batch
+
+        b = consts.shape[0]
+        b_pad = quantize_batch(b)
+        consts = np.asarray(consts, dtype=np.int32)
+        if b_pad != b:
+            # pad with copies of the last query: real data, discarded outputs
+            consts = np.concatenate([consts, np.broadcast_to(
+                consts[-1:], (b_pad - b,) + consts.shape[1:])])
+        consts_t = torch.from_numpy(np.ascontiguousarray(consts)).to(
+            self.device)
+        stats = [QueryStats() for _ in range(b)]
+
+        # all-local bucket -> the fused chain route, unless a shard is dark
+        # (then the staged path runs, with every member route-tagged as
+        # demoted — mirroring ``execute``).  The reference also runs the
+        # staged path once per bucket shape while healthy, to compile it
+        # for a later failover; there is nothing to compile here.
+        if self.local_chain and bplan.local_chain:
+            if self.health is None or not self.health.degraded:
+                return self._execute_batch_local_chain(bplan, consts_t, b,
+                                                       stats)
+            for st in stats:
+                st.route = f"{self.sub.name}-degraded"
+        return self._execute_batch_staged(bplan, consts_t, b, stats)
+
+    def _execute_batch_staged(self, bplan, consts_t, b, stats):
+        """The per-stage batched path (see ``execute_batch``)."""
+        cap = bplan.capacity
+        for _ in range(_MAX_RETRIES):
+            cols, valid, totals = self.sub.match_first_batch(
+                self.store, consts_t[:, 0], bplan.first_spec, cap)
+            t = host_total(totals)
+            if t <= cap:
+                break
+            cap = quantize_capacity(max(cap * 2, t))
+            for st in stats:
+                st.n_retries += 1
+        else:
+            raise ExecutorError("batched match_first exceeded retry budget")
+        if len(bplan.first_keep) != cols.shape[-1]:
+            cols = select_cols(cols, bplan.first_keep)
+        for st in stats:
+            st.plan.append(f"match[batch={b}] {bplan.first_spec}")
+
+        rel_cols, rel_valid = cols, valid
+        n_dsj = 0
+        comm: list = []  # per-stage (B,) device cell counts, fetched once
+        for step, sp in enumerate(bplan.steps):
+            qc = consts_t[:, 1 + step]
+            if sp.kind == "local":
+                rel_cols, rel_valid = self._batch_local_step(
+                    sp, rel_cols, rel_valid, qc, bplan.capacity, stats)
+            else:
+                n_dsj += 1
+                rel_cols, rel_valid = self._batch_dsj_step(
+                    sp, rel_cols, rel_valid, qc, bplan.capacity, stats, comm)
+        if comm:
+            cells = host_fetch(torch.stack(comm).sum(dim=0))
+            for i in range(b):
+                stats[i].comm_cells += int(cells[i])
+
+        mode = "parallel" if n_dsj == 0 else "distributed"
+        out_vars = bplan.steps[-1].out_vars if bplan.steps else \
+            bplan.first_vars
+        rels = []
+        for i in range(b):
+            stats[i].mode = mode
+            rels.append(Relation(rel_cols[i], rel_valid[i], out_vars))
+        return rels, stats
+
+    def _execute_batch_local_chain(self, bplan, consts_t, b, stats):
+        """Batched speculative chain: the whole shape bucket in one pass,
+        one host sync.  Same protocol as ``_execute_local_chain`` with
+        per-stage maxima taken across the batch (and the shards) — capacity
+        classes are shared across the bucket exactly like the staged batch
+        retry loops."""
+        steps = tuple(
+            dsj.ChainStep(sp.spec, sp.c1, sp.c2, sp.checks, sp.append_cols)
+            for sp in bplan.steps
+        )
+        n_stages = 1 + len(steps)
+        caps = [bplan.capacity] * n_stages
+        tries = [0] * n_stages
+        rels: list = [None] * n_stages
+        start = 0
+        while True:
+            if start == 0:
+                out, totals = self.sub.local_chain_batch(
+                    self.store, consts_t, bplan.first_spec, bplan.first_keep,
+                    steps, tuple(caps))
+                rels[:] = list(out)
+            else:
+                seed_cols, seed_valid = rels[start - 1]
+                out, totals = self.sub.local_chain_from_batch(
+                    self.store, seed_cols, seed_valid, consts_t[:, start:],
+                    steps[start - 1:], tuple(caps[start:]))
+                rels[start:] = list(out)
+            tots = host_chain_totals(totals)  # THE host sync
+            bad = next(
+                (j for j in range(start, n_stages)
+                 if int(tots[j - start]) > caps[j]),
+                None,
+            )
+            if bad is None:
+                break
+            for st in stats:
+                st.n_retries += 1
+            tries[bad] += 1
+            if tries[bad] >= _MAX_RETRIES:
+                raise ExecutorError("batched local chain exceeded retries")
+            caps[bad] = quantize_capacity(
+                max(caps[bad] * 2, int(tots[bad - start])))
+            start = bad
+        out_vars = bplan.steps[-1].out_vars if bplan.steps else \
+            bplan.first_vars
+        cols, valid = rels[-1]
+        rels_out = []
+        for i in range(b):
+            st = stats[i]
+            st.plan.append(f"match[batch={b}] {bplan.first_spec}")
+            for sp in bplan.steps:
+                st.plan.append(f"local-join on {sp.join_var}")
+            st.n_local_joins += len(steps)
+            st.mode = "parallel"
+            st.route = f"{self.sub.name}-local-main"
+            rels_out.append(Relation(cols[i], valid[i], out_vars))
+        return rels_out, stats
+
+    def _batch_local_step(self, sp, rel_cols, rel_valid, qc, cap, stats):
+        for st in stats:
+            st.n_local_joins += 1
+            st.plan.append(f"local-join on {sp.join_var}")
+        for _ in range(_MAX_RETRIES):
+            cols, valid, totals = self.sub.local_probe_join_batch(
+                self.store, rel_cols, rel_valid, qc, sp.spec, sp.c1, sp.c2,
+                sp.checks, sp.append_cols, cap)
+            t = host_total(totals)
+            if t <= cap:
+                return cols, valid
+            cap = quantize_capacity(max(cap * 2, t))
+            for st in stats:
+                st.n_retries += 1
+        raise ExecutorError("batched local join exceeded retry budget")
+
+    def _batch_dsj_step(self, sp, rel_cols, rel_valid, qc, cap, stats, comm):
+        hash_mode = sp.kind == "hash"
+        for st in stats:
+            st.n_dsj += 1
+            st.plan.append(
+                f"dsj[{'hash' if hash_mode else 'bcast'}] on {sp.join_var}")
+
+        cap_proj = quantize_capacity(cap)
+        for _ in range(_MAX_RETRIES):
+            proj, pvalid, nuniq = self.sub.project_unique_batch(
+                rel_cols, rel_valid, sp.c1, cap_proj)
+            nu = host_total(nuniq)
+            if nu <= cap_proj:
+                break
+            cap_proj = quantize_capacity(max(cap_proj * 2, nu))
+            for st in stats:
+                st.n_retries += 1
+        else:
+            raise ExecutorError("batched projection exceeded retry budget")
+
+        if hash_mode:
+            cap_peer = cap_proj
+            for _ in range(_MAX_RETRIES):
+                recv, rvalid, cells, maxb = self.sub.exchange_hash_batch(
+                    proj, pvalid, cap_peer)
+                mb = host_total(maxb)
+                if mb <= cap_peer:
+                    break
+                cap_peer = quantize_capacity(max(cap_peer * 2, mb))
+                for st in stats:
+                    st.n_retries += 1
+            else:
+                raise ExecutorError("batched hash exchange exceeded retries")
+        else:
+            recv, rvalid, cells = self.sub.exchange_broadcast_batch(proj,
+                                                                    pvalid)
+        comm.append(cells)  # (B,) device tensor — fetched once per batch
+        del proj, pvalid
+
+        cap_flat = cap_cand = quantize_capacity(cap)
+        for _ in range(_MAX_RETRIES):
+            cand, cvalid, cells, maxf, maxc = self.sub.probe_and_reply_batch(
+                self.store, recv, rvalid, qc, sp.spec, sp.c2, cap_flat,
+                cap_cand)
+            mf, mc = host_total(maxf), host_total(maxc)
+            if mf <= cap_flat and mc <= cap_cand:
+                break
+            if mf > cap_flat:
+                cap_flat = quantize_capacity(max(cap_flat * 2, mf))
+            if mc > cap_cand:
+                cap_cand = quantize_capacity(max(cap_cand * 2, mc))
+            for st in stats:
+                st.n_retries += 1
+        else:
+            raise ExecutorError("batched probe/reply exceeded retry budget")
+        comm.append(cells)
+        del recv, rvalid
+
+        for _ in range(_MAX_RETRIES):
+            cols, valid, totals = self.sub.finalize_join_batch(
+                rel_cols, rel_valid, cand, cvalid, sp.c1, sp.c2, sp.checks,
+                sp.append_cols, cap)
+            t = host_total(totals)
+            if t <= cap:
+                return cols, valid
+            cap = quantize_capacity(max(cap * 2, t))
+            for st in stats:
+                st.n_retries += 1
+        raise ExecutorError("batched finalize exceeded retry budget")

@@ -74,6 +74,9 @@ class PlacementPolicy:
     #: case (i) zero-communication local joins are sound iff a subject's
     #: whole star is guaranteed local to one shard
     local_join_safe: bool = True
+    #: can split a hot subject's star over shards (the engine's hot-key
+    #: rebalancing); only the directory placement of ROADMAP.md §1 item 7
+    supports_split: bool = False
 
     def place_triples_np(self, triples: np.ndarray) -> np.ndarray:
         """Worker id per (N, 3) triple row (ingest path)."""

@@ -4,8 +4,10 @@ PyTorch port of the single-device half of ``repro.core.substrate``.  The
 stages in ``dsj.py`` are global-view functions over tensors with a leading
 worker axis W; on one device the worker exchanges stay the in-memory block
 transposes / broadcasts of dsj.py, so ``Substrate`` binds the stages
-directly.  The mesh substrates (W split over ranks, exchanges as
-collectives) are a later slice of the port.
+directly, the batched ``*_batch`` stages included.  The mesh substrates (W
+split over ranks, exchanges as collectives) are a later slice of the port;
+on one device the shard-local route of the parallel-replica mode is the
+regular stages, and placing a store or relation is the identity.
 
 The second half is the host-sync chokepoints: every device->host transfer
 the executor performs funnels through ``host_total``, ``host_chain_totals``
@@ -37,8 +39,17 @@ class Substrate:
         if n_workers < 1:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
 
+    def shard_store(self, store):
+        """Place a store on the substrate (one device: as it is)."""
+        return store
+
+    def shard_relation(self, rel):
+        """Place a relation on the substrate (one device: as it is)."""
+        return rel
+
     # -------------------------------------------------------------- stages
     match_ranges = staticmethod(match_ranges)
+    match_rows = staticmethod(dsj.match_rows)
     match_first = staticmethod(dsj.match_first)
     project_unique = staticmethod(dsj.project_unique)
     exchange_hash = staticmethod(dsj.exchange_hash)
@@ -49,6 +60,20 @@ class Substrate:
     # fused case-(i) chains: whole query, per-stage totals stacked, one sync
     local_chain = staticmethod(dsj.local_chain)
     local_chain_from = staticmethod(dsj.local_chain_from)
+    # the shard-local route of a pattern-index hit: no collective to skip on
+    # one device, so the regular stages
+    match_first_local = staticmethod(dsj.match_first)
+    local_probe_join_local = staticmethod(dsj.local_probe_join)
+    # batched multi-query stages (a leading batch axis B)
+    match_first_batch = staticmethod(dsj.match_first_batch)
+    project_unique_batch = staticmethod(dsj.project_unique_batch)
+    exchange_hash_batch = staticmethod(dsj.exchange_hash_batch)
+    exchange_broadcast_batch = staticmethod(dsj.exchange_broadcast_batch)
+    probe_and_reply_batch = staticmethod(dsj.probe_and_reply_batch)
+    finalize_join_batch = staticmethod(dsj.finalize_join_batch)
+    local_probe_join_batch = staticmethod(dsj.local_probe_join_batch)
+    local_chain_batch = staticmethod(dsj.local_chain_batch)
+    local_chain_from_batch = staticmethod(dsj.local_chain_from_batch)
 
 
 class SingleDeviceSubstrate(Substrate):

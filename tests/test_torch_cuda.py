@@ -333,6 +333,130 @@ def test_cuda_engine_matches_cpu_engine(cuda_device):
     assert all(LAUNCHES[k] > 0 for k in rdf), LAUNCHES
 
 
+def _batch_stage_outputs(store, stage, b=5):
+    """(batched outputs, [single-call outputs] * b) of one ``*_batch``
+    stage of ``repro_torch.core.dsj`` on ``store``'s device: lane i of the
+    batch must equal the i-th single call."""
+    from repro_torch.core import dsj
+    from repro_torch.core.query import O, S
+
+    dev = store.device
+    spo = store.to_numpy()
+    preds = np.unique(spo[:, 1])
+    pairs = sorted({(int(p), int(q)) for p in preds for q in preds
+                    if np.intersect1d(spo[spo[:, 1] == p, 2],
+                                      spo[spo[:, 1] == q, 0]).size})[:b]
+    consts = torch.tensor([[-1, p, -1] for p, _ in pairs], dtype=torch.int32,
+                          device=dev)
+    jconsts = torch.tensor([[-1, q, -1] for _, q in pairs],
+                           dtype=torch.int32, device=dev)
+    spec = dsj.PatternSpec(False, True, False, False, (S, O))
+    cols, valid, _ = dsj.match_first_batch(store, consts, spec, 256)
+    one = lambda fn: [fn(i) for i in range(b)]
+    if stage == "match_first":
+        return (dsj.match_first_batch(store, jconsts, spec, 256),
+                one(lambda i: dsj.match_first(store, jconsts[i], spec, 256)))
+    proj, pv, _ = dsj.project_unique_batch(cols, valid, 1, 128)
+    if stage == "project_unique":
+        return (dsj.project_unique_batch(cols, valid, 1, 128),
+                one(lambda i: dsj.project_unique(cols[i], valid[i], 1, 128)))
+    if stage == "exchange_hash":
+        return (dsj.exchange_hash_batch(proj, pv, 64),
+                one(lambda i: dsj.exchange_hash(proj[i], pv[i], 64)))
+    if stage == "exchange_broadcast":
+        return (dsj.exchange_broadcast_batch(proj, pv),
+                one(lambda i: dsj.exchange_broadcast(proj[i], pv[i])))
+    recv, rv, _, _ = dsj.exchange_hash_batch(proj, pv, 128)
+    reply = dsj.probe_and_reply_batch(store, recv, rv, jconsts, spec, S,
+                                      256, 128)
+    if stage == "probe_and_reply":
+        return reply, one(lambda i: dsj.probe_and_reply(
+            store, recv[i], rv[i], jconsts[i], spec, S, 256, 128))
+    if stage == "finalize_join":
+        cand, cv = reply[:2]
+        return (dsj.finalize_join_batch(cols, valid, cand, cv, 1, S, (),
+                                        (O,), 512),
+                one(lambda i: dsj.finalize_join(cols[i], valid[i], cand[i],
+                                                cv[i], 1, S, (), (O,), 512)))
+    if stage == "local_probe_join":
+        return (dsj.local_probe_join_batch(store, cols, valid, jconsts, spec,
+                                           0, S, (), (O,), 256),
+                one(lambda i: dsj.local_probe_join(
+                    store, cols[i], valid[i], jconsts[i], spec, 0, S, (),
+                    (O,), 256)))
+    steps = (dsj.ChainStep(spec, 0, S, (), (O,)),) * 2
+    chain = torch.stack([consts, jconsts, consts], dim=1)
+    rels, tots = dsj.local_chain_batch(store, chain, spec, (0, 1), steps,
+                                       (256, 256, 512))
+    singles = one(lambda i: dsj.local_chain(store, chain[i], spec, (0, 1),
+                                            steps, (256, 256, 512)))
+    flat = lambda rels_, tots_: [t for r in rels_ for t in r] + [tots_]
+    return (flat(rels, tots.t()), [flat(r, t) for r, t in singles])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [
+    "match_first", "project_unique", "exchange_hash", "exchange_broadcast",
+    "probe_and_reply", "finalize_join", "local_probe_join", "local_chain"])
+def test_cuda_batch_stage_folds_match_single_calls(cuda_device, stage):
+    """Each batched stage folds its B queries into one launch per kernel:
+    on the card, lane i equals the i-th single-query call, and the whole
+    batch equals the CPU port's batched stage bit for bit."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import lubm_like
+
+    _, triples = lubm_like(2, 2, 2, 2)
+    gpu = AdHashEngine(triples, 4, adaptive=False, device="cuda")
+    cpu = AdHashEngine(triples, 4, adaptive=False, device="cpu")
+    g_batch, g_single = _batch_stage_outputs(gpu.store, stage)
+    c_batch, _ = _batch_stage_outputs(cpu.store, stage)
+    for i, single in enumerate(g_single):
+        for part, (a, b) in enumerate(zip(g_batch, single)):
+            assert torch.equal(a[i], b), (stage, i, part)
+    for part, (a, b) in enumerate(zip(g_batch, c_batch)):
+        assert torch.equal(a.cpu(), b), (stage, part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_adaptive_engine_matches_cpu(cuda_device, batched):
+    """The adaptive engine on the card against the CPU port, under a budget
+    that forces evictions: answers, stats, report, pattern-index
+    fingerprint, heat map and every replica store's five tensors, through
+    ``query`` or ``query_batch``."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    queries = Workload(d, seed=0).sample(20) * 2
+    kw = dict(frequency_threshold=2, capacity=256, replication_budget=16)
+    gpu = AdHashEngine(triples, 4, device="cuda", **kw)
+    cpu = AdHashEngine(triples, 4, device="cpu", **kw)
+    if batched:
+        g_res, c_res = gpu.query_batch(queries), cpu.query_batch(queries)
+    else:
+        g_res = [gpu.query(q) for q in queries]
+        c_res = [cpu.query(q) for q in queries]
+    for (grel, gst), (crel, cst) in zip(g_res, c_res):
+        assert grel.to_set() == crel.to_set()
+        assert (gst.comm_cells, gst.mode, gst.route, gst.n_retries,
+                gst.plan) == (cst.comm_cells, cst.mode, cst.route,
+                              cst.n_retries, cst.plan)
+    assert gpu.report.n_redistributions > 0 and gpu.report.n_evictions > 0
+    assert [h[:2] for h in gpu.report.history] == \
+        [h[:2] for h in cpu.report.history]
+    for f in ("n_parallel_replica", "ird_comm_cells", "ird_triples",
+              "n_evictions", "n_batch_dispatches"):
+        assert getattr(gpu.report, f) == getattr(cpu.report, f), f
+    assert gpu.pattern_index.fingerprint() == cpu.pattern_index.fingerprint()
+    assert gpu.heatmap.to_state() == cpu.heatmap.to_state()
+    assert sorted(gpu.replicas.modules) == sorted(cpu.replicas.modules)
+    for sid, st in cpu.replicas.modules.items():
+        for a, b in zip(gpu.replicas.modules[sid].leaves(), st.leaves()):
+            assert torch.equal(a.cpu(), b), sid
+    assert gpu.replication_ratio() == cpu.replication_ratio()
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_on_empty_and_tiny_inputs(cuda_device):
     """Edge shapes the main path can produce: no probes, no ranges, no

@@ -5,9 +5,9 @@ Same triples, same queries, ``adaptive=False`` on both sides, the port on
 route and ``n_retries`` must be equal query by query — on the paper's
 running example and on a ``lubm_like(2, 2, 2, 2)`` workload over all six
 templates, under the default settings and the paper's ablations, and
-along the overflow-retry ladder.  Also: the port imports neither jax nor ``repro``, it
-raises on what this slice has not ported, and ``device="cuda"`` without a
-card raises.
+along the overflow-retry ladder.  Also: the port imports neither jax nor
+``repro``, it raises on what it has not ported yet (directory placement,
+mesh substrates), and ``device="cuda"`` without a card raises.
 """
 from __future__ import annotations
 
@@ -16,7 +16,6 @@ import os
 import subprocess
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,6 +29,7 @@ from repro.core.query import Var as JV
 from repro.core.query import Query as JQuery
 from repro.data.synthetic_rdf import lubm_like, lubm_queries
 from repro_torch.core.engine import AdHashEngine
+from repro_torch.core.health import HealthState
 from repro_torch.core.query import Query as TQuery
 from repro_torch.core.query import Var as TV
 
@@ -129,10 +129,12 @@ def test_dark_shard_demotes_chain_to_staged_route():
     queries = [t.make(c) for c in t.constants[:2]]
     j_eng = JEngine(triples, 4, adaptive=False)
     t_eng = AdHashEngine(triples, 4, adaptive=False, device="cpu")
+    assert isinstance(t_eng.health, HealthState)
+    assert t_eng.executor.health is t_eng.health
     for q in queries:
         assert t_eng.query(_port(q))[1].route == "single-local-main"
     j_eng.health.mark_failed(1)
-    t_eng.executor.health = SimpleNamespace(degraded=True)
+    t_eng.health.mark_failed(1)
     for q in queries:
         jrel, jst = j_eng.query(q)
         trel, tst = t_eng.query(_port(q))
@@ -158,17 +160,14 @@ def test_ingest_stream_equals_one_shot():
 
 def test_unported_options_raise():
     _, triples = lubm_like(1, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        AdHashEngine(triples, 2, device="cpu")  # adaptive defaults to True
     with pytest.raises(NotImplementedError, match="item 7"):
         AdHashEngine(triples, 2, adaptive=False, placement="directory",
                      device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        AdHashEngine(triples, 2, placement="directory", device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         AdHashEngine(triples, 2, adaptive=False, substrate=object(),
                      device="cpu")
-    eng = AdHashEngine(triples, 2, adaptive=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.query_batch([])
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
