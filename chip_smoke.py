@@ -8,10 +8,11 @@ builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (five
 kernels; flash_attention has a bf16 tensor-core and an f32 CUDA-core one),
 holds each against its plain PyTorch version on the card, drives the port's
 main paths -- the RDF engine on a LUBM-style graph (``query`` with
-``adaptive=False``, ``query_batch``, and the adaptive engine through both)
-and on a 32 M-triple Zipf stream, and the dense LM's serving path (prefill
-and decode of llama3-8b) -- checks the answers, and prints one JSON line
-per phase.  Any mismatch or
+``adaptive=False``, ``query_batch``, and the adaptive engine through both),
+directory placement with hot-key rebalancing on a Zipf hub graph and on
+LUBM, master recovery from a checkpoint, a 32 M-triple Zipf stream, and
+the dense LM's serving path (prefill and decode of llama3-8b) -- checks the
+answers, and prints one JSON line per phase.  Any mismatch or
 exception exits non-zero; without a card it exits 1 before doing anything.
 
 Phases:
@@ -36,7 +37,13 @@ Phases:
             shape phase 4's prefill gives it (B=4, T=S=4096), variants,
             and 32k rows in bf16 and f32; each DSJ kernel's main row again
             folded as query_batch folds a bucket of 16 queries (128 rows,
-            or 16x the probes a row, phase 2b's census); kernel, plain and
+            or 16x the probes a row, phase 2b's census); bucket_by_dest at
+            the two shapes directory placement adds: phase 2f's rebalance
+            (k = 3, the hash store's 4,713,095-row shards routed by
+            triple_dest into cap_peer = 2^21, built on the host before
+            phase 1 from the same triples; ``skew-bucket-mix`` prints its
+            mix) and the LUBM hash exchange fanned out 8 ways (k = 1,
+            n = 8 x 2^20, only replica 0 valid); kernel, plain and
             library-call medians over CUDA events, and the roofline bound
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
@@ -63,7 +70,34 @@ Phases:
             is half the largest per-worker replica count must evict
   2d adaptive-parity  lubm_like(2, 2, 2, 2), W = 4, 40 queries: the
             adaptive engine on the card against the CPU port through
-            ``query`` and ``query_batch``, replica stores bit-exact
+            ``query`` and ``query_batch`` -- answers, stats, report
+            counters, placement and pattern-index fingerprints, heat map,
+            main and replica stores bit-exact
+  2e skew-parity  the same checks on a directory engine at the reference
+            tests' skew shape: zipf_skew(64 subjects, 4000 triples, 64
+            objects, 8 predicates, exponent 1.8), W = 4, 40 Zipf queries,
+            skew threshold 1.2 (rebalances and moved cells included)
+  2f skew   the repo's skew configuration (benchmarks/bench_balance.py
+            _skew_engines) at 8,000,000 drawn triples (6,957,341 distinct),
+            W = 8: a hash and a directory engine, two ``query`` passes of
+            48 Zipf stars (the first rebalances) and one ``query_batch``
+            each; answers equal across engines and entry points, 4 checked
+            against a numpy scan, the directory store's counts equal to its
+            placement's census, max/mean load at most half of hash's, no
+            rebalance after the first pass, phase 1's rebalance row equal
+            to this run's (splits, shape, moved cells); warm queries/s,
+            rebalance seconds and cells, time to online, peak memory, a
+            profiled warm pass and a launch census per engine
+  2g lubm-directory  phase 2's 60 queries on a directory engine (skew
+            detector on, IRD off), cold and warm: answers equal to phase
+            2's, no split, comm_cells and modes per template beside phase
+            2's, warm queries/s, launch census
+  2h recovery  the skew directory engine's state and adaptivity snapshot
+            saved (bytes, seconds), ``recover_master`` at W = 8 bit for bit
+            (placement, pattern index, heat map, replicas, next id, next
+            query's route and answer), a crash before publishing a second
+            snapshot leaves the first restorable, and recovery seconds
+            beside a cold bootstrap plus a replay of the whole log
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
@@ -74,8 +108,9 @@ Phases:
             (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches)
             with the adaptive controller
 Each path's kernels must launch on that path's run (the DSJ kernels on
-LUBM, flash_attention on the LM).  Each phase prints its wall seconds.
-The line before the last holds every kernel's numbers; the last line is
+LUBM and on the directory engines, flash_attention on the LM).  Each phase
+prints its wall seconds.  The line before the last holds every kernel's
+numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -320,6 +355,61 @@ def bucket_cases():
            rng.random((W, n)) < 0.1, SENDERS, cap, False)
 
 
+# The repo's skew configuration (benchmarks/bench_balance.py:_skew_engines)
+# at ten times its scale: 8,000,000 drawn triples instead of 800,000, the
+# bench's shapes otherwise (1024 Zipf subjects at exponent 1.8, 2^21
+# objects, 4 predicates, W = 8, IRD off, no count oracle, skew threshold
+# 1.2, 48 Zipf star queries).
+SKEW_DATA = dict(n_subjects=1024, n_triples=8_000_000, n_objects=1 << 21,
+                 n_predicates=4, exponent=1.8, seed=0)
+SKEW_ENGINE = dict(adaptive=True, frequency_threshold=10**9, capacity=256,
+                   use_count_oracle=False, skew_threshold=1.2)
+SKEW_WORKLOAD = dict(n_subjects=1024, n_predicates=4, exponent=1.8, seed=1)
+
+
+def skew_rebalance_input() -> dict:
+    """The rows the skew phase's rebalance gives bucket_by_dest, built on
+    the host from the same triples: the hash store's ``spo_ps`` (each shard
+    sorted by (p, s, o) as ingest sorts it, padded to the largest shard),
+    its live prefix, and the splits the skew detector is expected to pick
+    (unsplit subjects on the hot shard whose star is at least half the
+    mean shard, from the top-64 pool, by degree; up to 4); phase 1 routes
+    the rows by ``triple_dest`` on the card.  Also the expected census:
+    rows each destination receives and rows that leave their shard."""
+    from repro_torch.core.backend import quantize_capacity
+    from repro_torch.core.placement import DirectoryPlacement, HashPlacement
+    from repro_torch.data.synthetic_rdf import zipf_skew
+
+    t0 = time.perf_counter()
+    triples = zipf_skew(**SKEW_DATA)
+    plc = HashPlacement(W)
+    assign = plc.place_triples_np(triples)
+    counts = np.bincount(assign, minlength=W)
+    cap_t = int(counts.max())
+    spo = np.zeros((W, cap_t, 3), np.int32)
+    for w in range(W):
+        rows = triples[assign == w]
+        spo[w, :len(rows)] = rows[np.lexsort((rows[:, 2], rows[:, 0],
+                                              rows[:, 1]))]
+    valid = np.arange(cap_t)[None, :] < counts[:, None]
+    deg = np.bincount(triples[:, 0])
+    pool = np.argpartition(deg, -64)[-64:]
+    hot = int(counts.argmax())
+    picked = [int(s) for s in pool[np.argsort(-deg[pool], kind="stable")]
+              if plc.owner_np(np.array([s]))[0] == hot
+              and deg[s] >= 0.5 * counts.mean()][:4]
+    dplc = DirectoryPlacement(W)
+    dplc.add_splits(picked)
+    sent = np.bincount(assign * W + dplc.place_triples_np(triples),
+                       minlength=W * W).reshape(W, W)
+    return {"triples": triples, "vals": spo, "valid": valid,
+            "cap_peer": quantize_capacity(cap_t // max(W // 2, 1)),
+            "splits": picked, "counts_before": counts,
+            "counts_after": sent.sum(axis=0),
+            "moved_rows": int(sent.sum() - np.trace(sent)),
+            "build_s": time.perf_counter() - t0}
+
+
 def bucket_bytes(vals, valid, n_dest: int, cap: int) -> int:
     """Bytes bucket_by_dest must move: ``valid`` of every row, ``dest`` and
     ``values`` of the valid rows, all of send and send_valid, max_wanted."""
@@ -329,8 +419,9 @@ def bucket_bytes(vals, valid, n_dest: int, cap: int) -> int:
 
 
 # ------------------------------------------------------------------ phase 1
-def phase_kernels(torch) -> dict[str, dict]:
+def phase_kernels(torch, skew_in: dict) -> dict[str, dict]:
     from repro_torch.core import backend, relalg
+    from repro_torch.core.placement import DirectoryPlacement
     from repro_torch.kernels.relalg_ops.bucket import bucket_by_dest_cuda
     from repro_torch.kernels.relalg_ops.compact import unique_compact_cuda
     from repro_torch.kernels.relalg_ops.expand import expand_cuda
@@ -492,6 +583,55 @@ def phase_kernels(torch) -> dict[str, dict]:
                           f"{FOLD_B * W} rows", False)
         del v_t, d_t, m_t
         torch.cuda.empty_cache()
+
+    # the two shapes directory placement adds: the skew phase's rebalance
+    # (k = 3, the hash store's rows routed by triple_dest), and the LUBM
+    # hash exchange fanned out over max_split = 8 replicas a value (k = 1,
+    # n = 8 x 2^20, only the first replica of each value valid)
+    v_t, m_t = cuda(skew_in["vals"]), cuda(skew_in["valid"])
+    plc = DirectoryPlacement(W)
+    plc.add_splits(skew_in["splits"])
+    d_t = plc.stage_spec.triple_dest(v_t[..., 0], v_t[..., 2], m_t,
+                                     plc.device_table(dev))
+    per_dest = torch.bincount(d_t[m_t], minlength=W).cpu().numpy()
+    if not np.array_equal(per_dest, skew_in["counts_after"]):
+        raise AssertionError(f"triple_dest on the card {per_dest} != the "
+                             f"host's place_triples_np "
+                             f"{skew_in['counts_after']}")
+    n_rows = v_t.shape[1]
+    record_bucket(v_t, d_t, m_t, W, skew_in["cap_peer"],
+                  f"rebalance n={n_rows} k=3 n_dest=8 cap_peer="
+                  f"2^{skew_in['cap_peer'].bit_length() - 1} split "
+                  f"{skew_in['splits']}", False)
+    emit({"phase": "skew-bucket-mix", "what": "the skew phase's rebalance "
+          "rows, built on the host before phase 1",
+          "shape": {"rows": W, "n": n_rows, "k": 3, "n_dest": W,
+                    "cap_peer": skew_in["cap_peer"]},
+          "valid_share": float(skew_in["valid"].mean()),
+          "valid_prefix": True, "splits": skew_in["splits"],
+          "rows_per_dest": per_dest.tolist(),
+          "rows_leaving_their_shard": skew_in["moved_rows"],
+          "host_build_s": skew_in["build_s"]})
+    del v_t, d_t, m_t
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(302)  # the hash row's values
+    n = 1 << 20
+    n_u = round(n * HASH_SHARE)
+    vals = np.full((W, n), -1, np.int64)
+    for w in range(W):
+        vals[w, :n_u] = np.sort(rng.choice(1 << 22, n_u, replace=False))
+    p_t = cuda(vals.astype(np.int32))
+    unsplit = DirectoryPlacement(W)  # LUBM is balanced: an empty table
+    dests, dvalid = unsplit.stage_spec.value_dests(
+        p_t, p_t >= 0, unsplit.device_table(dev))
+    f = dests.shape[1]
+    v_t = p_t[:, None, :].expand(W, f, n).reshape(W, f * n, 1)
+    record_bucket(v_t, dests.reshape(W, f * n).contiguous(),
+                  dvalid.reshape(W, f * n).contiguous(), W, n,
+                  f"directory-exchange n=8x2^20 k=1 n_dest=8 cap_peer=2^20 "
+                  f"replica 0 prefix {HASH_SHARE:.2%}", False)
+    del p_t, dests, dvalid, v_t
+    torch.cuda.empty_cache()
 
     def record_unique(v_t, m_t, cap, tag, main, overflow):
         pad = torch.iinfo(v_t.dtype).max
@@ -1019,16 +1159,16 @@ def phase_lubm_batch(torch, lubm: dict) -> None:
           "equal_to_phase2": ["answers", "comm_cells", "mode"]})
 
 
-def time_ird(eng) -> list[float]:
-    """Accumulates the host seconds of ``eng``'s redistributions, from the
-    enqueue to the end of the barrier (``finalize``), into the returned
+def time_deferred(ird, method: str) -> list[float]:
+    """Accumulates the host seconds of an IRD's deferred ``method``, from
+    the enqueue to the end of its barrier (``finalize``), into the returned
     one-element list."""
     spent = [0.0]
-    enqueue = eng.ird.redistribute_deferred
+    enqueue = getattr(ird, method)
 
-    def timed(hot):
+    def timed(arg):
         t0 = time.perf_counter()
-        pending = enqueue(hot)
+        pending = enqueue(arg)
         spent[0] += time.perf_counter() - t0
         barrier = pending.finalize
 
@@ -1041,7 +1181,7 @@ def time_ird(eng) -> list[float]:
         pending.finalize = finalize
         return pending
 
-    eng.ird.redistribute_deferred = timed
+    setattr(ird, method, timed)
     return spent
 
 
@@ -1068,7 +1208,8 @@ def phase_lubm_adaptive(torch, lubm: dict) -> None:
     seq, bat = make(), make()
     runs = {"query": (seq, lambda: [seq.query(q) for q in queries]),
             "query_batch": (bat, lambda: bat.query_batch(queries))}
-    ird_s = {name: time_ird(eng) for name, (eng, _) in runs.items()}
+    ird_s = {name: time_deferred(eng.ird, "redistribute_deferred")
+             for name, (eng, _) in runs.items()}
     results: dict[str, list] = {}  # (comm_cells, mode, vars) per query
     reset_launches()
     for name, (eng, run) in runs.items():
@@ -1154,20 +1295,19 @@ def phase_lubm_adaptive(torch, lubm: dict) -> None:
           "replication_ratio": eng.replication_ratio()})
 
 
-def phase_adaptive_parity(torch) -> None:
-    """The adaptive engine on the card against the CPU port at a small
-    size, through ``query`` and through ``query_batch``: answers, stats,
-    the pattern index's fingerprint, the heat map's state and every replica
-    store's five tensors, bit for bit."""
+def phase_card_parity(torch, phase: str, triples, queries, w: int,
+                      **kw) -> None:
+    """An engine on the card against the CPU port at a small size, through
+    ``query`` and through ``query_batch``: answers, stats, the report's
+    adaptivity counters, the placement and pattern-index fingerprints, the
+    heat map's state, the main store's and every replica store's five
+    tensors, bit for bit."""
     from repro_torch.core.engine import AdHashEngine
-    from repro_torch.data.synthetic_rdf import Workload, lubm_like
 
-    d, triples = lubm_like(2, 2, 2, 2)
-    queries = Workload(d, seed=0).sample(40)
     out = {}
     for entry in ("query", "query_batch"):
-        gpu, cpu = (AdHashEngine(triples, 4, frequency_threshold=2,
-                                 device=dev) for dev in ("cuda", "cpu"))
+        gpu, cpu = (AdHashEngine(triples, w, device=dev, **kw)
+                    for dev in ("cuda", "cpu"))
         if entry == "query":
             g_res = [gpu.query(q) for q in queries]
             c_res = [cpu.query(q) for q in queries]
@@ -1179,30 +1319,353 @@ def phase_adaptive_parity(torch) -> None:
             want = (cr.to_set(), cs.comm_cells, cs.mode, cs.route,
                     cs.n_retries)
             if got != want:
-                raise AssertionError(f"adaptive-parity {entry} query {i}: "
+                raise AssertionError(f"{phase} {entry} query {i}: "
                                      f"gpu {got[1:]} != cpu {want[1:]}")
-        if gpu.pattern_index.fingerprint() != cpu.pattern_index.fingerprint():
-            raise AssertionError(f"adaptive-parity {entry}: fingerprints")
-        if gpu.heatmap.to_state() != cpu.heatmap.to_state():
-            raise AssertionError(f"adaptive-parity {entry}: heat maps")
-        if sorted(gpu.replicas.modules) != sorted(cpu.replicas.modules):
-            raise AssertionError(f"adaptive-parity {entry}: replica ids")
-        for sid, st in cpu.replicas.modules.items():
-            for a, b in zip(gpu.replicas.modules[sid].leaves(), st.leaves()):
+        counters = ("n_redistributions", "n_parallel_replica",
+                    "n_rebalances", "rebalance_comm_cells",
+                    "n_batch_dispatches")
+        for what, a, b in (
+                *((f, getattr(gpu.report, f), getattr(cpu.report, f))
+                  for f in counters),
+                ("placement", gpu.placement.fingerprint(),
+                 cpu.placement.fingerprint()),
+                ("pattern index", gpu.pattern_index.fingerprint(),
+                 cpu.pattern_index.fingerprint()),
+                ("heat map", gpu.heatmap.to_state(), cpu.heatmap.to_state()),
+                ("replica ids", sorted(gpu.replicas.modules),
+                 sorted(cpu.replicas.modules))):
+            if a != b:
+                raise AssertionError(f"{phase} {entry}: {what} {a} != {b}")
+        stores = [("main", gpu.store, cpu.store)] + [
+            (sid, gpu.replicas.modules[sid], st)
+            for sid, st in cpu.replicas.modules.items()]
+        for sid, g_st, c_st in stores:
+            for a, b in zip(g_st.leaves(), c_st.leaves()):
                 if not torch.equal(a.cpu(), b):
-                    raise AssertionError(f"adaptive-parity {entry}: replica "
-                                         f"{sid} differs")
+                    raise AssertionError(f"{phase} {entry}: store {sid} "
+                                         f"differs")
         if gpu.report.n_redistributions == 0:
-            raise AssertionError(f"adaptive-parity {entry}: no IRD")
-        out[entry] = {"n_redistributions": gpu.report.n_redistributions,
-                      "n_parallel_replica": gpu.report.n_parallel_replica,
-                      "replica_modules": len(gpu.replicas.modules),
-                      "n_batch_dispatches": gpu.report.n_batch_dispatches}
-    emit({"phase": "adaptive-parity", "triples": int(len(triples)),
-          "workers": 4, "frequency_threshold": 2, "queries": len(queries),
-          **out, "equal": ["to_set", "comm_cells", "mode", "route",
-                           "n_retries", "fingerprint", "heatmap.to_state",
-                           "replica stores (5 tensors each)"]})
+            raise AssertionError(f"{phase} {entry}: no IRD")
+        if kw.get("placement") == "directory" and \
+                gpu.report.n_rebalances == 0:
+            raise AssertionError(f"{phase} {entry}: no rebalance")
+        out[entry] = {f: getattr(gpu.report, f) for f in counters}
+        out[entry]["replica_modules"] = len(gpu.replicas.modules)
+        out[entry]["splits"] = len(getattr(gpu.placement, "entries", ()))
+    emit({"phase": phase, "triples": int(len(triples)), "workers": w,
+          "queries": len(queries), "engine": kw, **out,
+          "equal": ["to_set", "comm_cells", "mode", "route", "n_retries",
+                    *counters, "placement fingerprint",
+                    "pattern-index fingerprint", "heatmap.to_state",
+                    "main and replica stores (5 tensors each)"]})
+
+
+# ------------------------------------------------------- phases 2e to 2h
+def star_answer(triples: np.ndarray, q) -> np.ndarray:
+    """A (s, p, ?o) star's objects by a numpy scan of the triples."""
+    pat = q.patterns[0]
+    hit = (triples[:, 0] == pat.s.id) & (triples[:, 1] == pat.p.id)
+    return np.sort(triples[hit, 2])
+
+
+def phase_skew(torch, skew_in: dict) -> dict:
+    """The skew configuration at full width on the card: a hash and a
+    directory engine over the same 6.96 M triples, two passes of ``query``
+    (the first triggers the directory engine's rebalance) and one of
+    ``query_batch`` each.  Returns the directory engine and its query log
+    for the recovery phase."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import zipf_workload
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    triples = skew_in["triples"]
+    queries = zipf_workload(48, **SKEW_WORKLOAD)
+    out: dict[str, dict] = {}
+    engines = {}
+    answers: dict[str, list] = {}
+    log: list = []
+    for placement in ("hash", "directory"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = AdHashEngine(triples, W, placement=placement, device="cuda",
+                           **SKEW_ENGINE)
+        lb0 = eng.load_balance()
+        row = {"time_to_online_s": eng.startup_time_s,
+               "max_over_mean_before": lb0["max"] / lb0["mean"]}
+        rebalance_s = time_deferred(eng.ird, "rebalance_deferred")
+        # the main path: counts set to 0 just before, read just after
+        reset_launches()
+        with shape_census() as census:
+            for pass_ in ("first", "warm"):
+                t0 = time.perf_counter()
+                res = []
+                for q in queries:
+                    res.append(eng.query(q))
+                    if placement == "directory":
+                        log.append(q)
+                torch.cuda.synchronize()
+                row[f"{pass_}_pass_s"] = time.perf_counter() - t0
+                row[f"n_rebalances_after_{pass_}"] = eng.report.n_rebalances
+                answers.setdefault(placement, []).append(
+                    [canon(rel, q) for q, (rel, _) in zip(queries, res)])
+                del res
+            t0 = time.perf_counter()
+            res = eng.query_batch(queries)
+            torch.cuda.synchronize()
+            row["query_batch_s"] = time.perf_counter() - t0
+            if placement == "directory":
+                log.extend(queries)
+            answers[placement].append(
+                [canon(rel, q) for q, (rel, _) in zip(queries, res)])
+            del res
+        launches = dict(LAUNCHES)
+        need = ("range_search", "expand") + (
+            ("bucket_by_dest",) if placement == "directory" else ())
+        missing = [k for k in need if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"skew {placement}: kernels never launched "
+                                 f"{missing}")
+        emit_census("skew-census", f"{placement} engine: two query passes "
+                    f"and one query_batch", census)
+        row.update({
+            "rebalance_s": rebalance_s[0],
+            "warm_qps_query": len(queries) / row["warm_pass_s"],
+            "warm_qps_query_batch": len(queries) / row["query_batch_s"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "store_bytes_padded": eng.store.nbytes(),
+            "launches": launches, "census": census,
+            "n_rebalances": eng.report.n_rebalances,
+            "rebalance_comm_cells": eng.report.rebalance_comm_cells,
+            "load_balance": eng.load_balance()})
+        row["max_over_mean_after"] = (row["load_balance"]["max"]
+                                      / row["load_balance"]["mean"])
+        if placement == "directory":
+            log.extend(queries + queries)  # the profiled passes below
+        emit({"phase": "skew-profile", "placement": placement,
+              "what": "one warm query pass",
+              **profile_run(torch, lambda: [eng.query(q) for q in queries])})
+        emit({"phase": "skew-profile", "placement": placement,
+              "what": "one warm query_batch",
+              **profile_run(torch, lambda: eng.query_batch(queries))})
+        engines[placement] = eng
+        out[placement] = row
+        if placement == "hash":
+            del engines["hash"], eng
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # both engines, both entry points, both passes: the same answers
+    for placement, passes in answers.items():
+        for k, got in enumerate(passes):
+            for i, (a, b) in enumerate(zip(got, answers["hash"][0])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"skew: {placement} pass {k} query "
+                                         f"{i} differs from hash pass 0")
+    for q, got in list(zip(queries, answers["directory"][0]))[:4]:
+        want = star_answer(triples, q)
+        if not np.array_equal(got[:, 0].numpy().astype(np.int64), want):
+            raise AssertionError(f"skew: star ({q.patterns[0].s.id}, "
+                                 f"{q.patterns[0].p.id}) {len(got)} rows != "
+                                 f"numpy scan {len(want)}")
+    eng = engines["directory"]
+    h, d = out["hash"], out["directory"]
+    if h["n_rebalances"] != 0 or d["n_rebalances"] == 0:
+        raise AssertionError(f"skew: rebalances hash {h['n_rebalances']} "
+                             f"directory {d['n_rebalances']}")
+    if d["n_rebalances_after_first"] != d["n_rebalances"]:
+        raise AssertionError("skew: rebalances did not settle in the first "
+                             "pass")
+    if d["max_over_mean_after"] > 0.5 * h["max_over_mean_after"]:
+        raise AssertionError(f"skew: max/mean {d['max_over_mean_after']} is "
+                             f"not half of hash's {h['max_over_mean_after']}")
+    counts = eng.store.counts.cpu().numpy()
+    if not np.array_equal(counts, np.bincount(
+            eng.placement.place_triples_np(triples), minlength=W)):
+        raise AssertionError("skew: directory store counts != placement")
+    # phase 1's rebalance row is this run's first rebalance
+    first_cells = 3 * skew_in["moved_rows"]
+    shape = ("bucket_by_dest", ("rows", W),
+             ("n", skew_in["vals"].shape[1]), ("k", 3), ("n_dest", W),
+             ("cap_peer", skew_in["cap_peer"]))
+    entries = sorted(eng.placement.entries)
+    if d["census"][shape] != 1 or not set(skew_in["splits"]) <= \
+            set(entries) or (d["n_rebalances"] == 1 and (
+                entries != sorted(skew_in["splits"]) or
+                d["rebalance_comm_cells"] != first_cells or
+                not np.array_equal(counts, skew_in["counts_after"]))):
+        raise AssertionError(f"skew: rebalance {entries}, census "
+                             f"{d['census'][shape]}, cells "
+                             f"{d['rebalance_comm_cells']} != phase 1's "
+                             f"{skew_in['splits']}, {first_cells}")
+    for row in out.values():
+        del row["census"]
+    emit({"phase": "skew", "triples": int(len(triples)), "workers": W,
+          "queries": len(queries), "source": "benchmarks/bench_balance.py:"
+          "_skew_engines, n_triples 800,000 -> 8,000,000",
+          "splits": {str(s): list(v) for s, v in
+                     sorted(eng.placement.entries.items())},
+          "hash": h, "directory": d,
+          "checked_vs_numpy": 4,
+          "equal": ["answers: both engines, query and query_batch",
+                    "directory counts == place_triples_np census",
+                    "phase 1's rebalance row: splits, shape, cells"]})
+    return {"eng": eng, "log": log, "triples": triples}
+
+
+def phase_lubm_directory(torch, lubm: dict) -> None:
+    """Phase 2's 60 LUBM-100 queries on a directory-placement engine (the
+    skew detector on, IRD off), a cold and a warm pass: every answer equal
+    to phase 2's, no split on this balanced data, and comm_cells and mode
+    per template beside phase 2's."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    triples, queries, ref = lubm["triples"], lubm["queries"], lubm["ref"]
+    torch.cuda.reset_peak_memory_stats()
+    eng = AdHashEngine(triples, W, placement="directory",
+                       frequency_threshold=10**9, device="cuda")
+    reset_launches()
+    with shape_census() as census:
+        t0 = time.perf_counter()
+        cold = [eng.query(q) for q in queries]
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    missing = [k for k in RDF_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"lubm-directory: kernels never launched "
+                             f"{missing}")
+    answers = [(a, None, None) for a, _, _ in ref]
+    check_answers("lubm-directory cold", queries, cold, answers)
+    t0 = time.perf_counter()
+    warm = [eng.query(q) for q in queries]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check_answers("lubm-directory warm", queries, warm, answers)
+    if eng.report.n_rebalances or eng.placement.entries:
+        raise AssertionError("lubm-directory: a split fired on LUBM")
+    per_template = {}
+    for name in sorted({q.name for q in queries}):
+        idx = [i for i, q in enumerate(queries) if q.name == name]
+        per_template[name] = {
+            "comm_cells": sum(cold[i][1].comm_cells for i in idx),
+            "comm_cells_phase2": sum(ref[i][1] for i in idx),
+            "modes": dict(Counter(cold[i][1].mode for i in idx)),
+            "modes_phase2": dict(Counter(ref[i][2] for i in idx))}
+    emit_census("lubm-directory-census", "launches by shape, cold pass",
+                census)
+    fanout = ("bucket_by_dest", ("rows", W), ("n", 8 << 20), ("k", 1),
+              ("n_dest", W), ("cap_peer", 1 << 20))
+    emit({"phase": "lubm-directory", "queries": len(queries),
+          "startup_s": eng.startup_time_s, "cold_s": cold_s,
+          "warm_s": warm_s, "warm_qps": len(queries) / warm_s,
+          "warm_qps_phase2": lubm["warm_qps"], "launches": launches,
+          "phase1_directory_row_launches": census.get(fanout, 0),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "per_template": per_template,
+          "equal_to_phase2": ["answers (cold and warm)"]})
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_recovery(torch, skew: dict) -> None:
+    """Master recovery of the skew phase's directory engine, in a temporary
+    directory: save its state and a full adaptivity snapshot, recover at
+    the same W and hold the recovered master bit for bit to the original,
+    crash a second snapshot before it is published, and time recovery
+    beside a cold bootstrap plus a replay of the whole log."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.runtime.fault_injection import (CheckpointCrash,
+                                                     crash_before_publish)
+    from repro_torch.runtime.fault_tolerance import (recover_master,
+                                                     replay_query_log)
+
+    eng, log, triples = skew["eng"], skew["log"], skew["triples"]
+
+    def state(e) -> tuple:
+        reps = tuple((sid, tuple(t.cpu() for t in st.leaves()))
+                     for sid, st in sorted(e.replicas.modules.items()))
+        return (e.placement.fingerprint(), e.pattern_index.fingerprint(),
+                e.heatmap.to_state(), e.replicas.next_id_n, reps)
+
+    def same(a: tuple, b: tuple) -> bool:
+        return a[:4] == b[:4] and len(a[4]) == len(b[4]) and all(
+            sa == sb and all(torch.equal(x, y) for x, y in zip(ta, tb))
+            for (sa, ta), (sb, tb) in zip(a[4], b[4]))
+
+    row: dict = {"log_queries": len(log)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save_engine_state(eng, log)
+        row["save_engine_state_s"] = time.perf_counter() - t0
+        row["save_engine_state_bytes"] = dir_bytes(root)
+        t0 = time.perf_counter()
+        mgr.save_adaptivity(eng, step=1)
+        row["save_adaptivity_s"] = time.perf_counter() - t0
+        row["save_adaptivity_bytes"] = dir_bytes(root) - \
+            row["save_engine_state_bytes"]
+        saved = state(eng)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = recover_master(CheckpointManager(root), triples, W,
+                             device="cuda", **SKEW_ENGINE)
+        torch.cuda.synchronize()
+        row["recover_master_s"] = time.perf_counter() - t0
+        if not same(state(rec), saved):
+            raise AssertionError("recovery: recovered master differs")
+        q = log[0]
+        (r1, s1), (r2, s2) = eng.query(q), rec.query(q)
+        if (s1.route, s1.mode) != (s2.route, s2.mode) or \
+                not torch.equal(canon(r1, q), canon(r2, q)):
+            raise AssertionError(f"recovery: next query {(s2.route, s2.mode)}"
+                                 f" != {(s1.route, s1.mode)}")
+        row["next_query_route"] = s2.route
+
+        # a crash between writing the second snapshot and publishing it
+        try:
+            with crash_before_publish():
+                mgr.save_adaptivity(eng, step=2)
+            raise AssertionError("recovery: the injected crash did not fire")
+        except CheckpointCrash:
+            pass
+        m = mgr.load_adaptivity()
+        offset = mgr.restore_adaptivity(rec)
+        if m["step"] != 1 or offset != len(log) or not same(state(rec),
+                                                             saved):
+            raise AssertionError(f"recovery: after the crash step "
+                                 f"{m['step']}, offset {offset}")
+        del rec, eng, skew["eng"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the paper's recovery path (§3.1): bootstrap, then replay the log
+        t0 = time.perf_counter()
+        cold = AdHashEngine(triples, W, placement="directory",
+                            device="cuda", **SKEW_ENGINE)
+        row["cold_bootstrap_s"] = time.perf_counter() - t0
+        replay_query_log(cold, log)
+        torch.cuda.synchronize()
+        row["cold_bootstrap_and_replay_s"] = time.perf_counter() - t0
+        row["replay_rebalances"] = cold.report.n_rebalances
+        if cold.placement.fingerprint() != saved[0] or \
+                cold.pattern_index.fingerprint() != saved[1]:
+            raise AssertionError("recovery: replayed master differs")
+    emit({"phase": "recovery", **row,
+          "equal": ["placement fingerprint", "pattern-index fingerprint",
+                    "heat map", "replica tensors", "next_id_n",
+                    "next query route and answer",
+                    "snapshot 1 after a crash mid-save of snapshot 2",
+                    "replayed placement and pattern index"]})
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1390,6 +1853,8 @@ def main() -> int:
         print(f"chip_smoke: {root} holds no src/repro_torch", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root / "src"))
+    from repro_torch.data.synthetic_rdf import (Workload, lubm_like,
+                                                zipf_skew, zipf_workload)
     from repro_torch.kernels import build
 
     smi = subprocess.run(
@@ -1409,7 +1874,10 @@ def main() -> int:
 
     walls = {}
     t0 = time.perf_counter()
-    rows = phase_kernels(torch)
+    skew_in = skew_rebalance_input()
+    walls["skew_input_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = phase_kernels(torch, skew_in)
     rows["flash_attention"] = phase_flash(torch)
     walls["kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1425,12 +1893,40 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lubm_adaptive(torch, lubm)
     walls["lubm_adaptive_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d, triples = lubm_like(2, 2, 2, 2)
+    phase_card_parity(torch, "adaptive-parity", triples,
+                      Workload(d, seed=0).sample(40), 4,
+                      frequency_threshold=2)
+    walls["adaptive_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the reference tests' skew shape (tests/test_recovery.py)
+    phase_card_parity(
+        torch, "skew-parity",
+        zipf_skew(n_subjects=64, n_triples=4000, n_objects=64,
+                  n_predicates=8, exponent=1.8, seed=0),
+        zipf_workload(40, n_subjects=64, n_predicates=8, exponent=1.8,
+                      seed=1), 4,
+        frequency_threshold=3, skew_threshold=1.2, placement="directory")
+    walls["skew_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    skew = phase_skew(torch, skew_in)
+    del skew_in
+    walls["skew_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_lubm_directory(torch, lubm)
+    walls["lubm_directory_s"] = time.perf_counter() - t0
     del lubm
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_adaptive_parity(torch)
-    walls["adaptive_parity_s"] = time.perf_counter() - t0
+    phase_recovery(torch, skew)
+    walls["recovery_s"] = time.perf_counter() - t0
+    del skew
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_scale(torch)
     walls["scale_s"] = time.perf_counter() - t0

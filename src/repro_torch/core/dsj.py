@@ -196,17 +196,34 @@ def project_unique(
 
 # ------------------------------------------------------------------ exchanges
 def hash_send_buffers(
-    proj: torch.Tensor,  # (W, cap_proj)
+    proj: torch.Tensor,  # (R, cap_proj): W workers, or a batch's B*W rows
     proj_valid: torch.Tensor,
     n_workers: int,  # the hash modulus
     cap_peer: int,
+    spec=None,  # placement.PlacementSpec | None (None = plain hash owner)
+    table=None,  # placement.DirectoryTable when spec is directory
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-worker destination bucketing for the hash exchange: value v goes
-    to its owner H(v) mod W.  Returns (send (W, n_workers, cap_peer),
-    send_valid, max_wanted (W,))."""
-    dest = (splitmix64(proj) % n_workers).to(torch.int32)
-    send, svalid, max_wanted = bucket_by_dest(proj[..., None], dest,
-                                              proj_valid, n_workers, cap_peer)
+    """Per-worker destination bucketing for the hash exchange.
+
+    Under hash placement (``spec=None``) value v goes to its owner
+    H(v) mod W.  With a directory placement spec, each value fans out to
+    the whole split set of its subject: ``spec.max_split`` replicas a value,
+    those past the subject's split factor invalid, all of them in ONE
+    bucket_by_dest launch over F*n rows a worker (replica-major, as the
+    reference flattens its (F, n) destinations, so the stable bucketing
+    keeps its order).  Returns (send (R, n_workers, cap_peer), send_valid,
+    max_wanted (R,))."""
+    if spec is None:
+        dest = (splitmix64(proj) % n_workers).to(torch.int32)
+        send, svalid, max_wanted = bucket_by_dest(
+            proj[..., None], dest, proj_valid, n_workers, cap_peer)
+        return send[..., 0], svalid, max_wanted
+    dests, dvalid = spec.value_dests(proj, proj_valid, table)  # (R, F, n)
+    r, f, n = dests.shape
+    vals = proj[:, None, :].expand(r, f, n).reshape(r, f * n, 1)
+    send, svalid, max_wanted = bucket_by_dest(
+        vals, dests.reshape(r, f * n), dvalid.reshape(r, f * n), n_workers,
+        cap_peer)
     return send[..., 0], svalid, max_wanted
 
 
@@ -223,13 +240,19 @@ def exchange_hash(
     proj: torch.Tensor,  # (W, cap_proj)
     proj_valid: torch.Tensor,
     cap_peer: int,
+    spec=None,
+    table=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Observation 1 fast path: hash-distribute the projected join column.
 
-    Returns (recv (W_recv, W_send, cap_peer), recv_valid, cells_sent,
-    max_bucket)."""
+    The placement names the owner(s) of each value: under hash placement
+    (``spec=None``) each value goes to exactly one worker; under directory
+    placement a split subject's value is replicated to its whole split set
+    (see ``hash_send_buffers``).  Returns (recv (W_recv, W_send, cap_peer),
+    recv_valid, cells_sent, max_bucket)."""
     w = proj.shape[0]
-    send, svalid, maxw = hash_send_buffers(proj, proj_valid, w, cap_peer)
+    send, svalid, maxw = hash_send_buffers(proj, proj_valid, w, cap_peer,
+                                           spec=spec, table=table)
     # (W_sender, W_receiver, cap) -> (W_receiver, W_sender, cap)
     recv = send.transpose(0, 1).contiguous()
     recv_valid = svalid.transpose(0, 1).contiguous()
@@ -523,14 +546,17 @@ def exchange_hash_batch(
     proj: torch.Tensor,  # (B, W, cap_proj)
     proj_valid: torch.Tensor,
     cap_peer: int,
+    spec=None,
+    table=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched ``exchange_hash``: (recv (B, W_recv, W_send, cap_peer),
     recv_valid, cells (B,), max_bucket (B,)); one bucket_by_dest launch over
-    B*W rows with n_dest = W."""
+    B*W rows with n_dest = W.  The placement table is shared by the whole
+    batch."""
     b, w, n = proj.shape
     send, svalid, maxw = hash_send_buffers(proj.reshape(b * w, n),
                                            proj_valid.reshape(b * w, n), w,
-                                           cap_peer)
+                                           cap_peer, spec=spec, table=table)
     send = send.view(b, w, w, cap_peer)
     svalid = svalid.view(b, w, w, cap_peer)
     return (send.transpose(1, 2).contiguous(),

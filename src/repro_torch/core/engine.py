@@ -14,9 +14,12 @@ answer queries.  Per query:
 
 ``adaptive=False`` yields the paper's AdHash-NA baseline.  The ablation
 flags (§6.3.1) pass through to the distributed executor.  ``query_batch``
-evaluates a workload with one batched pipeline per shape bucket.  Directory
-placement (hot-key rebalancing) and the mesh substrates are later slices of
-the port and raise ``NotImplementedError`` here.
+evaluates a workload with one batched pipeline per shape bucket.
+``placement="directory"`` adds hot-key rebalancing: when one shard holds
+more than ``skew_threshold`` times the mean load, the hottest subjects on
+it are split over several shards and the main store is moved.  The mesh
+substrates are a later slice of the port and raise ``NotImplementedError``
+here.
 """
 from __future__ import annotations
 
@@ -131,6 +134,14 @@ class AdHashEngine:
             for chunk in triples:
                 ingestor.add_chunk(chunk)
         self.store, self.stats, self.n_ids = ingestor.finish(self.device)
+
+        # split-candidate pool for the skew detector: the top subjects by
+        # out-degree (star size == data-balance impact), scored against the
+        # heat map at trigger time.  Only built for policies that can split.
+        self._split_candidates: tuple[np.ndarray, np.ndarray] | None = (
+            ingestor.split_candidates()
+            if self.placement.supports_split else None
+        )
 
         # worker health: while any shard is failed, PI hits and main-index
         # chains are demoted from the shard-local routes to the distributed
@@ -543,16 +554,54 @@ class AdHashEngine:
 
     def _maybe_rebalance(self, overlap=None) -> None:
         """Detect hot-key skew and schedule directory-placement splits.
-        Only a placement that can split a subject's star has work here; the
-        hash placement never can, so this returns at once, as the
-        reference's does for it.  Splitting placements are ROADMAP.md §1
-        item 7."""
-        if not self.placement.supports_split:
+
+        Trigger: the loaded shard holds more than ``skew_threshold`` times
+        the mean shard load (one host fetch of ``store.counts`` per query,
+        as the reference's).  Candidates come from the bootstrap top-degree
+        pool, filtered to unsplit subjects living on the hot shard whose
+        star is large enough to matter (>= half the mean load), and scored
+        by star size weighted with the heat map's vertex frequency — a hub
+        that the workload actually queries outranks an idle one.
+
+        The main-store move runs through ``IRD.rebalance_deferred``: like a
+        redistribution it is enqueued, ``overlap`` (the query_batch bucket
+        callback) runs while it is in flight, and the rebuilt store is
+        published to every component only after the barrier.  In-flight
+        queries stay correct throughout: probe values always include the
+        base owner in their destination set, so a split registered before
+        the move lands only adds probe replicas."""
+        plc = self.placement
+        if not plc.supports_split or self._split_candidates is None:
             return
-        raise NotImplementedError(
-            "hot-key rebalancing is not ported yet (ROADMAP.md §1 item 7, "
-            "placement and rebalancing)"
+        counts = host_fetch(self.store.counts).astype(np.int64)
+        mean = float(counts.mean())
+        if mean <= 0.0 or float(counts.max()) <= self.skew_threshold * mean:
+            return
+        hot_shard = int(counts.argmax())
+        subs, degs = self._split_candidates
+        on_hot = plc.owner_np(subs) == hot_shard
+        big = degs >= 0.5 * mean
+        vf = self.heatmap.vertex_frequencies()
+        scored = sorted(
+            (
+                (int(s), int(dg) * (1 + vf[int(s)]))
+                for s, dg in zip(subs[on_hot & big], degs[on_hot & big])
+                if int(s) not in plc.entries
+            ),
+            key=lambda t: -t[1],
         )
+        picks = [s for s, _ in scored[:4]]
+        if not picks or not plc.add_splits(picks):
+            return
+        pending = self.ird.rebalance_deferred(plc)
+        try:
+            if overlap is not None:
+                overlap()  # the rebalance's device work overlaps this
+        finally:
+            new_store, moved = pending.finalize()  # barrier first
+            self._publish_store(new_store)
+            self.report.n_rebalances += 1
+            self.report.rebalance_comm_cells += moved
 
     def _publish_store(self, store) -> None:
         """Swap the main store into every component that holds a reference

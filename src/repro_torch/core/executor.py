@@ -261,9 +261,13 @@ class Executor:
         # fetches the per-query sum once instead of syncing per exchange
         if hash_mode:
             cap_peer = cap_proj
+            # table fetched per call: a rebalance between queries swaps in a
+            # fresh exception table (built on the device once per version)
+            pspec = self.placement.stage_spec
+            ptable = self.placement.device_table(self.store.device)
             for _ in range(_MAX_RETRIES):
                 recv, rvalid, cells, maxb = self.sub.exchange_hash(
-                    proj, pvalid, cap_peer)
+                    proj, pvalid, cap_peer, spec=pspec, table=ptable)
                 mb = host_total(maxb)
                 if mb <= cap_peer:
                     break
@@ -652,9 +656,11 @@ class Executor:
 
         if hash_mode:
             cap_peer = cap_proj
+            pspec = self.placement.stage_spec
+            ptable = self.placement.device_table(self.store.device)
             for _ in range(_MAX_RETRIES):
                 recv, rvalid, cells, maxb = self.sub.exchange_hash_batch(
-                    proj, pvalid, cap_peer)
+                    proj, pvalid, cap_peer, spec=pspec, table=ptable)
                 mb = host_total(maxb)
                 if mb <= cap_peer:
                     break

@@ -5,7 +5,8 @@ arrays and chunk streams flow through ``StreamIngestor``, so chunked ingest
 is bit-identical to one-shot by construction.  Per chunk it hash-places
 every row through the placement policy, buffers the rows per worker, and
 folds the chunk into the global accumulators: per-worker counts, id range,
-vertex degrees and the §3.3 predicate statistics.
+vertex degrees, subject out-degrees (the engine's split-candidate pool) and
+the §3.3 predicate statistics.
 
 ``finish`` assembles the per-worker sorted indexes host-side with numpy
 (the same stable lexsort keys as the JAX package, buffered rows in stream
@@ -60,6 +61,7 @@ class StreamIngestor:
         self.n_triples = 0
         self._max_id = -1
         self._deg = np.zeros(1, dtype=np.int64)  # in+out degree per vertex
+        self._sdeg = np.zeros(1, dtype=np.int64)  # subject out-degree
         # predicate id -> [cardinality, sorted unique subjects, objects]
         self._preds: dict[int, list] = {}
         self._finished = False
@@ -91,6 +93,8 @@ class StreamIngestor:
         n = len(self._deg)
         self._deg += np.bincount(chunk[:, 0], minlength=n)
         self._deg += np.bincount(chunk[:, 2], minlength=n)
+        self._sdeg = _grow_to(self._sdeg, mx + 1)
+        self._sdeg += np.bincount(chunk[:, 0], minlength=len(self._sdeg))
         for p in np.unique(chunk[:, 1]):
             rows = chunk[chunk[:, 1] == p]
             ent = self._preds.get(int(p))
@@ -157,3 +161,19 @@ class StreamIngestor:
                 obj_score=float(deg[objs].mean()),
             )
         return gs
+
+    def split_candidates(
+        self, k_max: int = 64
+    ) -> tuple[np.ndarray, np.ndarray] | None:
+        """Top subjects by out-degree — the engine's skew split-candidate
+        pool, the reference's selection (same ``argpartition``, so the
+        candidates come in the same order)."""
+        if self.n_triples == 0:
+            return None
+        deg = np.zeros(self.n_ids, dtype=np.int64)
+        deg[: len(self._sdeg)] = self._sdeg[: self.n_ids]
+        k = min(k_max, int((deg > 0).sum()))
+        if not k:
+            return None
+        top = np.argpartition(deg, -k)[-k:]
+        return top.astype(np.int64), deg[top].astype(np.int64)

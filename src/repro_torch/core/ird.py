@@ -1,7 +1,7 @@
 """Incremental ReDistribution — IRD (paper §5.3, Algorithm 3).
 
-PyTorch port of ``repro.core.ird`` (redistribution; the main-store
-rebalancing of directory placements is ROADMAP.md §1 item 7).
+PyTorch port of ``repro.core.ird``: redistribution, and the main-store
+rebalancing that a directory placement's hot-key splits need.
 
 Given a hot pattern's redistribution tree, the data it touches is re-hashed
 around the bindings of the core vertex, level by level:
@@ -37,6 +37,13 @@ module queued before it.  The engine finalizes *before* publishing the
 pattern index, so a query can only be routed to a replica module that is
 complete.  The only other host syncs are the overflow-retry capacity checks
 (host control flow by design).
+
+**Rebalancing.**  ``rebalance_deferred`` re-places the *main* store under a
+placement whose table just grew: one bucket_by_dest launch routes every
+worker's live rows by ``triple_dest``, the (sender, receiver) transpose
+ships them, and ``from_device_rows`` sort-indexes the received rows.  Its
+:class:`PendingRebalance` keeps the moved-cell count on the device;
+``finalize()`` is one host fetch of it and of the rebuilt store's counts.
 """
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ from .substrate import host_fetch, host_total
 from .transform import TreeEdge
 from .triples import ShardedTripleStore
 
-__all__ = ["IRDStats", "IncrementalRedistributor", "PendingRedistribution"]
+__all__ = ["IRDStats", "IncrementalRedistributor", "PendingRedistribution",
+           "PendingRebalance"]
 
 _MAX_RETRIES = 7
 
@@ -222,13 +230,24 @@ class IncrementalRedistributor:
         key_col: int = O,
     ) -> tuple[str, ShardedTripleStore]:
         """Hash-distribute triples matching q on the core binding (column
-        ``key_col``): destination = owner of the binding, so every edge
-        module of a hot pattern places a given core binding on the *same*
-        worker and the parallel-mode local joins between them find their
-        rows.  One bucket_by_dest launch routes all W workers' rows."""
+        ``key_col``).
+
+        Destinations come from the placement's *base* owner — deliberately
+        without the directory split salt: every edge module of a hot pattern
+        must place a given core binding on the *same* worker, or the
+        parallel-mode local joins between them would miss rows.  A split
+        star therefore concentrates in its replica modules (correctness
+        first); the skew win comes from the split main-store path.  One
+        bucket_by_dest launch routes all W workers' rows."""
         rows, valid, cap = self._match_rows(self.main, q)
         w = self.w
-        dest = (splitmix64(rows[..., key_col]) % w).to(torch.int32)
+        pspec = self.placement.stage_spec
+        keys = rows[..., key_col]
+        if pspec is None:
+            dest = (splitmix64(keys) % w).to(torch.int32)
+        else:
+            dest = pspec.owner_dest(
+                keys, valid, self.placement.device_table(rows.device))
         cap_peer = cap
         for _ in range(_MAX_RETRIES):
             send, svalid, maxw = bucket_by_dest(rows, dest, valid, w,
@@ -284,9 +303,13 @@ class IncrementalRedistributor:
         src_col = S if edge.parent_is_subject else O
         if src_col == S:
             cap_peer = cap_proj
+            # probes the main index, so split subjects need the placement's
+            # replicated destinations (as query-time case ii)
+            pspec = self.placement.stage_spec
+            ptable = self.placement.device_table(proj.device)
             for _ in range(_MAX_RETRIES):
                 recv, rvalid, cells, maxb = self.sub.exchange_hash(
-                    proj, projv, cap_peer)
+                    proj, projv, cap_peer, spec=pspec, table=ptable)
                 mb = host_total(maxb)
                 if mb <= cap_peer:
                     break
@@ -318,3 +341,81 @@ class IncrementalRedistributor:
         sid = self.replicas.new_id()
         self.replicas.put(sid, st)
         return sid, st
+
+    # ----------------------------------------------------- main-store moves
+    def rebalance_deferred(self, placement) -> "PendingRebalance":
+        """Re-place the *main* store under a splitting placement policy
+        whose table just grew, enqueued without waiting — the hot-key
+        analogue of ``redistribute_deferred``.
+
+        Every worker buckets its live triples by ``placement.triple_dest``
+        (split subjects fan out over their split set, salted by the
+        object) in one bucket_by_dest launch (k = 3), the (sender,
+        receiver) transpose ships them, and the receiving shards are
+        sort-indexed like replica modules.  The caller overlaps query
+        traffic and calls ``finalize()`` before publishing the rebuilt
+        store.  The host syncs are the reference's: the largest shard count
+        (the first capacity class) and each retry's check.
+
+        The rebuild flows through ``from_device_rows``, which drops exact
+        duplicate triples — RDF set semantics; the main store is
+        duplicate-free after bootstrap anyway."""
+        main = self.main
+        w = self.w
+        rows = main.spo_ps  # (W, capT, 3); first counts[w] rows are live
+        cap_t = rows.shape[1]
+        valid = (torch.arange(cap_t, device=rows.device)[None, :]
+                 < main.counts[:, None])
+        dest = placement.stage_spec.triple_dest(
+            rows[..., S], rows[..., O], valid,
+            placement.device_table(rows.device))
+        # start near the balanced shard size; retry-double on skew overflow
+        cap_peer = quantize_capacity(
+            max(host_total(main.counts) // max(w // 2, 1), 1))
+        for _ in range(_MAX_RETRIES):
+            send, svalid, maxw = bucket_by_dest(rows, dest, valid, w,
+                                                cap_peer)
+            mw = host_total(maxw)
+            if mw <= cap_peer:
+                break
+            del send, svalid
+            cap_peer = quantize_capacity(max(cap_peer * 2, mw))
+        else:
+            raise RuntimeError("rebalance bucketing exceeded retry budget")
+        del dest, valid
+        pending = PendingRebalance()
+        pending._cells.append(dsj._off_diagonal(svalid) * 3)
+        recv = send.transpose(0, 1).reshape(w, -1, 3)
+        rvalid = svalid.transpose(0, 1).reshape(w, -1)
+        del send, svalid
+        st = _index_replica_rows(recv, rvalid, main.n_ids)
+        pending.store = self.sub.shard_store(st)
+        return pending
+
+
+@dataclass
+class PendingRebalance:
+    """A dispatched-but-not-yet-published main-store rebalance.
+
+    ``finalize()`` is the barrier: one host fetch of the moved-cell count
+    together with the rebuilt store's counts, which come last in stream
+    order, so it waits for the rebuilt shards; it returns (new_store,
+    moved_cells), and the engine then republishes the store to every
+    component (executor, IRD, parallel executor)."""
+
+    store: ShardedTripleStore | None = None
+    _cells: list = field(default_factory=list)
+    _done: bool = False
+    _moved: int = 0
+
+    def finalize(self) -> tuple[ShardedTripleStore, int]:
+        if not self._done:
+            parts = [c.to(torch.int64).reshape(1) for c in self._cells]
+            if self.store is not None:
+                parts.append(self.store.counts.to(torch.int64))
+            if parts:
+                vals = host_fetch(torch.cat(parts))
+                self._moved = int(vals[:len(self._cells)].sum())
+            self._cells.clear()
+            self._done = True
+        return self.store, self._moved

@@ -30,8 +30,8 @@ from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.placement import splitmix64_np
 from repro_torch.core.query import Const, Query, TriplePattern, Var
 
-__all__ = ["lubm_like", "Workload", "lubm_queries", "zipf_workload",
-           "generate", "generate_stream"]
+__all__ = ["lubm_like", "Workload", "lubm_queries", "zipf_skew",
+           "zipf_workload", "generate", "generate_stream"]
 
 PREDICATES = (
     "rdf:type",
@@ -91,6 +91,46 @@ def lubm_like(
                     ):
                         t.append((stud, "ub:takesCourse", courses[c]))
     return d, d.encode_triples(t)
+
+
+def zipf_skew(
+    n_subjects: int = 512,
+    n_triples: int = 60_000,
+    n_objects: int = 8192,
+    n_predicates: int = 8,
+    exponent: float = 1.4,
+    seed: int = 0,
+) -> np.ndarray:
+    """Deliberately hot-key-skewed triples: subject popularity ~ Zipf.
+
+    Subject of each triple is drawn with probability proportional to
+    ``rank^-exponent`` — at exponent 1.4 the top subject owns roughly a
+    third of all triples, the classic hub star that defeats subject-hash
+    partitioning (every one of its triples lands on one shard).  Ids are
+    laid out [predicates | subjects | objects] so the three ranges never
+    collide; exact duplicate triples are dropped (RDF set semantics).
+
+    Returns (N, 3) int64 triples (subject hotness decreasing with id), the
+    same for the same seed as the JAX package's.  The draws are the
+    reference's; the set dedupe packs each row into one int64 key whose
+    order is the rows' lexicographic order, so a 1-D ``np.unique`` returns
+    what ``np.unique(axis=0)`` does, many times faster."""
+    rng = np.random.default_rng(seed)
+    s_base = n_predicates
+    o_base = s_base + n_subjects
+    ranks = np.arange(1, n_subjects + 1, dtype=np.float64)
+    probs = ranks ** -float(exponent)
+    probs /= probs.sum()
+    s = rng.choice(n_subjects, size=n_triples, p=probs)
+    p = rng.integers(0, n_predicates, size=n_triples)
+    o = rng.integers(0, n_objects, size=n_triples)
+    if n_subjects * n_predicates * n_objects >= 1 << 63:
+        triples = np.stack([s + s_base, p, o + o_base], axis=1)
+        return np.unique(triples.astype(np.int64), axis=0)
+    key = np.unique((s.astype(np.int64) * n_predicates + p) * n_objects + o)
+    sp, o = np.divmod(key, n_objects)
+    s, p = np.divmod(sp, n_predicates)
+    return np.stack([s + s_base, p, o + o_base], axis=1).astype(np.int64)
 
 
 def _counter_hash(seed: int, stream: int, idx: np.ndarray) -> np.ndarray:

@@ -457,6 +457,127 @@ def test_cuda_adaptive_engine_matches_cpu(cuda_device, batched):
     assert gpu.replication_ratio() == cpu.replication_ratio()
 
 
+def _assert_engines_equal(gpu, cpu, g_res, c_res) -> None:
+    """Answers, stats, report, placement, pattern index, heat map, main
+    store and replica stores of a card engine and a CPU engine."""
+    for (grel, gst), (crel, cst) in zip(g_res, c_res):
+        assert grel.to_set() == crel.to_set()
+        assert (gst.comm_cells, gst.mode, gst.route, gst.n_retries,
+                gst.plan) == (cst.comm_cells, cst.mode, cst.route,
+                              cst.n_retries, cst.plan)
+    for f in ("n_parallel_replica", "n_distributed", "n_redistributions",
+              "ird_comm_cells", "n_rebalances", "rebalance_comm_cells",
+              "n_batch_dispatches"):
+        assert getattr(gpu.report, f) == getattr(cpu.report, f), f
+    assert gpu.placement.fingerprint() == cpu.placement.fingerprint()
+    assert gpu.pattern_index.fingerprint() == cpu.pattern_index.fingerprint()
+    assert gpu.heatmap.to_state() == cpu.heatmap.to_state()
+    for a, b in zip(gpu.store.leaves(), cpu.store.leaves()):
+        assert torch.equal(a.cpu(), b)
+    assert sorted(gpu.replicas.modules) == sorted(cpu.replicas.modules)
+    for sid, st in cpu.replicas.modules.items():
+        for a, b in zip(gpu.replicas.modules[sid].leaves(), st.leaves()):
+            assert torch.equal(a.cpu(), b), sid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_directory_engine_matches_cpu(cuda_device, batched):
+    """A directory-placement engine on the card against the CPU port: five
+    hub subjects split and the store moved (the rebalance's bucket_by_dest
+    at k = 3), then a workload whose staged exchanges fan out 8 ways."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    queries = Workload(d, seed=4).sample(14) * 2
+    hubs = np.argsort(-np.bincount(triples[:, 0]), kind="stable")[:5]
+    kw = dict(frequency_threshold=2, capacity=256, placement="directory")
+    engines = []
+    for dev in ("cuda", "cpu"):
+        eng = AdHashEngine(triples, 8, device=dev, **kw)
+        eng.placement.add_splits(hubs)
+        store, moved = eng.ird.rebalance_deferred(eng.placement).finalize()
+        eng._publish_store(store)
+        engines.append((eng, moved))
+    (gpu, g_moved), (cpu, c_moved) = engines
+    assert g_moved == c_moved > 0
+    before = LAUNCHES["bucket_by_dest"]
+    if batched:
+        g_res, c_res = gpu.query_batch(queries), cpu.query_batch(queries)
+    else:
+        g_res = [gpu.query(q) for q in queries]
+        c_res = [cpu.query(q) for q in queries]
+    assert LAUNCHES["bucket_by_dest"] > before
+    _assert_engines_equal(gpu, cpu, g_res, c_res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_skew_engine_matches_cpu(cuda_device, batched):
+    """The skew detector on the card: the reference tests' Zipf hub shape,
+    the same splits, rebalances, moved cells and store as the CPU port."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import zipf_skew, zipf_workload
+
+    triples = zipf_skew(n_subjects=64, n_triples=4000, n_objects=64,
+                        n_predicates=8, exponent=1.8, seed=0)
+    queries = zipf_workload(40, n_subjects=64, n_predicates=8, exponent=1.8,
+                            seed=1)
+    kw = dict(frequency_threshold=3, capacity=256, skew_threshold=1.2,
+              placement="directory")
+    gpu = AdHashEngine(triples, 4, device="cuda", **kw)
+    cpu = AdHashEngine(triples, 4, device="cpu", **kw)
+    if batched:
+        g_res, c_res = gpu.query_batch(queries), cpu.query_batch(queries)
+    else:
+        g_res = [gpu.query(q) for q in queries]
+        c_res = [cpu.query(q) for q in queries]
+    assert gpu.report.n_rebalances >= 1
+    _assert_engines_equal(gpu, cpu, g_res, c_res)
+    assert gpu.load_balance() == cpu.load_balance()
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
+    """A snapshot of a card engine restores onto the card and onto the CPU
+    bit for bit, and the recovered masters answer as the original."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import zipf_skew, zipf_workload
+    from repro_torch.runtime.fault_tolerance import recover_master
+
+    triples = zipf_skew(n_subjects=64, n_triples=4000, n_objects=64,
+                        n_predicates=8, exponent=1.8, seed=0)
+    queries = zipf_workload(40, n_subjects=64, n_predicates=8, exponent=1.8,
+                            seed=1)
+    kw = dict(frequency_threshold=3, capacity=256, skew_threshold=1.2)
+    gpu = AdHashEngine(triples, 4, device="cuda", placement="directory",
+                       **kw)
+    for q in queries:
+        gpu.query(q)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_engine_state(gpu, queries)
+    mgr.save_adaptivity(gpu, step=1)
+    recovered = [recover_master(CheckpointManager(tmp_path), triples, 4,
+                                device=dev, **kw) for dev in ("cuda", "cpu")]
+    r1, s1 = gpu.query(queries[0])
+    for dev, rec in zip(("cuda", "cpu"), recovered):
+        r2, s2 = rec.query(queries[0])
+        assert (s1.route, s1.mode) == (s2.route, s2.mode)
+        assert r1.to_set() == r2.to_set()
+        assert rec.placement.fingerprint() == gpu.placement.fingerprint()
+        assert rec.pattern_index.fingerprint() == \
+            gpu.pattern_index.fingerprint()
+        assert rec.heatmap.to_state() == gpu.heatmap.to_state()
+        assert rec.replicas.next_id_n == gpu.replicas.next_id_n
+        for sid, st in gpu.replicas.modules.items():
+            got = rec.replicas.modules[sid]
+            assert got.device.type == dev
+            for a, b in zip(got.leaves(), st.leaves()):
+                assert torch.equal(a.cpu(), b.cpu()), sid
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_on_empty_and_tiny_inputs(cuda_device):
     """Edge shapes the main path can produce: no probes, no ranges, no

@@ -6,8 +6,9 @@ route and ``n_retries`` must be equal query by query — on the paper's
 running example and on a ``lubm_like(2, 2, 2, 2)`` workload over all six
 templates, under the default settings and the paper's ablations, and
 along the overflow-retry ladder.  Also: the port imports neither jax nor
-``repro``, it raises on what it has not ported yet (directory placement,
-mesh substrates), and ``device="cuda"`` without a card raises.
+``repro``, it raises on what it has not ported yet (the mesh substrates)
+and builds a directory-placement engine, and ``device="cuda"`` without a
+card raises.
 """
 from __future__ import annotations
 
@@ -159,12 +160,16 @@ def test_ingest_stream_equals_one_shot():
 
 
 def test_unported_options_raise():
+    """Only the mesh substrates are still unported; the directory placement
+    builds on the CPU, with and without adaptivity."""
     _, triples = lubm_like(1, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AdHashEngine(triples, 2, adaptive=False, placement="directory",
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AdHashEngine(triples, 2, placement="directory", device="cpu")
+    for adaptive in (False, True):
+        eng = AdHashEngine(triples, 2, adaptive=adaptive,
+                           placement="directory", device="cpu")
+        assert eng.placement.name == "directory"
+        assert not eng.placement.local_join_safe
+        assert eng._split_candidates is not None
+        assert int(eng.store.counts.sum()) == len(np.unique(triples, axis=0))
     with pytest.raises(NotImplementedError, match="item 10"):
         AdHashEngine(triples, 2, adaptive=False, substrate=object(),
                      device="cpu")
