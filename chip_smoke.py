@@ -10,7 +10,9 @@ holds each against its plain PyTorch version on the card, drives the port's
 main paths -- the RDF engine on a LUBM-style graph (``query`` with
 ``adaptive=False``, ``query_batch``, and the adaptive engine through both),
 directory placement with hot-key rebalancing on a Zipf hub graph and on
-LUBM, master recovery from a checkpoint, a 32 M-triple Zipf stream, and
+LUBM, the online serving front end (``repro_torch.serving``) over the
+adaptive engine, master recovery from a checkpoint, a 32 M-triple Zipf
+stream, and
 the dense LM's serving path (prefill and decode of llama3-8b) -- checks the
 answers, and prints one JSON line per phase.  Any mismatch or
 exception exits non-zero; without a card it exits 1 before doing anything.
@@ -92,7 +94,29 @@ Phases:
             detector on, IRD off), cold and warm: answers equal to phase
             2's, no split, comm_cells and modes per template beside phase
             2's, warm queries/s, launch census
-  2h recovery  the skew directory engine's state and adaptivity snapshot
+  2h serve-parity  the serving front end at W = 8 on lubm_like(2, 2, 2,
+            2), modelled service (0.01 s a dispatch): a 24-request stream
+            at 150 requests/s equal to ``query_batch`` of its query log on
+            a twin engine (answers, mode, comm_cells, PI fingerprint) and
+            to the same stream on a CPU engine (report fields, latencies,
+            completions in order), two more identical streams, the last
+            with no kernel build and no new launch shape, then 120
+            requests at 400/s (2x) on a fresh engine: admitted p99 at most
+            the 0.2 s SLO, some shed, answers equal to a CPU engine's
+  2i serve  the reference bench's serving legs
+            (benchmarks/bench_serving.py) on phase 2's LUBM-100 triples,
+            W = 8, its Zipf template mix, an adaptive engine at threshold
+            2: two warm closed-burst streams of 200 requests, the measured
+            saturation stream (charged wall seconds, the card synchronized;
+            one more under the profiler), 120 requests at half the
+            measured saturation rate (p50, p99), and 150 requests at a
+            modelled 2x overload on a fresh engine (shed fraction,
+            admitted p99 within the 0.2 s SLO); per leg the flushes,
+            modes, redistributions, peak memory, launches per DSJ kernel
+            and launch shapes new since the earlier legs; every answer
+            held to a non-adaptive engine that did not serve, and after
+            the warm streams no kernel build and no new launch shape
+  2j recovery  the skew directory engine's state and adaptivity snapshot
             saved (bytes, seconds), ``recover_master`` at W = 8 bit for bit
             (placement, pattern index, heat map, replicas, next id, next
             query's route and answer), a crash before publishing a second
@@ -108,8 +132,9 @@ Phases:
             (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches)
             with the adaptive controller
 Each path's kernels must launch on that path's run (the DSJ kernels on
-LUBM and on the directory engines, flash_attention on the LM).  Each phase
-prints its wall seconds.  The line before the last holds every kernel's
+LUBM and on the directory engines; on a served stream probe and
+``expand`` always, all four once a staged answer was served;
+flash_attention on the LM).  Each phase prints its wall seconds.  The line before the last holds every kernel's
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1360,7 +1385,7 @@ def phase_card_parity(torch, phase: str, triples, queries, w: int,
                     "main and replica stores (5 tensors each)"]})
 
 
-# ------------------------------------------------------- phases 2e to 2h
+# ------------------------------------------------------- phases 2e to 2g
 def star_answer(triples: np.ndarray, q) -> np.ndarray:
     """A (s, p, ?o) star's objects by a numpy scan of the triples."""
     pat = q.patterns[0]
@@ -1565,6 +1590,292 @@ def phase_lubm_directory(torch, lubm: dict) -> None:
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "per_template": per_template,
           "equal_to_phase2": ["answers (cold and warm)"]})
+
+
+# ------------------------------------------------------- phases 2h to 2j
+NO_BROWNOUT = dict(brownout_enter=(9.0, 10.0), brownout_exit=(8.0, 9.0))
+# Zipf popularity over five LUBM templates (benchmarks/bench_serving.py:38)
+SERVE_MIX = {"q1": 1.0, "q2": 1 / 2, "q7": 1 / 3, "q9": 1 / 4, "q12": 1 / 5}
+FLUSHES = ("full", "deadline", "pressure", "drain", "overlap")
+
+
+@contextmanager
+def count_builds():
+    """Counts the kernel library's builds while open; fails if the loaded
+    library changed."""
+    from repro_torch.kernels import build
+
+    lib, original, calls = build.library(), build.build, [0]
+
+    def counting():
+        calls[0] += 1
+        return original()
+
+    build.build = counting
+    try:
+        yield calls
+    finally:
+        build.build = original
+    if build.library() is not lib:
+        raise AssertionError("the kernel library was loaded again")
+
+
+def serve_stream(eng, queries, rate: float, slo: float, seed: int,
+                 service_s: float | None = None, **cfg):
+    """``queries`` through a new ServeLoop (batch target 4) on a virtual
+    clock, open-loop at ``rate`` a second: modelled at ``service_s``
+    seconds a dispatch, or measured (wall seconds, the card synchronized)
+    when it is None.  Fails on an unexecutable member or a ledger that does
+    not balance.  Returns the loop, the arrivals and the completions."""
+    from repro_torch.runtime.fault_injection import VirtualClock
+    from repro_torch.serving import (ServeConfig, ServeLoop,
+                                     open_loop_arrivals, replay_open_loop)
+
+    loop = ServeLoop(eng, ServeConfig(slo_s=slo, batch_target=4, **cfg),
+                     clock=VirtualClock(),
+                     service_model=(None if service_s is None
+                                    else lambda n: service_s))
+    arrivals = open_loop_arrivals(queries, rate_qps=rate, seed=seed)
+    done, rejected = replay_open_loop(loop, arrivals)
+    r = loop.report
+    if r.unexecutable:
+        raise AssertionError(f"{r.unexecutable} unexecutable members")
+    if (r.answered + r.shed + r.rejected != len(queries)
+            or len(rejected) != r.rejected or loop.in_flight()):
+        raise AssertionError(f"the served ledger does not balance: {r}")
+    return loop, arrivals, done
+
+
+def served(done) -> dict:
+    from repro_torch.serving import ServedResult
+
+    return {c.rid: c for c in done if isinstance(c, ServedResult)}
+
+
+def make_truth(triples, device: str):
+    """A query's canonical answer from a non-adaptive engine on
+    ``device`` that serves nothing, one ``query`` per distinct query."""
+    from repro_torch.core.engine import AdHashEngine
+
+    eng = AdHashEngine(triples, W, adaptive=False, device=device)
+    cache: dict[str, object] = {}
+
+    def truth(q):
+        key = json.dumps(q.to_json(), sort_keys=True)
+        if key not in cache:
+            cache[key] = canon(eng.query(q)[0], q)
+        return cache[key]
+
+    return truth
+
+
+def serve_leg(torch, phase: str, leg: str, eng, queries, truth, seen: set,
+              **stream) -> tuple:
+    """One served stream with the launch counts set to 0 just before and
+    read just after, its launch shapes against ``seen`` (updated), its peak
+    memory, and every answer against ``truth``.  Each kernel the leg's
+    routes run must have launched: probe and ``expand`` on every route,
+    all four DSJ kernels once a staged (distributed) query was answered.
+    Emits the leg's row; returns the loop, arrivals, completions, row and
+    the launch shapes new to ``seen``."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.reset_peak_memory_stats()
+    engine_s = eng.report.wall_time_s
+    reset_launches()
+    with shape_census() as census:
+        t0 = time.perf_counter()
+        loop, arrivals, done = serve_stream(eng, queries, **stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in RDF_KERNELS}
+    answered = served(done)
+    modes = Counter(c.stats.mode for c in answered.values())
+    staged = any(c.stats.n_dsj for c in answered.values())
+    missing = [k for k in (RDF_KERNELS if staged else RDF_KERNELS[:2])
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase} {leg}: {missing} never launched "
+                             f"(modes {dict(modes)})")
+    new = [dict(shape, kernel=name) for name, *shape in census
+           if (name, *shape) not in seen]
+    seen.update(census)
+    r = loop.report
+    row = {"phase": phase, "leg": leg, "requests": len(queries),
+           "wall_s": wall, "makespan_s": loop.clock.now(),
+           # host seconds of the engine's executions (no sync), summed
+           "engine_execute_s": eng.report.wall_time_s - engine_s,
+           "answered": r.answered, "shed": r.shed, "rejected": r.rejected,
+           "late": r.late, "shed_rate": r.shed_rate,
+           "p50_ms": r.p50_s * 1e3, "p99_ms": r.p99_s * 1e3,
+           "flush": {f: getattr(r, f"flush_{f}") for f in FLUSHES},
+           "adaptivity_deferrals": r.adaptivity_deferrals,
+           "brownout_events": len(r.brownout_events), "modes": dict(modes),
+           "n_redistributions": eng.report.n_redistributions,
+           "launches": launches, "new_launch_shapes": len(new),
+           "held_result_bytes": sum(c.relation.cols.nbytes
+                                    + c.relation.valid.nbytes
+                                    for c in answered.values()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    for rid, c in answered.items():
+        q = queries[rid]
+        if not torch.equal(canon(c.relation, q), truth(q)):
+            raise AssertionError(f"{phase} {leg}: request {rid} ({q.name}) "
+                                 f"differs from the engine that did not "
+                                 f"serve")
+    emit(row)
+    return loop, arrivals, done, row, new
+
+
+def ledger(loop, done) -> tuple:
+    """Everything a served stream says, as plain values: the report's
+    fields and each completion in order (answers as row sets)."""
+    import dataclasses
+
+    def key(c):
+        if type(c).__name__ != "ServedResult":
+            return dataclasses.astuple(c)
+        return (c.rid, c.finished_s, c.latency_s, c.late,
+                c.relation.to_set(), c.stats.mode, c.stats.route,
+                c.stats.comm_cells, c.stats.n_retries)
+
+    return dataclasses.asdict(loop.report), [key(c) for c in done]
+
+
+def phase_serve_parity(torch) -> None:
+    """The serving front-end at W = 8 on lubm_like(2, 2, 2, 2), modelled
+    service: a stream under saturation equals ``query_batch`` of its query
+    log on a twin engine (answers, mode, comm_cells, PI fingerprint) and
+    the same stream on a CPU engine (the whole ledger, bit for bit); two
+    more identical streams, the last with no kernel build and no new launch
+    shape; then a 2x overload on a fresh engine keeps the admitted p99
+    under the SLO, sheds, and answers as the CPU port does."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    kw = dict(frequency_threshold=2, capacity=256)
+    cfg = dict(queue_bound=16, bucket_window=16)
+    wl = Workload(d, seed=21)
+    qs = wl.sample(6) * 4
+    stream = dict(rate=150.0, slo=2.0, seed=21, service_s=0.01, **cfg,
+                  **NO_BROWNOUT)
+    truth = make_truth(triples, "cpu")
+    eng = AdHashEngine(triples, W, device="cuda", **kw)
+    seen: set = set()
+    with count_builds() as builds:
+        loop, arrivals, done, _, _ = serve_leg(
+            torch, "serve-parity", "parity", eng, qs, truth, seen, **stream)
+        if len(served(done)) != len(qs):
+            raise AssertionError("serve-parity: a request under saturation "
+                                 "was not answered")
+        twin = AdHashEngine(triples, W, device="cuda", **kw)
+        offline = twin.query_batch(loop.query_log)
+        order = sorted(arrivals, key=lambda r: r.arrival_s)
+        answered = served(done)
+        for req, (rel, st) in zip(order, offline):
+            c = answered[req.rid]
+            if (c.relation.to_set(), c.stats.mode, c.stats.comm_cells) != \
+                    (rel.to_set(), st.mode, st.comm_cells):
+                raise AssertionError(f"serve-parity: request {req.rid} "
+                                     f"differs from query_batch")
+        if eng.pattern_index.fingerprint() != twin.pattern_index.fingerprint():
+            raise AssertionError("serve-parity: PI fingerprint differs from "
+                                 "query_batch's")
+        cpu = AdHashEngine(triples, W, device="cpu", **kw)
+        c_loop, _, c_done = serve_stream(cpu, qs, **stream)
+        if ledger(loop, done) != ledger(c_loop, c_done):
+            raise AssertionError("serve-parity: the card's served ledger "
+                                 "differs from the CPU engine's")
+        del loop, done, answered, twin, offline, cpu, c_loop, c_done
+        for leg in ("warm 2", "warm 3"):
+            new = serve_leg(torch, "serve-parity", leg, eng, qs, truth,
+                            seen, **stream)[4]
+        if new or builds[0]:
+            raise AssertionError(f"serve-parity: warm stream 3 added "
+                                 f"{builds[0]} builds and launch shapes "
+                                 f"{new}")
+    eng2 = AdHashEngine(triples, W, device="cuda", **kw)
+    over = serve_leg(
+        torch, "serve-parity", "overload", eng2, wl.sample(120), truth, seen,
+        rate=400.0, slo=0.2, seed=21, service_s=0.02, **cfg)[3]
+    if not (over["p99_ms"] <= 200.0 + 1e-6 and over["shed"] > 0
+            and over["answered"] > 0):
+        raise AssertionError(f"serve-parity overload: {over}")
+    emit({"phase": "serve-parity", "workers": W, "triples": int(len(triples)),
+          "builds": builds[0],
+          "equal": ["parity stream vs query_batch: answers, mode, "
+                    "comm_cells, PI fingerprint",
+                    "card vs CPU engine: report fields, latencies, "
+                    "completions in order with answers, mode, route, "
+                    "comm_cells, n_retries",
+                    "every answer vs a CPU engine that did not serve"]})
+
+
+def phase_serve(torch, lubm: dict) -> None:
+    """The reference bench's serving legs (benchmarks/bench_serving.py)
+    at LUBM-100 and W = 8: two warm closed-burst streams of 200 requests,
+    the measured saturation stream (and one more under the profiler), a
+    measured latency stream at half that rate, and a modelled 2x overload
+    on a fresh engine; every answer held to an engine that did not serve."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload
+
+    triples = lubm["triples"]
+    wl = Workload(lubm["d"], mix=SERVE_MIX, seed=13)
+    truth = make_truth(triples, "cuda")
+    qs_sat = wl.sample(200)
+    burst = dict(rate=1e9, slo=1e6, seed=13, queue_bound=len(qs_sat) + 1,
+                 bucket_window=64, **NO_BROWNOUT)
+    eng = AdHashEngine(triples, W, frequency_threshold=2, device="cuda")
+    seen: set = set()
+    summary: dict = {"startup_s": eng.startup_time_s}
+    with count_builds() as builds:
+        for leg in ("warm 1", "warm 2"):
+            serve_leg(torch, "serve", leg, eng, qs_sat, truth, seen, **burst)
+        warm_builds = builds[0]
+        row, new_sat = serve_leg(torch, "serve", "saturation", eng, qs_sat,
+                                 truth, seen, **burst)[3:]
+        if row["answered"] != len(qs_sat):
+            raise AssertionError(f"serve saturation: {row}")
+        sat = len(qs_sat) / row["makespan_s"]
+        emit({"phase": "serve-profile", "leg": "saturation (one more "
+              "stream, profiler on)",
+              **profile_run(torch, lambda: serve_stream(eng, qs_sat,
+                                                        **burst))})
+        slo = max(0.05, 40.0 / sat)
+        lat, new_lat = serve_leg(
+            torch, "serve", "latency", eng, wl.sample(120), truth, seen,
+            rate=0.5 * sat, slo=slo, seed=13, queue_bound=64,
+            bucket_window=32, **NO_BROWNOUT)[3:]
+        new = new_sat + new_lat
+        if new or builds[0] != warm_builds:
+            raise AssertionError(f"serve: after the warm streams "
+                                 f"{builds[0] - warm_builds} builds and "
+                                 f"new launch shapes {new}")
+        summary.update(saturation_qps=sat, latency_rate_qps=0.5 * sat,
+                       latency_slo_s=slo, p50_ms=lat["p50_ms"],
+                       p99_ms=lat["p99_ms"], latency_answered=lat["answered"],
+                       latency_shed=lat["shed"], latency_late=lat["late"],
+                       builds_after_warm=builds[0] - warm_builds,
+                       new_launch_shapes_after_warm=new)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = AdHashEngine(triples, W, frequency_threshold=2, device="cuda")
+    over = serve_leg(
+        torch, "serve", "overload", eng, wl.sample(150), truth, seen,
+        rate=400.0, slo=0.2, seed=13, service_s=0.02, queue_bound=16,
+        bucket_window=16)[3]
+    if not (over["p99_ms"] <= 200.0 + 1e-6 and over["shed"] > 0):
+        raise AssertionError(f"serve overload: {over}")
+    summary.update(shed_frac=over["shed_rate"],
+                   overload_answered=over["answered"],
+                   overload_shed=over["shed"],
+                   overload_rejected=over["rejected"],
+                   overload_p99_ms=over["p99_ms"])
+    emit({"phase": "serve", "triples": int(len(triples)), "workers": W,
+          "mix": SERVE_MIX, **summary})
 
 
 def dir_bytes(path: Path) -> int:
@@ -1918,6 +2229,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lubm_directory(torch, lubm)
     walls["lubm_directory_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_serve_parity(torch)
+    walls["serve_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_serve(torch, lubm)
+    walls["serve_s"] = time.perf_counter() - t0
     del lubm
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,1 +1,2 @@
-"""LM serving entry points (``python -m repro_torch.launch.serve``)."""
+"""Entry points: LM serving (``python -m repro_torch.launch.serve``) and
+online RDF serving (``python -m repro_torch.launch.serve_rdf``)."""

@@ -826,3 +826,104 @@ def test_cuda_flash_attention_bf16_offsets_and_batches(cuda_device, b, t, s,
             want = flash_attention_plain(q, k, v, causal=causal,
                                          q_offset=q_offset)
             _check_bf16_attention(got, want)
+
+
+def _serve_small(device, rate, service_model, clock=None, wrap=None, **cfg):
+    """The 24-request stream of the card's serve-parity phase (W = 8,
+    lubm_like(2, 2, 2, 2), threshold 2, brownout off) through a ServeLoop
+    on ``device``; ``wrap(engine)`` may instrument the engine first."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+    from repro_torch.runtime.fault_injection import VirtualClock
+    from repro_torch.serving import (ServeConfig, ServeLoop,
+                                     open_loop_arrivals, replay_open_loop)
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    eng = AdHashEngine(triples, 8, frequency_threshold=2, capacity=256,
+                       device=device)
+    if wrap is not None:
+        wrap(eng)
+    qs = Workload(d, seed=21).sample(6) * 4
+    loop = ServeLoop(eng, ServeConfig(batch_target=4,
+                                      brownout_enter=(9.0, 10.0),
+                                      brownout_exit=(8.0, 9.0), **cfg),
+                     clock=clock if clock is not None else VirtualClock(),
+                     service_model=service_model)
+    done, rejected = replay_open_loop(
+        loop, open_loop_arrivals(qs, rate_qps=rate, seed=21))
+    return loop, done, rejected
+
+
+@pytest.mark.cuda
+def test_cuda_served_stream_matches_cpu(cuda_device):
+    """Modelled service: the stream served by a card engine gives the CPU
+    engine's ledger bit for bit -- every report field, the latencies, each
+    completion in order with its timestamps, answer, mode, route and
+    comm_cells -- and the same pattern-index fingerprint."""
+    import dataclasses
+
+    def key(c):
+        if type(c).__name__ != "ServedResult":
+            return dataclasses.astuple(c)
+        return (c.rid, c.finished_s, c.latency_s, c.late,
+                c.relation.to_set(), c.stats.mode, c.stats.route,
+                c.stats.comm_cells, c.stats.n_retries)
+
+    sides = []
+    for dev in ("cuda", "cpu"):
+        loop, done, rejected = _serve_small(
+            dev, 150.0, lambda n: 0.01, slo_s=2.0, queue_bound=16,
+            bucket_window=16)
+        sides.append((dataclasses.asdict(loop.report),
+                      [key(c) for c in done], [key(v) for v in rejected],
+                      loop.engine.pattern_index.fingerprint()))
+    assert sides[0] == sides[1]
+    assert sides[0][0]["answered"] == 24
+
+
+@pytest.mark.cuda
+def test_cuda_measured_charges_cover_device_time(cuda_device):
+    """Measured mode: each charge to the clock is at least the device time
+    of the work it stands for, read from a CUDA event pair around the
+    engine's call.  Each call also enqueues ~10 ms of device sleep that the
+    host does not wait for, so a charge taken before the card finished
+    would fall short."""
+    from repro_torch.runtime.fault_injection import VirtualClock
+
+    spans = []  # (kind, start, end, nested spans), in completion order
+    charges = []
+
+    class Clock(VirtualClock):
+        def advance(self, dt):
+            charges.append(dt)
+            return super().advance(dt)
+
+    def timed(fn, kind):
+        def call(*args, **kwargs):
+            first = len(spans)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            torch.cuda._sleep(20_000_000)
+            end.record()
+            spans.append((kind, start, end, len(spans) - first))
+            return out
+        return call
+
+    def wrap(eng):
+        eng.stream_control_step = timed(eng.stream_control_step, "control")
+        eng.execute_bucket = timed(eng.execute_bucket, "bucket")
+
+    loop, _, _ = _serve_small("cuda", 1e9, None, clock=Clock(), wrap=wrap,
+                              slo_s=1e6, queue_bound=64, bucket_window=64)
+    torch.cuda.synchronize()
+    assert loop.report.answered == 24
+    assert len(spans) == len(charges)
+    assert {k for k, *_ in spans} == {"control", "bucket"}
+    for i, (kind, start, end, nested) in enumerate(spans):
+        device_s = start.elapsed_time(end) / 1e3
+        # a control step's charge excludes the buckets it ran inside
+        # (overlapped with IRD); those charged themselves, just before it
+        covered = charges[i] + sum(charges[i - nested:i])
+        assert covered >= device_s, (i, kind, covered, device_s)
