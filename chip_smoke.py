@@ -11,9 +11,9 @@ main paths -- the RDF engine on a LUBM-style graph (``query`` with
 ``adaptive=False``, ``query_batch``, and the adaptive engine through both),
 directory placement with hot-key rebalancing on a Zipf hub graph and on
 LUBM, the online serving front end (``repro_torch.serving``) over the
-adaptive engine, master recovery from a checkpoint, a 32 M-triple Zipf
-stream, and
-the dense LM's serving path (prefill and decode of llama3-8b) -- checks the
+adaptive engine, master recovery from a checkpoint, the multi-device
+substrate (W split over ``torch.distributed`` ranks: NCCL at world size 1,
+two gloo ranks on the card), a 32 M-triple Zipf stream, and the dense LM's serving path (prefill and decode of llama3-8b) -- checks the
 answers, and prints one JSON line per phase.  Any mismatch or
 exception exits non-zero; without a card it exits 1 before doing anything.
 
@@ -122,6 +122,27 @@ Phases:
             query's route and answer), a crash before publishing a second
             snapshot leaves the first restorable, and recovery seconds
             beside a cold bootstrap plus a replay of the whole log
+  2k mesh   the multi-device substrate on the card: a world-size-1 NCCL
+            group, a DistributedSubstrate, phase 2's LUBM-100 triples
+            ingested host-sharded at W = 8; the 60 queries cold and warm and
+            through ``query_batch`` cold and warm, answers, comm_cells and
+            mode equal to phase 2's; per template the collectives its stage
+            bodies issued (two all_to_all at each hash exchange and reply
+            route, two all_gather at each broadcast, none on the
+            local-main route); NCCL milliseconds per collective kind over a
+            warm pass (CUDA events); launches per DSJ kernel; warm
+            queries/s beside phase 2's; a warm chain query's one host sync
+            (its one collective the all_reduce there); no build and no new
+            launch shape after warm-up; peak memory; an adaptive twin at
+            threshold 3, two passes, equal to lubm-adaptive's query engine
+            (stats, report, history, fingerprint)
+  2l mesh2  two processes x 4 workers (W = 8) through
+            ``launch_localhost``, the two ranks on the one card over gloo
+            (NCCL takes one rank a GPU), lubm_like(2, 2, 2, 2): each rank
+            held to a single-substrate engine -- ingested store, adaptive
+            lifecycle and fingerprint, a ``query_batch`` pass, a checkpoint
+            round trip with replicas over both ranks, a placement snapshot
+            restored at W' = 16; the line states device and backend
   3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
@@ -132,7 +153,7 @@ Phases:
             (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches)
             with the adaptive controller
 Each path's kernels must launch on that path's run (the DSJ kernels on
-LUBM and on the directory engines; on a served stream probe and
+LUBM, on the directory engines and on the mesh; on a served stream probe and
 ``expand`` always, all four once a staged answer was served;
 flash_attention on the LM).  Each phase prints its wall seconds.  The line before the last holds every kernel's
 numbers; the last line is
@@ -1215,14 +1236,16 @@ REPORT_FIELDS = ("n_queries", "n_parallel", "n_parallel_replica",
                  "ird_triples", "n_redistributions", "n_evictions")
 
 
-def phase_lubm_adaptive(torch, lubm: dict) -> None:
+def phase_lubm_adaptive(torch, lubm: dict) -> dict:
     """Two adaptive engines (frequency threshold 3, as the JAX package's
     query benchmark sets it), one answering the 60 queries through
     ``query``, one through ``query_batch``, each twice (the second pass is
     the adapted one): equal to each other query by query and in their
     reports and pattern indexes, every answer equal to phase 2's.  Then an
     engine with half the first one's largest per-worker replica count as
-    its budget must evict, with unchanged answers."""
+    its budget must evict, with unchanged answers.  Returns what the query
+    engine's two passes gave (per query, report, history, fingerprint): the
+    mesh twin of phase 2k is held to it."""
     from repro_torch.core.engine import AdHashEngine
     from repro_torch.kernels import LAUNCHES, reset_launches
 
@@ -1284,6 +1307,11 @@ def phase_lubm_adaptive(torch, lubm: dict) -> None:
         raise AssertionError("pattern index fingerprints differ")
     if seq.report.n_redistributions == 0:
         raise AssertionError("no redistribution at threshold 3")
+    # what phase 2k's mesh twin is held to: the two passes through query()
+    twin = {"results": results["query"],
+            "report": {f: getattr(seq.report, f) for f in REPORT_FIELDS},
+            "history": [h[:2] for h in seq.report.history],
+            "fingerprint": seq.pattern_index.fingerprint()}
 
     # where the time goes once adapted (profiler on: a third pass each)
     for name, (eng, run) in runs.items():
@@ -1318,6 +1346,7 @@ def phase_lubm_adaptive(torch, lubm: dict) -> None:
           "max_replica_triples_per_worker":
               int(eng.replicas.per_worker_triples().max()),
           "replication_ratio": eng.replication_ratio()})
+    return twin
 
 
 def phase_card_parity(torch, phase: str, triples, queries, w: int,
@@ -1980,6 +2009,347 @@ def phase_recovery(torch, skew: dict) -> None:
 
 
 # ------------------------------------------------------------------ phase 3
+# --------------------------------------------------- phases 2k and 2l: mesh
+def collective_expectation(st) -> tuple[int, int]:
+    """(all_to_all, all_gather) a query's stage bodies must issue on a mesh:
+    two all_to_all (values, mask) at each hash exchange and each reply
+    route, two all_gather at each broadcast, none on the shard-local and
+    local-main routes."""
+    n_hash = sum(p.startswith("dsj[hash]") for p in st.plan)
+    n_bcast = sum(p.startswith("dsj[bcast]") for p in st.plan)
+    return 2 * (2 * n_hash + n_bcast), 2 * n_bcast
+
+
+def phase_mesh(torch, mesh_in: dict) -> None:
+    """Phase 2k: the multi-device substrate at full width on one card.  A
+    world-size-1 NCCL group (a TCPStore on a free localhost port), a
+    DistributedSubstrate over it, phase 2's LUBM-100 triples ingested
+    through the host-sharded path at W = 8: the 60 queries cold and warm,
+    then ``query_batch`` cold and warm, each answer, comm_cells and mode
+    equal to phase 2's; per template the collectives its stage bodies
+    issued; NCCL time per collective kind; an adaptive twin (threshold 3,
+    two passes) equal to lubm-adaptive's query engine."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.core.substrate import (DistributedSubstrate,
+                                            trace_collectives,
+                                            trace_host_syncs)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import multihost
+
+    triples, queries, ref = (mesh_in[k] for k in ("triples", "queries",
+                                                    "ref"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    multihost.ensure_initialized(device="cuda")
+    try:
+        sub = DistributedSubstrate(device="cuda")
+        if (sub.backend, sub.n_devices) != ("nccl", 1):
+            raise AssertionError(f"mesh: {sub.backend} x {sub.n_devices}")
+        t0 = time.perf_counter()
+        chunks = np.array_split(triples, 8)
+        eng = AdHashEngine.ingest_stream(chunks, W, substrate=sub,
+                                         adaptive=False, device="cuda")
+        startup = time.perf_counter() - t0
+        if eng.store.mesh is not sub or eng.store.n_workers != W:
+            raise AssertionError("mesh: the store is not the mesh's")
+
+        # the main path: counts set to 0 just before, read just after
+        reset_launches()
+        per_template: dict[str, Counter] = {}
+        with shape_census() as seen:
+            t0 = time.perf_counter()
+            cold = []
+            for q in queries:
+                with trace_collectives() as tc:
+                    rel, st = eng.query(q)
+                cold.append((rel, st))
+                a2a, ag = collective_expectation(st)
+                got = (tc.count("all_to_all", "stage"),
+                       tc.count("all_gather", "stage"))
+                if got != (a2a, ag) or (st.route.endswith("local-main")
+                                        and tc.count(where="stage")):
+                    raise AssertionError(
+                        f"mesh {q.name}: stage collectives {dict(tc.counts)}"
+                        f" for plan {st.plan}, route {st.route!r}")
+                per_template.setdefault(q.name, Counter()).update(
+                    {f"{k}:{w}": n for (k, w), n in tc.counts.items()})
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        check_answers("mesh cold", queries, cold, ref)
+        del cold
+        missing = [k for k in RDF_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the mesh: "
+                                 f"{missing}")
+
+        with count_builds() as builds, shape_census() as warm_seen:
+            t0 = time.perf_counter()
+            for q in queries:  # as phase 2's warm pass: a sync a query
+                eng.query(q)
+                torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            # the same pass with every collective bracketed by CUDA events
+            with trace_collectives(timed=True) as tc:
+                warm = [eng.query(q) for q in queries]
+            nccl_ms = tc.ms()
+            nccl_calls = {k: tc.count(k) for k in nccl_ms}
+            check_answers("mesh warm", queries, warm, ref)
+            del warm
+            # query_batch: a cold pass warms its folded shapes
+            with shape_census() as batch_seen:
+                bat = eng.query_batch(queries)
+                torch.cuda.synchronize()
+            check_answers("mesh batch", queries, bat, ref)
+            del bat
+            t0 = time.perf_counter()
+            bat = eng.query_batch(queries)
+            torch.cuda.synchronize()
+            batch_warm_s = time.perf_counter() - t0
+            check_answers("mesh batch warm", queries, bat, ref)
+            del bat
+        new_shapes = sorted(map(str, set(warm_seen) - set(seen)
+                                - set(batch_seen)))
+        if builds[0] or new_shapes:
+            raise AssertionError(f"mesh: after warm-up {builds[0]} builds, "
+                                 f"new launch shapes {new_shapes}")
+
+        # a warm case-(i) chain: one counted host sync, its one collective
+        # the all_reduce at that sync
+        q1 = next(q for q in queries if q.name == "q1")
+        eng.query(q1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    trace_host_syncs() as tr, trace_collectives() as tc:
+                warnings.simplefilter("always")
+                _, st = eng.query(q1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cuda_syncs = sum("synchronizing" in str(w.message) for w in caught)
+        if (st.route != "distributed-local-main" or tr.host_transfers != 1
+                or dict(tc.counts) != {("all_reduce", "host"): 1}
+                or cuda_syncs > 1):
+            raise AssertionError(
+                f"mesh warm chain: route {st.route!r}, {tr.host_transfers} "
+                f"host syncs, collectives {dict(tc.counts)}, {cuda_syncs} "
+                f"seen by the CUDA runtime")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the adaptive twin of lubm-adaptive's query engine
+        twin_ref = mesh_in["twin"]
+        t0 = time.perf_counter()
+        twin = AdHashEngine.ingest_stream(chunks, W, substrate=sub,
+                                          frequency_threshold=3,
+                                          device="cuda")
+        answers = [(a, None, None) for a, _, _ in ref]
+        got: list = []
+        for _ in range(2):
+            res = [twin.query(q) for q in queries]
+            check_answers("mesh adaptive", queries, res, answers)
+            got.extend((st.comm_cells, st.mode, [v.name for v in rel.vars])
+                       for rel, st in res)
+            del res
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        report = {f: getattr(twin.report, f) for f in REPORT_FIELDS}
+        if (got != twin_ref["results"] or report != twin_ref["report"]
+                or [h[:2] for h in twin.report.history] != twin_ref["history"]
+                or twin.pattern_index.fingerprint() != twin_ref["fingerprint"]):
+            bad = next((i for i, (a, b) in enumerate(
+                zip(got, twin_ref["results"])) if a != b), None)
+            raise AssertionError(f"mesh adaptive twin differs from "
+                                 f"lubm-adaptive (first query {bad}; report "
+                                 f"{report} vs {twin_ref['report']})")
+        emit({"phase": "mesh", "triples": int(len(triples)), "workers": W,
+              "ranks": sub.n_devices, "backend": sub.backend,
+              "device": str(sub.device), "startup_s": startup,
+              "queries": len(queries), "cold_s": cold_s,
+              "warm_qps": len(queries) / warm_s,
+              "single_substrate_warm_qps": mesh_in["warm_qps"],
+              "query_batch_warm_qps": len(queries) / batch_warm_s,
+              "launches": launches,
+              "collectives_per_template": {k: dict(v) for k, v in
+                                           sorted(per_template.items())},
+              "nccl_ms_warm_pass": nccl_ms,
+              "nccl_calls_warm_pass": nccl_calls,
+              "nccl_ms_per_call": {k: nccl_ms[k] / nccl_calls[k]
+                                   for k in nccl_ms},
+              "warm_chain_host_syncs": tr.host_transfers,
+              "warm_chain_cuda_syncs": cuda_syncs,
+              "builds_after_warm": builds[0],
+              "new_launch_shapes_after_warm": new_shapes,
+              "adaptive_twin_s": twin_s,
+              "adaptive_twin_redistributions": twin.report.n_redistributions,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "equal": ["answers, comm_cells, mode (cold, warm, batch) vs "
+                        "phase 2", "adaptive twin: comm_cells, mode, vars, "
+                        "report, history, fingerprint vs lubm-adaptive"]})
+        del twin
+    finally:
+        multihost.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# phase 2l's two ranks share the one card.  NCCL refuses two ranks on one
+# GPU, so they run gloo on it, which takes CUDA tensors for every
+# collective the substrate issues (first chip run of the mesh phases).
+MESH2_DEVICE, MESH2_BACKEND = "cuda", "gloo"
+
+MESH2_CHILD = r'''
+import json
+import sys
+import tempfile
+from collections import Counter
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.core.engine import AdHashEngine
+from repro_torch.core.placement import DirectoryPlacement
+from repro_torch.core.substrate import DistributedSubstrate, trace_collectives
+from repro_torch.data.synthetic_rdf import Workload, lubm_like
+from repro_torch.kernels import LAUNCHES, reset_launches
+
+assert "jax" not in sys.modules
+device = sys.argv[1]
+sub = DistributedSubstrate(device=device)
+assert sub.n_processes == 2
+d, triples = lubm_like(2, 2, 2, 2)
+chunks = [c for c in np.array_split(triples, 7) if len(c)]
+kw = dict(adaptive=True, frequency_threshold=2, capacity=256, device=device)
+out = {"rank": sub.rank, "backend": sub.backend, "device": str(sub.device)}
+
+
+def answers(results):
+    return [(sorted(rel.to_set()), st.comm_cells, st.mode,
+             st.route.split("-", 1)[-1], st.n_retries)
+            for rel, st in results]
+
+
+def same(a, b, what):
+    if a != b:
+        raise AssertionError(f"rank {sub.rank}: {what} differs")
+
+
+# the host-sharded ingest: this rank's 4 workers, the single store's
+dist = AdHashEngine.ingest_stream(iter(chunks), 8, substrate=sub, **kw)
+single = AdHashEngine(triples, 8, **kw)
+assert dist.store.spo_ps.shape[0] == 4
+for a, b in zip(dist.store.host_leaves(), single.store.leaves()):
+    assert np.array_equal(a, b.cpu().numpy()), "ingested store"
+out["store"] = "equal"
+# the adaptive lifecycle, one query at a time.  The launch counts are the
+# distributed engines' alone: set to 0 just before each of their passes,
+# read just after, before the single-substrate twin runs
+launches = Counter()
+qs = Workload(d, seed=7).sample(4) * 2
+reset_launches()
+with trace_collectives() as tc:
+    got = answers([dist.query(q) for q in qs])
+launches.update(LAUNCHES)
+same(got, answers(single.query(q) for q in qs), "sequential answers")
+same(dist.pattern_index.fingerprint(), single.pattern_index.fingerprint(),
+     "fingerprint")
+same(dist.report.ird_comm_cells, single.report.ird_comm_cells, "IRD cells")
+assert any(m == "parallel-replica" for _, _, m, _, _ in got)
+out["sequential_collectives"] = {f"{k}:{w}": n
+                                 for (k, w), n in tc.counts.items()}
+# a query_batch pass on a fresh pair
+dist2 = AdHashEngine.ingest_stream(iter(chunks), 8, substrate=sub, **kw)
+single2 = AdHashEngine(triples, 8, **kw)
+reset_launches()
+got = answers(dist2.query_batch(qs))
+launches.update(LAUNCHES)
+same([a[:3] for a in got],
+     [a[:3] for a in answers(single2.query(q) for q in qs)], "batch answers")
+same(dist2.pattern_index.fingerprint(), single2.pattern_index.fingerprint(),
+     "batch fingerprint")
+out["launches"] = dict(launches)
+# a checkpoint round trip with replicas sharded over both ranks
+cm = CheckpointManager(tempfile.mkdtemp())
+cm.save_engine_state(dist, qs)
+cm.save_adaptivity(dist, step=1)
+fresh = AdHashEngine.ingest_stream(iter(chunks), 8, substrate=sub, **kw)
+assert cm.restore_adaptivity(fresh) == len(qs)
+same(fresh.pattern_index.fingerprint(), dist.pattern_index.fingerprint(),
+     "restored fingerprint")
+assert fresh.replicas.modules
+for sid, st in dist.replicas.modules.items():
+    assert fresh.replicas.modules[sid].spo_ps.shape[0] == 4
+    for a, b in zip(fresh.replicas.modules[sid].host_leaves(),
+                    st.host_leaves()):
+        assert np.array_equal(a, b), f"replica {sid}"
+out["replica_modules_restored"] = len(fresh.replicas.modules)
+# a placement snapshot restored at W' = 16
+plc = DirectoryPlacement(8)
+assert plc.add_splits([int(np.bincount(triples[:, 0]).argmax())])
+cm.save_placement(plc)
+same(cm.load_placement(8).fingerprint(), plc.fingerprint(), "placement")
+wider = cm.load_placement(16)
+assert wider.w == 16 and set(wider.entries) == set(plc.entries)
+sub.barrier("mesh2:end")
+print("MESH2-OK " + json.dumps(out), flush=True)
+'''
+
+
+def phase_mesh2(torch) -> None:
+    """Phase 2l: two ranks x 4 workers (W = 8) launched by
+    ``repro_torch.launch.multihost.launch_localhost``, each held to a
+    single-substrate engine on the same device in one step each: the
+    ingested store, the adaptive lifecycle with its fingerprint, a
+    ``query_batch`` pass, a checkpoint round trip with replicas over both
+    ranks, a placement snapshot restored at W' = 16 (the reference's
+    two-process test, lubm_like(2, 2, 2, 2), threshold 2, capacity 256)."""
+    import tempfile
+
+    from repro_torch.launch.multihost import launch_localhost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "mesh2_child.py"
+        script.write_text(MESH2_CHILD)
+        t0 = time.perf_counter()
+        results = launch_localhost(2, [str(script), MESH2_DEVICE],
+                                   device=MESH2_DEVICE, backend=MESH2_BACKEND,
+                                   timeout=240.0)
+        wall = time.perf_counter() - t0
+    for r in results:
+        if not r.ok:
+            raise AssertionError(f"mesh2: rank {r.process_id} rc "
+                                 f"{r.returncode}\n{r.stderr[-3000:]}")
+    # every rank's own line: its launches and collectives
+    outs = []
+    for r in results:
+        line = next((ln for ln in r.stdout.splitlines()
+                     if ln.startswith("MESH2-OK ")), None)
+        if line is None:
+            raise AssertionError(f"mesh2: no result line from rank "
+                                 f"{r.process_id}\n{r.stdout}")
+        out = json.loads(line[len("MESH2-OK "):])
+        if out["rank"] != r.process_id:
+            raise AssertionError(f"mesh2: rank {out['rank']} printed for "
+                                 f"process {r.process_id}")
+        if MESH2_DEVICE == "cuda":
+            missing = [k for k in RDF_KERNELS if out["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"mesh2: rank {out['rank']}'s mesh "
+                                     f"engines never launched {missing}")
+        outs.append(out)
+    emit({"phase": "mesh2", "ranks": 2, "workers": W,
+          "device": MESH2_DEVICE, "backend": MESH2_BACKEND,
+          "wall_s": wall, "per_rank": outs,
+          "equal": ["store", "sequential answers/stats/fingerprint",
+                    "query_batch answers/fingerprint",
+                    "checkpoint round trip (replicas over both ranks)",
+                    "placement snapshot at W' = 16"]})
+
+
 def phase_scale(torch) -> None:
     from repro_torch.core.engine import AdHashEngine
     from repro_torch.data.synthetic_rdf import generate_stream, zipf_workload
@@ -2202,7 +2572,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_lubm_adaptive(torch, lubm)
+    twin = phase_lubm_adaptive(torch, lubm)
     walls["lubm_adaptive_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -2237,7 +2607,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve(torch, lubm)
     walls["serve_s"] = time.perf_counter() - t0
-    del lubm
+    mesh_in = {"twin": twin, **{k: lubm[k] for k in ("triples", "queries",
+                                                      "ref", "warm_qps")}}
+    del lubm, twin
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2246,6 +2618,13 @@ def main() -> int:
     del skew
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_mesh(torch, mesh_in)
+    walls["mesh_s"] = time.perf_counter() - t0
+    del mesh_in
+    t0 = time.perf_counter()
+    phase_mesh2(torch)
+    walls["mesh2_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_scale(torch)
     walls["scale_s"] = time.perf_counter() - t0

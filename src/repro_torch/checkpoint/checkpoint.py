@@ -27,6 +27,10 @@ format, so a snapshot written by either package restores in the other:
     onto a different W the replica state is dropped and the query log
     replays from the start — the paper's pay-as-you-go recovery — while
     the placement table re-derives base shards under the new modulus.
+    On a mesh substrate every rank gathers each replica module's worker
+    blocks and writes the whole snapshot (each into its own directory);
+    restore places the modules through the engine's substrate
+    (``shard_store``), so each rank keeps its own block.
 
 The port has no tuned-kernel table yet (ROADMAP.md §1 item 11): its
 manifest writes ``"tuned": {}`` and its snapshot holds no ``tuned/``
@@ -298,8 +302,10 @@ class CheckpointManager:
         arrays: dict[str, np.ndarray] = {}
         modules = {}
         for sid, st in engine.replicas.modules.items():
-            for name, leaf in zip(_STORE_LEAVES, st.leaves()):
-                arrays[f"{sid}/{name}"] = _to_host(leaf)
+            # every worker's block: on a mesh each rank gathers the module
+            # and writes the whole snapshot, as each reference process does
+            for name, leaf in zip(_STORE_LEAVES, st.host_leaves()):
+                arrays[f"{sid}/{name}"] = leaf
             modules[sid] = {"n_ids": int(st.n_ids)}
         np.savez(tmp / "replicas.npz", **arrays)
 

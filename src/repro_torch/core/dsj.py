@@ -4,7 +4,11 @@ PyTorch port of ``repro.core.dsj``.  Every stage is a plain function over
 tensors with a leading worker axis W (the JAX package ``vmap``s per-worker
 bodies over it); each ``*_batch`` stage takes a further leading batch axis
 B of queries that share one plan (the JAX package ``vmap``s the stage over
-it).  On one device the worker exchanges are in-memory transposes:
+it).  Every stage runs on any leading worker count: on a mesh substrate a
+rank calls it on its own worker block.  On one device the worker exchanges
+are in-memory transposes (``substrate.MeshSubstrate`` swaps them for
+collectives, calling ``hash_send_buffers`` / ``reply_send_buffers`` /
+``reply_send_buffers_batch`` for everything before the transpose):
 
   * the (W_sender, W_receiver) block transpose in ``exchange_hash`` and in
     the ``probe_and_reply`` reply route is the paper's hash distribution /
@@ -56,6 +60,7 @@ __all__ = [
     "project_unique_batch",
     "exchange_hash_batch",
     "exchange_broadcast_batch",
+    "reply_send_buffers_batch",
     "probe_and_reply_batch",
     "finalize_join_batch",
     "local_probe_join_batch",
@@ -576,7 +581,7 @@ def exchange_broadcast_batch(
     return recv, recv_valid, cells
 
 
-def probe_and_reply_batch(
+def reply_send_buffers_batch(
     store: ShardedTripleStore,
     recv: torch.Tensor,  # (B, W, W_send, cap_peer)
     recv_valid: torch.Tensor,
@@ -585,13 +590,13 @@ def probe_and_reply_batch(
     probe_col: int,
     cap_flat: int,
     cap_cand: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-           torch.Tensor]:
-    """Batched ``probe_and_reply``: (cand (B, W_sender, W_replier,
-    cap_cand, 3), cand_valid, cells (B,), max_flat (B,), max_bucket (B,)).
-    One range_search over (W, B*W_send*cap_peer) probes, one expand and one
-    bucket_by_dest over the B*W rows, kept worker-major so the rows gather
-    from the store and feed bucket_by_dest without a copy."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ``reply_send_buffers``: everything ``probe_and_reply_batch``
+    does before the reply-route transpose.  One range_search over (W,
+    B*W_send*cap_peer) probes, one expand and one bucket_by_dest over the
+    B*W rows, kept worker-major so the rows gather from the store and feed
+    bucket_by_dest without a copy.  Returns (send (W_replier, B, W_send,
+    cap_cand, 3), send_valid, max_flat (B,), max_bucket (B,))."""
     b, w, n_send, cap_peer = recv.shape
     lo, hi = probe_values_batch(store, consts[:, P],
                                 recv.reshape(b, w, n_send * cap_peer),
@@ -606,15 +611,31 @@ def probe_and_reply_batch(
     wm = lambda x: x.transpose(0, 1).reshape((w * b,) + x.shape[2:])
     send, svalid, maxb = bucket_by_dest(wm(rows), wm(sender), wm(valid),
                                         n_send, cap_cand)
-    del rows, sender, valid
+    return (send.view(w, b, n_send, cap_cand, 3),
+            svalid.view(w, b, n_send, cap_cand), totals.amax(dim=1),
+            maxb.view(w, b).amax(dim=0))
+
+
+def probe_and_reply_batch(
+    store: ShardedTripleStore,
+    recv: torch.Tensor,  # (B, W, W_send, cap_peer)
+    recv_valid: torch.Tensor,
+    consts: torch.Tensor,  # (B, 3)
+    spec: PatternSpec,
+    probe_col: int,
+    cap_flat: int,
+    cap_cand: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Batched ``probe_and_reply``: (cand (B, W_sender, W_replier,
+    cap_cand, 3), cand_valid, cells (B,), max_flat (B,), max_bucket (B,))."""
+    send, svalid, max_flat, maxb = reply_send_buffers_batch(
+        store, recv, recv_valid, consts, spec, probe_col, cap_flat, cap_cand)
     # (W_replier, B, W_sender, cap, ...) -> (B, W_sender, W_replier, cap, ...)
-    cand = send.view(w, b, n_send, cap_cand, 3).permute(1, 2, 0, 3, 4
-                                                        ).contiguous()
+    cand = send.permute(1, 2, 0, 3, 4).contiguous()
     del send
-    cand_valid = svalid.view(w, b, n_send, cap_cand).permute(1, 2, 0, 3
-                                                              ).contiguous()
-    return (cand, cand_valid, _off_diagonal(cand_valid) * 3,
-            totals.amax(dim=1), maxb.view(w, b).amax(dim=0))
+    cand_valid = svalid.permute(1, 2, 0, 3).contiguous()
+    return cand, cand_valid, _off_diagonal(cand_valid) * 3, max_flat, maxb
 
 
 def finalize_join_batch(

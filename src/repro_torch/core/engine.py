@@ -17,9 +17,12 @@ flags (§6.3.1) pass through to the distributed executor.  ``query_batch``
 evaluates a workload with one batched pipeline per shape bucket.
 ``placement="directory"`` adds hot-key rebalancing: when one shard holds
 more than ``skew_threshold`` times the mean load, the hottest subjects on
-it are split over several shards and the main store is moved.  The mesh
-substrates are a later slice of the port and raise ``NotImplementedError``
-here.
+it are split over several shards and the main store is moved.
+``substrate=MeshSubstrate(...)`` / ``DistributedSubstrate()`` splits W over
+the ranks of a process group: every rank builds the same engine (SPMD),
+loads its worker block, and runs every query; the exchanges are
+collectives and every answer, stat and adaptivity decision is the single
+device's.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from .placement import resolve_placement
 from .planner import LocalityAwarePlanner
 from .query import Query, TriplePattern
 from .relation import Relation
-from .substrate import SingleDeviceSubstrate, host_fetch
+from .substrate import SingleDeviceSubstrate
 from .transform import build_redistribution_tree
 
 __all__ = ["AdHashEngine", "EngineReport"]
@@ -103,12 +106,6 @@ class AdHashEngine:
         device: str | torch.device = "cuda",
     ):
         t0 = time.perf_counter()
-        if substrate is not None and not isinstance(substrate,
-                                                    SingleDeviceSubstrate):
-            raise NotImplementedError(
-                "mesh substrates are not ported yet (ROADMAP.md §1 item 10, "
-                "multi-device substrate)"
-            )
         self.device = resolve_device(device)
         self.w = n_workers
         self.dictionary = dictionary
@@ -120,12 +117,17 @@ class AdHashEngine:
         self.substrate = substrate if substrate is not None else \
             SingleDeviceSubstrate()
         self.substrate.check_workers(n_workers)
+        sub_dev = getattr(self.substrate, "device", None)
+        if sub_dev is not None and sub_dev.type != self.device.type:
+            raise ValueError(f"the substrate's rank device {sub_dev} is not "
+                             f"the engine's device {self.device}")
         self.placement = resolve_placement(placement, n_workers)
         self.skew_threshold = float(skew_threshold)
 
         # bootstrap (paper §3.4): partition, load, collect statistics — one
         # code path for a host array (one chunk) and a chunk iterator
-        ingestor = StreamIngestor(n_workers, placement=self.placement)
+        ingestor = StreamIngestor(n_workers, placement=self.placement,
+                                  substrate=self.substrate)
         if isinstance(triples, (np.ndarray, list, tuple)):
             arr = np.asarray(triples)
             if arr.size:
@@ -158,7 +160,7 @@ class AdHashEngine:
         )
         self.heatmap = HeatMap()
         self.pattern_index = PatternIndex()
-        self.replicas = ReplicaIndex(n_workers)
+        self.replicas = ReplicaIndex(n_workers, substrate=self.substrate)
         self.parallel_exec = ParallelExecutor(
             self.store, self.replicas, n_workers, substrate=self.substrate,
         )
@@ -188,7 +190,9 @@ class AdHashEngine:
 
     # ------------------------------------------------------------ cardinality
     def _count_pattern(self, q: TriplePattern) -> int:
-        """Exact pattern count via a cheap index probe (planner oracle)."""
+        """Exact pattern count via a cheap index probe (planner oracle).  On
+        a mesh the per-block sums are summed over the ranks, so every rank
+        plans the same join order."""
         from . import dsj
 
         spec = dsj.PatternSpec.of(q)
@@ -205,7 +209,7 @@ class AdHashEngine:
             lo, hi = ranges(self.store, consts[1], none, False, self.n_ids)
         else:
             lo, hi = ranges(self.store, none, none, False, self.n_ids)
-        return int(torch.sum(hi - lo))
+        return int(self.substrate.reduce_sum(torch.sum(hi - lo)))
 
     # ------------------------------------------------------------------ query
     def query(self, q: Query) -> tuple[Relation, QueryStats]:
@@ -573,7 +577,8 @@ class AdHashEngine:
         plc = self.placement
         if not plc.supports_split or self._split_candidates is None:
             return
-        counts = host_fetch(self.store.counts).astype(np.int64)
+        counts = self.substrate.fetch_global(self.store.counts).astype(
+            np.int64)
         mean = float(counts.mean())
         if mean <= 0.0 or float(counts.max()) <= self.skew_threshold * mean:
             return
@@ -627,12 +632,13 @@ class AdHashEngine:
     # ------------------------------------------------------------- inspection
     def replication_ratio(self) -> float:
         """Replicated triples as a fraction of the original data."""
-        total = int(host_fetch(self.store.counts.sum(dtype=torch.int64)))
+        total = int(self.substrate.fetch_global(self.store.counts).astype(
+            np.int64).sum())
         rep = int(self.replicas.per_worker_triples().sum())
         return rep / max(total, 1)
 
     def load_balance(self) -> dict:
-        main = host_fetch(self.store.counts).astype(np.int64)
+        main = self.substrate.fetch_global(self.store.counts).astype(np.int64)
         rep = self.replicas.per_worker_triples()
         tot = main + rep
         return {

@@ -28,7 +28,7 @@ from .backend import quantize_capacity
 from .query import S, Query, TriplePattern, Var
 from .relalg import select_cols
 from .relation import Relation
-from .substrate import host_chain_totals, host_fetch, host_total
+from .substrate import host_fetch
 from .triples import ShardedTripleStore
 
 __all__ = ["QueryStats", "Executor", "ExecutorError", "step_descriptor"]
@@ -194,13 +194,13 @@ class Executor:
         for _ in range(_MAX_RETRIES):
             cols, valid, total = self.sub.match_first(self.store, consts,
                                                       spec, cap)
-            t = host_total(total)
+            t = self.sub.host_total(total)
             if t <= cap:
                 # keep one column per distinct variable (handles ?x p ?x)
                 keep, vars_ = q.distinct_var_cols()
                 if len(keep) != len(q.var_cols()):
                     cols = select_cols(cols, keep)
-                return Relation(cols, valid, vars_)
+                return Relation(cols, valid, vars_, mesh=self.sub.mesh)
             cap = quantize_capacity(max(cap * 2, t))
             stats.n_retries += 1
         raise ExecutorError("match_first exceeded retry budget")
@@ -232,9 +232,10 @@ class Executor:
                     self.store, rel.cols, rel.valid, consts, spec,
                     c1, c2, checks, append_cols, cap,
                 )
-                t = host_total(total)
+                t = self.sub.host_total(total)
                 if t <= cap:
-                    return Relation(cols, valid, out_vars)
+                    return Relation(cols, valid, out_vars,
+                                    mesh=self.sub.mesh)
                 cap = quantize_capacity(max(cap * 2, t))
                 stats.n_retries += 1
             raise ExecutorError("local join exceeded retry budget")
@@ -249,7 +250,7 @@ class Executor:
         for _ in range(_MAX_RETRIES):
             proj, pvalid, nuniq = self.sub.project_unique(
                 rel.cols, rel.valid, c1, cap_proj)
-            nu = host_total(nuniq)
+            nu = self.sub.host_total(nuniq)
             if nu <= cap_proj:
                 break
             cap_proj = quantize_capacity(max(cap_proj * 2, nu))
@@ -268,7 +269,7 @@ class Executor:
             for _ in range(_MAX_RETRIES):
                 recv, rvalid, cells, maxb = self.sub.exchange_hash(
                     proj, pvalid, cap_peer, spec=pspec, table=ptable)
-                mb = host_total(maxb)
+                mb = self.sub.host_total(maxb)
                 if mb <= cap_peer:
                     break
                 cap_peer = quantize_capacity(max(cap_peer * 2, mb))
@@ -286,7 +287,7 @@ class Executor:
                 self.store, recv, rvalid, consts, spec, c2, cap_flat,
                 cap_cand,
             )
-            mf, mc = host_total(maxf), host_total(maxc)
+            mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
             if mf <= cap_flat and mc <= cap_cand:
                 break
             if mf > cap_flat:
@@ -303,9 +304,9 @@ class Executor:
                 rel.cols, rel.valid, cand, cvalid, c1, c2, checks,
                 append_cols, cap,
             )
-            t = host_total(total)
+            t = self.sub.host_total(total)
             if t <= cap:
-                return Relation(cols, valid, out_vars)
+                return Relation(cols, valid, out_vars, mesh=self.sub.mesh)
             cap = quantize_capacity(max(cap * 2, t))
             stats.n_retries += 1
         raise ExecutorError("finalize exceeded retry budget")
@@ -400,7 +401,7 @@ class Executor:
                     chain.steps[start - 1:], tuple(caps[start:]),
                 )
                 rels[start:] = list(out)
-            tots = host_chain_totals(totals)  # THE host sync
+            tots = self.sub.host_chain_totals(totals)  # THE host sync
             bad = next(
                 (j for j in range(start, n_stages)
                  if int(tots[j - start]) > caps[j]),
@@ -423,7 +424,8 @@ class Executor:
         stats.mode = "parallel"
         stats.route = f"{self.sub.name}-local-main"
         cols, valid = rels[-1]
-        return Relation(cols, valid, chain.out_vars), stats
+        return Relation(cols, valid, chain.out_vars,
+                        mesh=self.sub.mesh), stats
 
     # -------------------------------------------------------------- top level
     def execute(
@@ -469,7 +471,9 @@ class Executor:
             rel = self._join_step(rel, qj, join_vars[step], pinned, cap,
                                   stats, comm)
         if comm:
-            stats.comm_cells += int(host_fetch(torch.stack(comm).sum()))
+            # a mesh rank's cells are its senders': summed over the ranks
+            stats.comm_cells += int(host_fetch(
+                self.sub.reduce_sum(torch.stack(comm).sum())))
 
         if stats.n_dsj == 0:
             stats.mode = "parallel"
@@ -521,7 +525,7 @@ class Executor:
         for _ in range(_MAX_RETRIES):
             cols, valid, totals = self.sub.match_first_batch(
                 self.store, consts_t[:, 0], bplan.first_spec, cap)
-            t = host_total(totals)
+            t = self.sub.host_total(totals)
             if t <= cap:
                 break
             cap = quantize_capacity(max(cap * 2, t))
@@ -547,7 +551,8 @@ class Executor:
                 rel_cols, rel_valid = self._batch_dsj_step(
                     sp, rel_cols, rel_valid, qc, bplan.capacity, stats, comm)
         if comm:
-            cells = host_fetch(torch.stack(comm).sum(dim=0))
+            cells = host_fetch(self.sub.reduce_sum(torch.stack(comm).sum(
+                dim=0)))
             for i in range(b):
                 stats[i].comm_cells += int(cells[i])
 
@@ -557,7 +562,8 @@ class Executor:
         rels = []
         for i in range(b):
             stats[i].mode = mode
-            rels.append(Relation(rel_cols[i], rel_valid[i], out_vars))
+            rels.append(Relation(rel_cols[i], rel_valid[i], out_vars,
+                                 mesh=self.sub.mesh))
         return rels, stats
 
     def _execute_batch_local_chain(self, bplan, consts_t, b, stats):
@@ -587,7 +593,7 @@ class Executor:
                     self.store, seed_cols, seed_valid, consts_t[:, start:],
                     steps[start - 1:], tuple(caps[start:]))
                 rels[start:] = list(out)
-            tots = host_chain_totals(totals)  # THE host sync
+            tots = self.sub.host_chain_totals(totals)  # THE host sync
             bad = next(
                 (j for j in range(start, n_stages)
                  if int(tots[j - start]) > caps[j]),
@@ -615,7 +621,8 @@ class Executor:
             st.n_local_joins += len(steps)
             st.mode = "parallel"
             st.route = f"{self.sub.name}-local-main"
-            rels_out.append(Relation(cols[i], valid[i], out_vars))
+            rels_out.append(Relation(cols[i], valid[i], out_vars,
+                                     mesh=self.sub.mesh))
         return rels_out, stats
 
     def _batch_local_step(self, sp, rel_cols, rel_valid, qc, cap, stats):
@@ -626,7 +633,7 @@ class Executor:
             cols, valid, totals = self.sub.local_probe_join_batch(
                 self.store, rel_cols, rel_valid, qc, sp.spec, sp.c1, sp.c2,
                 sp.checks, sp.append_cols, cap)
-            t = host_total(totals)
+            t = self.sub.host_total(totals)
             if t <= cap:
                 return cols, valid
             cap = quantize_capacity(max(cap * 2, t))
@@ -645,7 +652,7 @@ class Executor:
         for _ in range(_MAX_RETRIES):
             proj, pvalid, nuniq = self.sub.project_unique_batch(
                 rel_cols, rel_valid, sp.c1, cap_proj)
-            nu = host_total(nuniq)
+            nu = self.sub.host_total(nuniq)
             if nu <= cap_proj:
                 break
             cap_proj = quantize_capacity(max(cap_proj * 2, nu))
@@ -661,7 +668,7 @@ class Executor:
             for _ in range(_MAX_RETRIES):
                 recv, rvalid, cells, maxb = self.sub.exchange_hash_batch(
                     proj, pvalid, cap_peer, spec=pspec, table=ptable)
-                mb = host_total(maxb)
+                mb = self.sub.host_total(maxb)
                 if mb <= cap_peer:
                     break
                 cap_peer = quantize_capacity(max(cap_peer * 2, mb))
@@ -680,7 +687,7 @@ class Executor:
             cand, cvalid, cells, maxf, maxc = self.sub.probe_and_reply_batch(
                 self.store, recv, rvalid, qc, sp.spec, sp.c2, cap_flat,
                 cap_cand)
-            mf, mc = host_total(maxf), host_total(maxc)
+            mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
             if mf <= cap_flat and mc <= cap_cand:
                 break
             if mf > cap_flat:
@@ -698,7 +705,7 @@ class Executor:
             cols, valid, totals = self.sub.finalize_join_batch(
                 rel_cols, rel_valid, cand, cvalid, sp.c1, sp.c2, sp.checks,
                 sp.append_cols, cap)
-            t = host_total(totals)
+            t = self.sub.host_total(totals)
             if t <= cap:
                 return cols, valid
             cap = quantize_capacity(max(cap * 2, t))

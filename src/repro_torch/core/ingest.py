@@ -1,23 +1,30 @@
 """Streaming ingest: the single bootstrap path of the port's engine.
 
-PyTorch port of ``repro.core.ingest`` (single process).  Both one-shot
-arrays and chunk streams flow through ``StreamIngestor``, so chunked ingest
-is bit-identical to one-shot by construction.  Per chunk it hash-places
-every row through the placement policy, buffers the rows per worker, and
-folds the chunk into the global accumulators: per-worker counts, id range,
-vertex degrees, subject out-degrees (the engine's split-candidate pool) and
-the §3.3 predicate statistics.
+PyTorch port of ``repro.core.ingest``.  Both one-shot arrays and chunk
+streams flow through ``StreamIngestor``, so chunked ingest is bit-identical
+to one-shot by construction.  Per chunk it hash-places every row through
+the placement policy, buffers the rows of the workers this process loads
+(``substrate.local_worker_slice``: all of them on one device, this rank's
+block on a mesh), and folds the chunk into the global accumulators:
+per-worker counts, id range, vertex degrees, subject out-degrees (the
+engine's split-candidate pool) and the §3.3 predicate statistics.  Every
+process reads and hashes every chunk the same way, so the accumulators,
+and hence the store's capacity and the statistics, are equal on every
+rank.
 
-``finish`` assembles the per-worker sorted indexes host-side with numpy
-(the same stable lexsort keys as the JAX package, buffered rows in stream
-order, so even sort ties break identically) and puts the leaves on the
-device.  The statistics reproduce ``stats.compute_stats`` exactly.
+``finish`` assembles the loaded workers' sorted indexes host-side with
+numpy (the same stable lexsort keys as the JAX package, buffered rows in
+stream order, so even sort ties break identically), places the five leaves
+through ``substrate.globalize_worker_array`` and fences the ranks
+(``barrier("ingest:store")``).  The statistics reproduce
+``stats.compute_stats`` exactly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .backend import resolve_device
 from .stats import GlobalStats, PredicateStats
 from .triples import I64MAX, ShardedTripleStore
 
@@ -52,11 +59,18 @@ def _grow_to(arr: np.ndarray, n: int) -> np.ndarray:
 class StreamIngestor:
     """Chunk-by-chunk bootstrap: place, buffer per worker, accumulate stats."""
 
-    def __init__(self, n_workers: int, *, placement):
+    def __init__(self, n_workers: int, *, placement, substrate=None):
+        from .substrate import SingleDeviceSubstrate
+
         self.w = n_workers
         self.placement = placement
-        # per-worker row buffers (int64, stream order)
-        self._buffers: list[list[np.ndarray]] = [[] for _ in range(n_workers)]
+        self.substrate = substrate if substrate is not None else \
+            SingleDeviceSubstrate()
+        # the worker block this process loads
+        self.local = self.substrate.local_worker_slice(n_workers)
+        # per-worker row buffers of the loaded block (int64, stream order)
+        self._buffers: list[list[np.ndarray]] = [
+            [] for _ in range(self.local.stop - self.local.start)]
         self._counts = np.zeros(n_workers, dtype=np.int64)
         self.n_triples = 0
         self._max_id = -1
@@ -80,9 +94,9 @@ class StreamIngestor:
         # one stable sort groups the rows by worker in stream order
         order = np.argsort(assign, kind="stable")
         bounds = np.searchsorted(assign[order], np.arange(self.w + 1))
-        for w in range(self.w):
+        for i, w in enumerate(range(self.local.start, self.local.stop)):
             if bounds[w + 1] > bounds[w]:
-                self._buffers[w].append(chunk[order[bounds[w]:bounds[w + 1]]])
+                self._buffers[i].append(chunk[order[bounds[w]:bounds[w + 1]]])
 
         # ---- global accumulators
         self.n_triples += len(chunk)
@@ -113,17 +127,20 @@ class StreamIngestor:
         return self._max_id + 1 if self._max_id >= 0 else 1
 
     def finish(self, device: str | torch.device = "cuda") -> IngestResult:
-        """Build the store on ``device`` and the exact global statistics."""
+        """Build this process's block of the store on ``device`` and the
+        exact global statistics."""
         if self._finished:
             raise RuntimeError("StreamIngestor already finished")
         self._finished = True
         n_ids = self.n_ids
+        # the capacity comes from every worker's count: equal on all ranks
         cap = max(int(self._counts.max()), 1)
-        spo_ps = np.zeros((self.w, cap, 3), dtype=np.int32)
-        keys_ps = np.full((self.w, cap), I64MAX, dtype=np.int64)
-        spo_po = np.zeros((self.w, cap, 3), dtype=np.int32)
-        keys_po = np.full((self.w, cap), I64MAX, dtype=np.int64)
-        for i in range(self.w):
+        wl = len(self._buffers)
+        spo_ps = np.zeros((wl, cap, 3), dtype=np.int32)
+        keys_ps = np.full((wl, cap), I64MAX, dtype=np.int64)
+        spo_po = np.zeros((wl, cap, 3), dtype=np.int32)
+        keys_po = np.full((wl, cap), I64MAX, dtype=np.int64)
+        for i in range(wl):
             parts = self._buffers[i]
             if not parts:
                 continue
@@ -138,10 +155,16 @@ class StreamIngestor:
             o2 = np.lexsort((rows[:, 0], kpo))
             spo_po[i, :n] = rows[o2]
             keys_po[i, :n] = kpo[o2]
-        store = ShardedTripleStore.from_numpy(
-            spo_ps, keys_ps, spo_po, keys_po, self._counts.astype(np.int32),
-            n_ids, device=device,
+        sub = self.substrate
+        dev = resolve_device(device)
+        place = lambda a: sub.globalize_worker_array(a, self.w, dev)
+        store = ShardedTripleStore(
+            spo_ps=place(spo_ps), keys_ps=place(keys_ps),
+            spo_po=place(spo_po), keys_po=place(keys_po),
+            counts=place(self._counts[self.local].astype(np.int32)),
+            n_ids=int(n_ids), mesh=sub.mesh,
         )
+        sub.barrier("ingest:store")
         return IngestResult(store, self._build_stats(n_ids), n_ids)
 
     def _build_stats(self, n_ids: int) -> GlobalStats:

@@ -22,7 +22,12 @@ around the bindings of the core vertex, level by level:
 Replicas are maintained as raw triples in segregated storage modules so the
 normal index machinery (and eviction) applies — paper §5.5.  The DSJ stages
 run through the execution substrate, and freshly built replica modules are
-placed on it (``shard_store``) before they serve parallel-mode queries.
+placed on it (``shard_store``) before they serve parallel-mode queries.  On
+a mesh every rank routes its own worker block: the (sender, receiver)
+transposes below are the substrate's block transpose (an all_to_all; the
+reference's GSPMD turns ``jnp.swapaxes`` of a sharded array into one), the
+moved cells count the global matrix's off-diagonal, and the host reads the
+global max or sum of every per-block value it decides on.
 
 **Deferred mode.**  ``redistribute_deferred`` enqueues the phase-1/phase-2
 work and returns without waiting for it: CUDA launches are asynchronous, so
@@ -58,7 +63,7 @@ from .pattern_index import ReplicaIndex
 from .placement import splitmix64
 from .query import O, S, TriplePattern
 from .relalg import bucket_by_dest
-from .substrate import host_fetch, host_total
+from .substrate import host_fetch
 from .transform import TreeEdge
 from .triples import ShardedTripleStore
 
@@ -68,12 +73,13 @@ __all__ = ["IRDStats", "IncrementalRedistributor", "PendingRedistribution",
 _MAX_RETRIES = 7
 
 
-def _index_replica_rows(rows: torch.Tensor, valid: torch.Tensor, n_ids: int
-                        ) -> ShardedTripleStore:
-    """Sort-index a freshly exchanged replica module (W, cap, 3).  The
-    reference jits this and donates the staging buffers; here the staging
-    tensors are freed when the caller drops them."""
-    return ShardedTripleStore.from_device_rows(rows, valid, n_ids)
+def _index_replica_rows(rows: torch.Tensor, valid: torch.Tensor, n_ids: int,
+                        mesh=None) -> ShardedTripleStore:
+    """Sort-index a freshly exchanged replica module (W, cap, 3), or a mesh
+    rank's block of one.  The reference jits this and donates the staging
+    buffers; here the staging tensors are freed when the caller drops
+    them."""
+    return ShardedTripleStore.from_device_rows(rows, valid, n_ids, mesh)
 
 
 @dataclass
@@ -100,17 +106,19 @@ class PendingRedistribution:
 
     storage: dict[int, str | None] = field(default_factory=dict)
     stats: IRDStats = field(default_factory=IRDStats)
-    # 0-d device tensors, fetched only at the barrier
+    # 0-d device tensors, fetched only at the barrier; on a mesh each is
+    # this rank's share, summed over the ranks by ``sub``
     _cells: list = field(default_factory=list)
     _triples: list = field(default_factory=list)
     _done: bool = False
+    sub: object = None
 
     def finalize(self) -> tuple[dict[int, str | None], IRDStats]:
         if not self._done:
             counters = [c.to(torch.int64).reshape(())
                         for c in self._cells + self._triples]
             if counters:
-                vals = host_fetch(torch.stack(counters))
+                vals = host_fetch(self.sub.reduce_sum(torch.stack(counters)))
                 n = len(self._cells)
                 self.stats.comm_cells += int(vals[:n].sum())
                 self.stats.triples_indexed += int(vals[n:].sum())
@@ -157,7 +165,7 @@ class IncrementalRedistributor:
         other work (e.g. the next shape bucket of the query stream), then
         must ``finalize()`` the returned handle before publishing the
         pattern entries it describes."""
-        pending = PendingRedistribution()
+        pending = PendingRedistribution(sub=self.sub)
         stats = pending.stats
         tree = hot.rtree
         storage = pending.storage
@@ -211,7 +219,7 @@ class IncrementalRedistributor:
         cap = self.cap
         for _ in range(_MAX_RETRIES):
             rows, valid, total = self.sub.match_rows(store, consts, spec, cap)
-            t = host_total(total)
+            t = self.sub.host_total(total)
             if t <= cap:
                 break
             cap = quantize_capacity(max(cap * 2, t))
@@ -252,13 +260,14 @@ class IncrementalRedistributor:
         for _ in range(_MAX_RETRIES):
             send, svalid, maxw = bucket_by_dest(rows, dest, valid, w,
                                                 cap_peer)
-            mw = host_total(maxw)
+            mw = self.sub.host_total(maxw)
             if mw <= cap_peer:
                 break
             cap_peer = quantize_capacity(max(cap_peer * 2, mw))
-        recv = send.transpose(0, 1).reshape(w, -1, 3)
-        rvalid = svalid.transpose(0, 1).reshape(w, -1)
-        pending._cells.append(dsj._off_diagonal(svalid) * 3)
+        pending._cells.append(self.sub.off_diagonal(svalid) * 3)
+        wl = rows.shape[0]  # this rank's workers (all W on one device)
+        recv = self.sub.block_transpose(send).reshape(wl, -1, 3)
+        rvalid = self.sub.block_transpose(svalid).reshape(wl, -1)
         st = self._stage_replica(recv, rvalid, pending)
         sid = self.replicas.new_id()
         self.replicas.put(sid, st)
@@ -269,7 +278,7 @@ class IncrementalRedistributor:
         """Enqueue the sort-indexing + substrate placement of a replica
         module; ``pending``'s barrier waits for it before the PI may
         publish it."""
-        st = _index_replica_rows(rows, valid, self.main.n_ids)
+        st = _index_replica_rows(rows, valid, self.main.n_ids, self.sub.mesh)
         st = self.sub.shard_store(st)
         pending._triples.append(st.counts.sum())
         return st
@@ -294,7 +303,7 @@ class IncrementalRedistributor:
         for _ in range(_MAX_RETRIES):
             proj, projv, nuniq = self.sub.project_unique(
                 prows, pvalid, prop_col, cap_proj)
-            nu = host_total(nuniq)
+            nu = self.sub.host_total(nuniq)
             if nu <= cap_proj:
                 break
             cap_proj = quantize_capacity(max(cap_proj * 2, nu))
@@ -310,7 +319,7 @@ class IncrementalRedistributor:
             for _ in range(_MAX_RETRIES):
                 recv, rvalid, cells, maxb = self.sub.exchange_hash(
                     proj, projv, cap_peer, spec=pspec, table=ptable)
-                mb = host_total(maxb)
+                mb = self.sub.host_total(maxb)
                 if mb <= cap_peer:
                     break
                 cap_peer = quantize_capacity(max(cap_peer * 2, mb))
@@ -326,7 +335,7 @@ class IncrementalRedistributor:
                 self.main, recv, rvalid, consts, spec, src_col,
                 cap_flat, cap_cand,
             )
-            mf, mc = host_total(maxf), host_total(maxc)
+            mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
             if mf <= cap_flat and mc <= cap_cand:
                 break
             if mf > cap_flat:
@@ -335,8 +344,8 @@ class IncrementalRedistributor:
                 cap_cand = quantize_capacity(max(cap_cand * 2, mc))
         pending._cells.append(cells)
 
-        flat = cand.reshape(self.w, -1, 3)
-        flatv = cvalid.reshape(self.w, -1)
+        flat = cand.reshape(cand.shape[0], -1, 3)
+        flatv = cvalid.reshape(cand.shape[0], -1)
         st = self._stage_replica(flat, flatv, pending)
         sid = self.replicas.new_id()
         self.replicas.put(sid, st)
@@ -371,11 +380,11 @@ class IncrementalRedistributor:
             placement.device_table(rows.device))
         # start near the balanced shard size; retry-double on skew overflow
         cap_peer = quantize_capacity(
-            max(host_total(main.counts) // max(w // 2, 1), 1))
+            max(self.sub.host_total(main.counts) // max(w // 2, 1), 1))
         for _ in range(_MAX_RETRIES):
             send, svalid, maxw = bucket_by_dest(rows, dest, valid, w,
                                                 cap_peer)
-            mw = host_total(maxw)
+            mw = self.sub.host_total(maxw)
             if mw <= cap_peer:
                 break
             del send, svalid
@@ -383,12 +392,14 @@ class IncrementalRedistributor:
         else:
             raise RuntimeError("rebalance bucketing exceeded retry budget")
         del dest, valid
-        pending = PendingRebalance()
-        pending._cells.append(dsj._off_diagonal(svalid) * 3)
-        recv = send.transpose(0, 1).reshape(w, -1, 3)
-        rvalid = svalid.transpose(0, 1).reshape(w, -1)
-        del send, svalid
-        st = _index_replica_rows(recv, rvalid, main.n_ids)
+        pending = PendingRebalance(sub=self.sub)
+        pending._cells.append(self.sub.off_diagonal(svalid) * 3)
+        wl = rows.shape[0]
+        recv = self.sub.block_transpose(send).reshape(wl, -1, 3)
+        del send
+        rvalid = self.sub.block_transpose(svalid).reshape(wl, -1)
+        del svalid
+        st = _index_replica_rows(recv, rvalid, main.n_ids, self.sub.mesh)
         pending.store = self.sub.shard_store(st)
         return pending
 
@@ -407,10 +418,15 @@ class PendingRebalance:
     _cells: list = field(default_factory=list)
     _done: bool = False
     _moved: int = 0
+    sub: object = None
 
     def finalize(self) -> tuple[ShardedTripleStore, int]:
         if not self._done:
-            parts = [c.to(torch.int64).reshape(1) for c in self._cells]
+            parts = []
+            if self._cells:
+                # on a mesh each rank's share, summed over the ranks
+                parts.append(self.sub.reduce_sum(torch.stack(
+                    [c.to(torch.int64).reshape(()) for c in self._cells])))
             if self.store is not None:
                 parts.append(self.store.counts.to(torch.int64))
             if parts:

@@ -282,8 +282,13 @@ class PatternIndex:
 class ReplicaIndex:
     """Worker-side replica storage: one ShardedTripleStore per PI edge."""
 
-    def __init__(self, n_workers: int) -> None:
+    def __init__(self, n_workers: int, substrate=None) -> None:
+        from .substrate import SingleDeviceSubstrate
+
         self.w = n_workers
+        # gathers the per-worker counts of a mesh rank's blocks
+        self.sub = substrate if substrate is not None else \
+            SingleDeviceSubstrate()
         self.modules: dict[str, ShardedTripleStore] = {}
         # plain int, not itertools.count: checkpoint restore must set the
         # next id without consuming it ("rep3" handed out again over a
@@ -307,13 +312,12 @@ class ReplicaIndex:
     # ------------------------------------------------------------ accounting
     def per_worker_triples(self) -> np.ndarray:
         """Replica triples per worker, summed over the modules (one host
-        fetch of every module's counts)."""
-        from .substrate import host_fetch
-
+        fetch of every module's counts; a mesh gathers every rank's
+        workers, so eviction decides the same on every rank)."""
         if not self.modules:
             return np.zeros(self.w, dtype=np.int64)
         counts = torch.stack([st.counts for st in self.modules.values()])
-        return host_fetch(counts.sum(dim=0, dtype=torch.int64))
+        return self.sub.fetch_global(counts.sum(dim=0, dtype=torch.int64))
 
     def nbytes(self) -> int:
         """Bytes of every replica module on its device."""
@@ -419,21 +423,19 @@ class ParallelExecutor:
 
     # ------------------------------------------------------------- internals
     # Both stages go through the substrate's shard-local route; the host
-    # reduces the overflow totals here (host_total) while deciding the
-    # overflow retry.
+    # reduces the overflow totals here (``sub.host_total``: on a mesh the
+    # one all_reduce of the route) while deciding the overflow retry.
     def _first(self, store, q, spec, consts, cap, stats) -> Relation:
-        from .substrate import host_total
-
         for _ in range(_MAX_RETRIES):
             cols, valid, total = self.sub.match_first_local(
                 store, consts, spec, cap
             )
-            total = host_total(total)
+            total = self.sub.host_total(total)
             if total <= cap:
                 keep, vars_ = q.distinct_var_cols()
                 if len(keep) != len(q.var_cols()):
                     cols = select_cols(cols, keep)
-                return Relation(cols, valid, vars_)
+                return Relation(cols, valid, vars_, mesh=self.sub.mesh)
             cap = quantize_capacity(max(cap * 2, total))
             stats.n_retries += 1
         raise ExecutorError("parallel first match exceeded retries")
@@ -441,8 +443,6 @@ class ParallelExecutor:
     def _local_join(
         self, store, rel, q, spec, consts, join_var, probe_col, cap, stats
     ) -> Relation:
-        from .substrate import host_total
-
         c1 = rel.col_of(join_var)
         checks = _shared_checks(rel.vars, q, join_var)
         append_cols, out_vars = _append_plan(rel.vars, q)
@@ -451,9 +451,9 @@ class ParallelExecutor:
                 store, rel.cols, rel.valid, consts, spec, c1, probe_col,
                 checks, append_cols, cap,
             )
-            total = host_total(total)
+            total = self.sub.host_total(total)
             if total <= cap:
-                return Relation(cols, valid, out_vars)
+                return Relation(cols, valid, out_vars, mesh=self.sub.mesh)
             cap = quantize_capacity(max(cap * 2, total))
             stats.n_retries += 1
         raise ExecutorError("parallel local join exceeded retries")

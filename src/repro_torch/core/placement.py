@@ -31,6 +31,13 @@ a frozen :class:`PlacementSpec`; ``max_split`` bounds the replication
 fan-out, and a spec with ``max_split == 1`` is the single-destination hash
 path.
 
+On a mesh substrate every rank holds the whole table (``device_table`` on
+its own device: a replicated operand), and the spec's ``n_workers`` is the
+global W, so ``owner_dest`` / ``triple_dest`` / ``value_dests`` return
+*global* worker ids for a rank's local rows; the substrate's block
+transpose routes them.  Growing the table within one capacity class still
+adds no launch shape.
+
 torch has no unsigned 64-bit shift and ``>>`` on int64 is arithmetic, so
 the torch hash shifts logically by masking the sign-extended bits; int64
 addition and multiplication wrap exactly like uint64 arithmetic mod 2^64.

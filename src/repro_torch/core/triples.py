@@ -10,10 +10,16 @@ composite keys (p, s) and (p, o), and probes are vectorized binary searches:
 
 Every array carries a leading worker axis W.  Padded rows carry key =
 INT64_MAX so they sort to the end and never match a probe.
+
+On a mesh substrate a rank's store holds only its worker block and carries
+the substrate as ``mesh``: ``n_workers`` stays the global W (the store, not
+the caller, knows how many blocks there are), and the host views
+(``to_numpy``, ``host_leaves``) gather the blocks of every rank, as the
+reference's go through ``fetch_global``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -38,10 +44,14 @@ class ShardedTripleStore:
     keys_po: torch.Tensor  # (W, capT) int64 = p*NID + o  (pad: I64MAX)
     counts: torch.Tensor  # (W,) int32 live triples per worker
     n_ids: int  # id-space size (NID)
+    # the MeshSubstrate whose rank holds this worker block (None: all of W)
+    mesh: object = field(default=None, repr=False, compare=False)
 
     @property
     def n_workers(self) -> int:
-        return self.spo_ps.shape[0]
+        """The global worker count W (a mesh rank holds W / P of them)."""
+        p = self.mesh.n_devices if self.mesh is not None else 1
+        return self.spo_ps.shape[0] * p
 
     @property
     def device(self) -> torch.device:
@@ -77,7 +87,7 @@ class ShardedTripleStore:
 
     @classmethod
     def from_device_rows(cls, rows: torch.Tensor, valid: torch.Tensor,
-                         n_ids: int) -> "ShardedTripleStore":
+                         n_ids: int, mesh=None) -> "ShardedTripleStore":
         """Build a store from device-resident (W, cap, 3) rows + mask.
 
         Used by IRD to index replicated candidate triples without a host
@@ -85,7 +95,8 @@ class ShardedTripleStore:
         (same triple shipped for two probe values) are masked.  Every sort
         is stable, as ``jnp.argsort`` is, so rows with equal keys (padding
         included) keep the reference's order and the five tensors are
-        bit-identical to the JAX package's."""
+        bit-identical to the JAX package's.  Each worker row is sorted on
+        its own, so a mesh rank indexes its block (``mesh``) in place."""
         nid = int(n_ids)
         s = rows[..., 0].to(torch.int64)
         p = rows[..., 1].to(torch.int64)
@@ -108,6 +119,7 @@ class ShardedTripleStore:
             keys_po=keys_po,
             counts=keep.sum(dim=1, dtype=torch.int32),
             n_ids=nid,
+            mesh=mesh,
         )
 
     def leaves(self) -> tuple[torch.Tensor, ...]:
@@ -115,10 +127,19 @@ class ShardedTripleStore:
         return (self.spo_ps, self.keys_ps, self.spo_po, self.keys_po,
                 self.counts)
 
+    def _host(self, x: torch.Tensor) -> np.ndarray:
+        return x.cpu().numpy() if self.mesh is None else \
+            self.mesh.fetch_global(x)
+
+    def host_leaves(self) -> tuple[np.ndarray, ...]:
+        """The five tensors on the host, every worker's block (a mesh
+        gathers them from its ranks)."""
+        return tuple(self._host(x) for x in self.leaves())
+
     def to_numpy(self) -> np.ndarray:
         """All live triples, host-side (tests / collection)."""
-        counts = self.counts.cpu().numpy()
-        spo = self.spo_ps.cpu().numpy()
+        counts = self._host(self.counts)
+        spo = self._host(self.spo_ps)
         out = [spo[w, : counts[w]] for w in range(self.n_workers)]
         return np.concatenate(out, axis=0) if out else np.zeros((0, 3),
                                                                 np.int32)

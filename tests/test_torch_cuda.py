@@ -10,7 +10,10 @@ The DSJ kernels' outputs are integers and must be bit-exact (valid lanes
 only for ``expand``).  The flash_attention kernels are held to their plain
 version within 1e-4 (float32: summation order) and 2e-2 (bfloat16 output
 rounding), atol = rtol; the bf16 tensor-core cases also within 1e-2 of each
-output row's largest magnitude (one bf16 ulp is at most 2^-7 of it).
+output row's largest magnitude (one bf16 ulp is at most 2^-7 of it).  The
+mesh substrate runs over a world-size-1 NCCL group here (one rank: NCCL
+takes one rank a card), held to the single substrate and, collective by
+collective, to a gloo mesh on the CPU.
 """
 from __future__ import annotations
 
@@ -927,3 +930,88 @@ def test_cuda_measured_charges_cover_device_time(cuda_device):
         # (overlapped with IRD); those charged themselves, just before it
         covered = charges[i] + sum(charges[i - nested:i])
         assert covered >= device_s, (i, kind, covered, device_s)
+
+
+# ------------------------------------------------ the mesh substrate on NCCL
+@pytest.fixture
+def nccl_world(cuda_device):
+    """A world-size-1 NCCL group (the card holds one rank), then none."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+
+    assert not dist.is_initialized()
+    multihost.ensure_initialized(device="cuda")
+    yield dist
+    multihost.shutdown()
+
+
+def _mesh_run(eng, queries):
+    from repro_torch.core.substrate import trace_collectives
+
+    out, counts = [], []
+    for q in queries:
+        with trace_collectives() as tc:
+            rel, st = eng.query(q)
+        out.append((rel.to_set(), st.comm_cells, st.mode,
+                    st.route.split("-", 1)[-1], st.n_retries))
+        counts.append(dict(tc.counts))
+    return out, counts
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_substrate_matches_single_over_nccl(nccl_world):
+    """A world-size-1 NCCL mesh on the card: answers and stats equal to the
+    single substrate's across the adaptive lifecycle, the four DSJ kernels
+    launched, and the same collectives, query by query, as a gloo mesh on
+    the CPU over the same queries."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.core.substrate import MeshSubstrate
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+    from repro_torch.kernels import reset_launches
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    qs = Workload(d, seed=7).sample(4) * 2
+    kw = dict(adaptive=True, frequency_threshold=2, capacity=256)
+    sub = MeshSubstrate(device="cuda")
+    assert sub.backend == "nccl" and sub.n_devices == 1
+    reset_launches()
+    mesh = AdHashEngine(triples, 8, substrate=sub, device="cuda", **kw)
+    got, counts = _mesh_run(mesh, qs)
+    assert all(LAUNCHES[k] > 0 for k in ("range_search", "expand",
+                                         "bucket_by_dest", "unique_compact"))
+    single = AdHashEngine(triples, 8, device="cuda", **kw)
+    assert got == [(rel.to_set(), st.comm_cells, st.mode,
+                    st.route.split("-", 1)[-1], st.n_retries)
+                   for rel, st in (single.query(q) for q in qs)]
+    assert mesh.pattern_index.fingerprint() == \
+        single.pattern_index.fingerprint()
+    assert any(c.get(("all_to_all", "stage"), 0) for c in counts)
+    gloo = nccl_world.new_group(ranks=[0], backend="gloo")
+    cpu_mesh = AdHashEngine(triples, 8, device="cpu", **kw,
+                            substrate=MeshSubstrate(gloo, device="cpu"))
+    cpu_got, cpu_counts = _mesh_run(cpu_mesh, qs)
+    assert cpu_got == got and cpu_counts == counts
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_query_batch_over_nccl(nccl_world):
+    """``query_batch`` on the NCCL mesh equals the single substrate's
+    sequential answers, stats and fingerprint."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.core.substrate import MeshSubstrate
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(2, 2, 2, 2)
+    qs = Workload(d, seed=13).sample(5) * 2
+    kw = dict(adaptive=True, frequency_threshold=2, capacity=256,
+              device="cuda")
+    mesh = AdHashEngine(triples, 8, substrate=MeshSubstrate(device="cuda"),
+                        **kw)
+    single = AdHashEngine(triples, 8, **kw)
+    got = [(rel.to_set(), st.comm_cells, st.mode)
+           for rel, st in mesh.query_batch(qs)]
+    assert got == [(rel.to_set(), st.comm_cells, st.mode)
+                   for rel, st in (single.query(q) for q in qs)]
+    assert mesh.pattern_index.fingerprint() == \
+        single.pattern_index.fingerprint()

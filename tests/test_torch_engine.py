@@ -160,8 +160,9 @@ def test_ingest_stream_equals_one_shot():
 
 
 def test_unported_options_raise():
-    """Only the mesh substrates are still unported; the directory placement
-    builds on the CPU, with and without adaptivity."""
+    """No engine option is unported any more: the directory placement
+    builds on the CPU, with and without adaptivity, and so does a mesh
+    substrate over a world-size-1 gloo group (the same store)."""
     _, triples = lubm_like(1, 1, 1, 1)
     for adaptive in (False, True):
         eng = AdHashEngine(triples, 2, adaptive=adaptive,
@@ -170,9 +171,24 @@ def test_unported_options_raise():
         assert not eng.placement.local_join_safe
         assert eng._split_candidates is not None
         assert int(eng.store.counts.sum()) == len(np.unique(triples, axis=0))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AdHashEngine(triples, 2, adaptive=False, substrate=object(),
-                     device="cpu")
+    import torch.distributed as dist
+
+    from repro_torch.core.substrate import MeshSubstrate
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        MeshSubstrate(device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = AdHashEngine(triples, 2, adaptive=False, device="cpu",
+                            substrate=MeshSubstrate(device="cpu"))
+        assert mesh.substrate.name == "mesh"
+        single = AdHashEngine(triples, 2, adaptive=False, device="cpu")
+        for a, b in zip(mesh.store.host_leaves(), single.store.leaves()):
+            np.testing.assert_array_equal(a, b.numpy())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
