@@ -27,6 +27,12 @@ Groups (all by default):
   lubm    LUBM-100 as phase 2 drives it (W = 8, 60 workload queries after
           a cold pass): each template's warm p50 (ms) and its device busy
           time in one profiled warm pass (s)
+  lm      llama3-8b as phase 4 drives it (bf16 weights from seed 0):
+          prefill on B=4, T=4096 under ``torch.inference_mode()``, one cold
+          call and three warm (tokens/s of the warm mean), then decode
+          (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches with
+          the adaptive controller; tokens/s by ``launch/serve.py``'s
+          formula, and each batch's seconds)
 
 The last line holds each key's times per tree.  Without a card it exits 1.
 """
@@ -48,7 +54,7 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 # (n, value range, out_cap, dtype) per worker row, W = 8
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
-GROUPS = ("dsj", "bucket", "flash", "unique", "lubm")
+GROUPS = ("dsj", "bucket", "flash", "unique", "lubm", "lm")
 
 
 def measure(root: str, groups: list[str]) -> dict:
@@ -135,6 +141,8 @@ def measure(root: str, groups: list[str]) -> dict:
             lambda: torch.unique(keyed.view(-1), sorted=True))
     if "lubm" in groups:
         out.update(measure_lubm(torch, chip_smoke))
+    if "lm" in groups:
+        out.update(measure_lm(torch, chip_smoke))
     return out
 
 
@@ -166,6 +174,36 @@ def measure_lubm(torch, chip_smoke) -> dict[str, float]:
             torch, lambda: [eng.query(q) for q in picked])
         out[f"lubm device busy s {name}"] = prof["device_busy_s"]
     return out
+
+
+def measure_lm(torch, chip_smoke) -> dict:
+    """Warm prefill and steady decode tokens/s of llama3-8b."""
+    import time
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import AdaptiveShardingController
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg, device="cuda")
+    params = model.init(0, dtype=torch.bfloat16)
+    batch = make_batch(cfg, *chip_smoke.PREFILL, 0, device="cuda")
+    prefill_s = []
+    for _ in range(4):  # one cold call, three warm
+        a = time.perf_counter()
+        with torch.inference_mode():
+            float(model.loss(params, batch))
+        prefill_s.append(time.perf_counter() - a)
+    ctrl = AdaptiveShardingController(cfg.vocab_size, budget=8192)
+    times, _ = serve_loop(model, params, batch_size=8, max_len=128,
+                          steps=16, n_batches=4, controller=ctrl)
+    return {"prefill tokens/s": batch["tokens"].numel() /
+            float(np.mean(prefill_s[1:])),
+            "decode tokens/s": 8 * 16 / float(np.mean(times[1:])),
+            "decode batch s": [float(x) for x in times]}
 
 
 def main(argv: list[str]) -> int:

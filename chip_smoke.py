@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one NVIDIA H100.  It
-builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (five
-kernels; flash_attention has a bf16 tensor-core and an f32 CUDA-core one),
+builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (six
+kernels; flash_attention's forward has a bf16 tensor-core and an f32
+CUDA-core one, its backward one CUDA-core source for both dtypes),
 holds each against its plain PyTorch version on the card, drives the port's
 main paths -- the RDF engine on a LUBM-style graph (``query`` with
 ``adaptive=False``, ``query_batch``, and the adaptive engine through both),
@@ -13,8 +14,10 @@ directory placement with hot-key rebalancing on a Zipf hub graph and on
 LUBM, the online serving front end (``repro_torch.serving``) over the
 adaptive engine, master recovery from a checkpoint, the multi-device
 substrate (W split over ``torch.distributed`` ranks: NCCL at world size 1,
-two gloo ranks on the card), a 32 M-triple Zipf stream, and the dense LM's serving path (prefill and decode of llama3-8b) -- checks the
-answers, and prints one JSON line per phase.  Any mismatch or
+two gloo ranks on the card), a 32 M-triple Zipf stream, the dense LM's
+serving path (prefill and decode of llama3-8b) and its training path
+(qwen1.5-4b train steps) -- checks the answers, and prints one JSON line
+per phase.  Any mismatch or
 exception exits non-zero; without a card it exits 1 before doing anything.
 
 Phases:
@@ -45,8 +48,22 @@ Phases:
             triple_dest into cap_peer = 2^21, built on the host before
             phase 1 from the same triples; ``skew-bucket-mix`` prints its
             mix) and the LUBM hash exchange fanned out 8 ways (k = 1,
-            n = 8 x 2^20, only replica 0 valid); kernel, plain and
-            library-call medians over CUDA events, and the roofline bound
+            n = 8 x 2^20, only replica 0 valid); the flash_attention
+            backward at the train phase's shape (B=1, T=S=4096, H=KV=20,
+            hd=128, bf16, causal) and variants (llama3-8b's GQA heads,
+            f32, T=1024 S=4096 q_offset=3072, hd=64, non-causal, odd
+            T=S=1001), each against its plain version, both fed the
+            plain forward's o and log-sum-exp, within 1e-4 (f32) / 2e-2
+            (bf16) of max(1, the gradient's largest magnitude) and 1e-4 /
+            1e-2 of each gradient row's largest (floored at 1% of max(1,
+            the gradient's largest)); the forward kernel's o within the
+            same limits of the plain forward's and its log-sum-exp within
+            1e-5 + 1e-5 of the plain one's; two launches bit-identical;
+            the kernel pipeline (forward kernel, then the backward on its
+            o and log-sum-exp) and the plain one printed against the
+            float32 gradient; SDPA's backward beside it (a boolean mask
+            for q_offset > 0); kernel, plain and library-call
+            medians over CUDA events, and the roofline bound
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run and, by
@@ -151,11 +168,28 @@ Phases:
             32 flash_attention launches per call; a 2-layer full-width
             prefill (B=1, T=520) held against the CPU port; decode
             (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches)
-            with the adaptive controller
+            with the adaptive controller; prefill runs under
+            ``torch.inference_mode()``
+  5 train   qwen1.5-4b at full width and depth (float32 parameters, bf16
+            compute, remat): ``make_train_step`` on ``make_batch(cfg, 1,
+            4096, step)``, one warm-up and three timed steps, each with
+            finite loss and grad_norm and 80 forward / 40 backward flash
+            launches; step seconds, tokens/s, peak memory, one profiled
+            step; then 2 layers at full width in float32 (B=1, T=256) on
+            the card against a CPU port, two steps, the parts of a step
+            apart: loss (1e-5 relative) and every gradient leaf (1e-4
+            relative L2) of each device at the same weights, grad_norm
+            (1e-5 relative); then ``adamw_update`` on the card and on the
+            CPU from the card's gradients, on every element: parameters
+            within 1e-5 absolute, v 1e-5 relative, m 1e-5 of sqrt(v) +
+            eps (the units of the step it drives); ``compress_tree`` of the same
+            gradients equal on both, and a checkpoint round trip bit for
+            bit
 Each path's kernels must launch on that path's run (the DSJ kernels on
 LUBM, on the directory engines and on the mesh; on a served stream probe and
 ``expand`` always, all four once a staged answer was served;
-flash_attention on the LM).  Each phase prints its wall seconds.  The line before the last holds every kernel's
+flash_attention on the LM; its backward on the train steps).  Each phase
+prints its wall seconds.  The line before the last holds every kernel's
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -836,6 +870,186 @@ def phase_flash(torch) -> dict:
         if main_row is None:
             main_row = row
         del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return main_row
+
+
+def grad_errors(got, want) -> tuple[float, float]:
+    """Over the (dq, dk, dv) triples: the largest difference over the
+    largest magnitude (at least 1) of its tensor, and the largest
+    difference within one gradient row (b, t or s, head) over that row's
+    largest magnitude, floored at 1% of the first measure's denominator: a
+    row whose exact gradient is 0 (query 0's dq when causal: one visible
+    key, so dS = P (dP - D) = 0) holds only rounding noise."""
+    worst = [0.0, 0.0]
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs().amax(-1)
+        row = w.float().abs().amax(-1)
+        top = max(1.0, float(row.max()))
+        worst[0] = max(worst[0], float(d.max()) / top)
+        worst[1] = max(worst[1], float((d / row.clamp_min(1e-2 * top)).max()))
+    return worst[0], worst[1]
+
+
+def visible_pairs(t: int, s: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs the mask lets through: sum over t of
+    min(S, q_offset + t + 1) when causal, else T * S."""
+    if not causal:
+        return t * s
+    last = np.minimum(s, q_offset + np.arange(t, dtype=np.int64) + 1)
+    return int(last.sum())
+
+
+# the forward kernels' log-sum-exp against the plain forward's: float32
+# sums of the same exponentials in another order (as in the card tests)
+LSE_TOL = 1e-5
+
+
+def phase_flash_bwd(torch) -> dict:
+    """The flash_attention backward kernel vs its plain version (float32
+    math), both fed the plain forward's o and log-sum-exp, and the forward
+    kernel's o and log-sum-exp vs the plain forward's, on the same q, k, v
+    and dO, at the train phase's shape and variants; two launches must give
+    the same bits.  The two pipelines (each forward, then its backward)
+    are printed against the float32 gradient.  Returns the
+    main row: qwen1.5-4b's attention at train_4k's length (B=1, T=S=4096,
+    H=KV=20, hd=128, bf16, causal)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # The forward's limits, on ``grad_errors``' two measures: f32 agrees to
+    # summation order; a bf16 gradient is rounded once from float32, at most
+    # 2^-8 of its own magnitude, 2^-7 of its row's largest.
+    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+    main_row = None
+    # (variant, B, T, S, H, KV, hd, dtype, causal, q_offset)
+    shapes = [
+        ("qwen1.5-4b train_4k layer B=1 T=S=4096 H=KV=20 bf16 causal", 1,
+         4096, 4096, 20, 20, 128, torch.bfloat16, True, 0),
+        ("llama3-8b GQA H=32 KV=8", 1, 4096, 4096, 32, 8, 128,
+         torch.bfloat16, True, 0),
+        ("f32", 1, 4096, 4096, 20, 20, 128, torch.float32, True, 0),
+        ("T=1024 S=4096 q_offset=3072", 1, 1024, 4096, 20, 20, 128,
+         torch.bfloat16, True, 3072),
+        ("hd=64", 1, 4096, 4096, 32, 8, 64, torch.bfloat16, True, 0),
+        ("non-causal", 1, 4096, 4096, 20, 20, 128, torch.bfloat16, False, 0),
+        ("odd T=S=1001", 1, 1001, 1001, 20, 20, 128, torch.bfloat16, True,
+         0),
+    ]
+    for variant, b, t, s, h, kv, hd, dt, causal, off in shapes:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                         dtype=torch.float32).to(dt)
+        q, k, v, do = rnd(b, t, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd), \
+            rnd(b, t, h, hd)
+        # Each kernel against its plain version on inputs the other kernel
+        # did not make: the forward kernel's o and LSE against the plain
+        # forward's, and the backward kernel against the plain backward,
+        # both fed the plain forward's o and LSE.
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                      return_lse=True)
+        o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
+                                               q_offset=off, return_lse=True)
+        lse_err = float((lse - lse_ref).abs().max())
+        lse_ok = bool(((lse - lse_ref).abs() <=
+                       LSE_TOL + LSE_TOL * lse_ref.abs()).all())
+        o_err = grad_errors([o], [o_ref])
+        kern = lambda: flash_attention_bwd_cuda(
+            q, k, v, o_ref, do, lse_ref, causal=causal, q_offset=off)
+        plain = lambda: flash_attention_bwd_plain(
+            q, k, v, o_ref, do, lse_ref, causal=causal, q_offset=off)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, c) for a, c in zip(got, again))
+        want = plain()
+        err, rel = grad_errors(got, want)
+        del got, again
+        # The train path's pipeline (forward kernel, then the backward
+        # kernel on its o and LSE) and the plain one, each against the
+        # float32 gradient of the same inputs (o not rounded): printed.
+        # Both round o to the input dtype before D = rowsum(dO * O), so
+        # the two pipelines differ by that rounding, not by a kernel.
+        chain = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                         q_offset=off)
+        f32 = [x.float() for x in (q, k, v)]
+        o32, lse32 = flash_attention_plain(*f32, causal=causal, q_offset=off,
+                                           return_lse=True)
+        exact = flash_attention_bwd_plain(*f32, o32, do.float(), lse32,
+                                          causal=causal, q_offset=off)
+        pipeline = {"kernels_vs_plain": grad_errors(chain, want),
+                    "kernels_vs_f32": grad_errors(chain, exact),
+                    "plain_vs_f32": grad_errors(want, exact)}
+        del chain, f32, o32, lse32, exact, want
+        if not lse_ok:
+            raise AssertionError(
+                f"flash_attention {variant}: the forward's log-sum-exp is "
+                f"{lse_err} from the plain forward's (limit {LSE_TOL} + "
+                f"{LSE_TOL} of its magnitude)")
+        if not (o_err[0] <= tols[dt][0] and o_err[1] <= tols[dt][1]):
+            raise AssertionError(
+                f"flash_attention {variant}: the forward's o is {o_err} from "
+                f"the plain forward's (limits {tols[dt]})")
+        if not identical:
+            raise AssertionError(f"flash_attention_bwd {variant}: two "
+                                 "launches on the same inputs differ")
+        if not (err <= tols[dt][0] and rel <= tols[dt][1]):
+            raise AssertionError(
+                f"flash_attention_bwd {variant}: max err over max(1, max "
+                f"|grad|) {err} (limit {tols[dt][0]}), max err within a row "
+                f"over its max {rel} (limit {tols[dt][1]})")
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain)
+        # SDPA's is_causal aligns top-left at q_offset 0; with an offset the
+        # same mask goes in as a (T, S) boolean attn_mask
+        mask = None
+        if causal and off:
+            mask = torch.arange(s, device=dev)[None, :] <= \
+                off + torch.arange(t, device=dev)[:, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        library_ms = time_ms(
+            torch, lambda: out.backward(dot, retain_graph=True))
+        del qt, kt, vt, out, dot, mask
+        isz = q.element_size()
+        # inputs q, o, dO (B, T, H, hd), k, v (B, S, KV, hd) and the
+        # log-sum-exp; outputs dq (B, T, H, hd), dk, dv (B, S, KV, hd)
+        bytes_moved = (4 * b * t * h * hd + 4 * b * s * kv * hd) * isz + \
+            4 * b * h * t
+        flops = 10 * b * h * hd * visible_pairs(t, s, causal, off)
+        b_ms, b_by = bound(bytes_moved, flops,
+                           FLOPS_PER_S[str(dt).split(".")[1]])
+        row = {"phase": "kernels", "kernel": "flash_attention_bwd",
+               "variant": variant, "shape": {"B": b, "T": t, "S": s, "H": h,
+                                             "KV": kv, "hd": hd},
+               "dtype": str(dt).split(".")[1], "causal": causal,
+               "q_offset": off, "engine": "cuda-core",
+               "max_abs_err": err, "max_row_rel_err": rel,
+               "errors": "max |err| / max(1, max |grad|); max |err| in a row"
+               " / max(row max, 1% of max(1, max |grad|)); both backwards "
+               "fed the plain forward's o and LSE",
+               "tolerance": {"abs": tols[dt][0], "row_rel": tols[dt][1]},
+               "fwd_o_errors": o_err, "lse_max_abs_err": lse_err,
+               "lse_tolerance": f"{LSE_TOL} + {LSE_TOL} x |plain LSE|",
+               "pipeline_errors": pipeline,
+               "bit_identical_relaunch": identical,
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "F.scaled_dot_product_attention(enable_gqa=True)"
+               " backward alone (out.backward(dO, retain_graph=True))",
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
+               "ops": flops, "tflops": flops / ms / 1e9}
+        emit(row)
+        if main_row is None:
+            main_row = row
+        del q, k, v, do, o, lse, o_ref, lse_ref
         torch.cuda.empty_cache()
     return main_row
 
@@ -2428,7 +2642,8 @@ def phase_lm(torch) -> dict[str, int]:
     for i in range(4):  # one cold call, three warm
         before = LAUNCHES["flash_attention"]
         a = time.perf_counter()
-        loss = float(model.loss(params, batch))
+        with torch.inference_mode():  # prefill: no autograd, no remat
+            loss = float(model.loss(params, batch))
         prefill_s.append(time.perf_counter() - a)
         losses.append(loss)
         if LAUNCHES["flash_attention"] - before != cfg.n_layers:
@@ -2446,7 +2661,8 @@ def phase_lm(torch) -> dict[str, int]:
     # includes the profiler's overhead; the warm times above are without)
     before = LAUNCHES["flash_attention"]
     emit({"phase": "lm-profile", "what": "prefill B=%d T=%d" % PREFILL,
-          **profile_run(torch, lambda: model.loss(params, batch))})
+          **profile_run(torch, torch.inference_mode()(
+              lambda: model.loss(params, batch)))})
     if LAUNCHES["flash_attention"] - before != cfg.n_layers:
         raise AssertionError("profiled prefill: flash_attention launches "
                              f"{LAUNCHES['flash_attention'] - before}")
@@ -2490,14 +2706,14 @@ def phase_lm(torch) -> dict[str, int]:
     b2 = make_batch(cfg2, 1, 520, 1, device="cuda")
     with torch.inference_mode():
         h_gpu = TT.lm_forward(p2, b2["tokens"], cfg2).float().cpu()
-    loss_gpu = float(m2.loss(p2, b2))
+        loss_gpu = float(m2.loss(p2, b2))
     p2 = p2.to("cpu")
     b2 = {k: v.cpu() for k, v in b2.items()}
     cpu = build_model(cfg2, device="cpu")
     a = time.perf_counter()
     with torch.inference_mode():
         h_cpu = TT.lm_forward(p2, b2["tokens"], cfg2).float()
-    loss_cpu = float(cpu.loss(p2, b2))
+        loss_cpu = float(cpu.loss(p2, b2))
     cpu_s = time.perf_counter() - a
     tol = 2e-2  # bf16 matmuls accumulate in another order on each device
     atol = tol * max(1.0, float(h_cpu.abs().max()))
@@ -2519,6 +2735,224 @@ def phase_lm(torch) -> dict[str, int]:
                              f"hidden err {err} (atol {atol}), loss "
                              f"{loss_gpu} vs {loss_cpu}")
     emit({"phase": "lm-walls", **walls})
+    return launches
+
+
+# ------------------------------------------------------------ phase 5
+TRAIN = (1, 4096)  # train_4k's length; its global batch of 256 cut to 1
+
+
+def phase_train(torch) -> dict[str, int]:
+    """qwen1.5-4b at full width and depth through ``make_train_step``:
+    float32 parameters, bf16 compute, remat on; one warm-up step and three
+    timed ones on ``make_batch(cfg, 1, 4096, step)``, then a profiled step;
+    then a 2-layer full-width model in float32 on the card against the CPU
+    port."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update, global_norm)
+    from repro_torch.optim.compression import compress_tree, ef_init
+    from torch.utils._pytree import tree_leaves
+
+    cfg = get_config("qwen1.5-4b")
+    walls: dict[str, float] = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    if allocated_before > 1 << 30:
+        raise AssertionError(f"train: {allocated_before} bytes still "
+                             "allocated on the card before the phase")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig())
+    batches = [make_batch(cfg, *TRAIN, i, device="cuda") for i in range(5)]
+    torch.cuda.synchronize()
+    walls["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = []
+    for i in range(4):  # one warm-up step, three timed
+        fwd, bwd = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+        a = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batches[i])
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        steps.append({"step": i, "s": time.perf_counter() - a, "loss": loss,
+                      "grad_norm": gnorm,
+                      "flash_fwd": LAUNCHES["flash_attention"] - fwd,
+                      "flash_bwd": LAUNCHES["flash_attention_bwd"] - bwd})
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train step {i}: loss {loss}, grad_norm "
+                                 f"{gnorm}")
+        # remat runs each block's forward twice (forward, recompute)
+        if steps[-1]["flash_fwd"] != 2 * cfg.n_layers or \
+                steps[-1]["flash_bwd"] != cfg.n_layers:
+            raise AssertionError(f"train step {i}: flash launches {steps[-1]}"
+                                 f", expected {2 * cfg.n_layers} forward and "
+                                 f"{cfg.n_layers} backward")
+    walls["steps_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean([r["s"] for r in steps[1:]]))
+    tokens = TRAIN[0] * TRAIN[1]
+    prof = profile_run(torch, lambda: step_fn(params, opt, batches[4]))
+    emit({"phase": "train-profile", "what": "one train step B=%d T=%d" %
+          TRAIN, **{k: v for k, v in prof.items() if k != "port_kernels_ms"},
+          "busy_share": 1 - prof["idle_share"]})
+    emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "remat": cfg.remat, "params": n_params,
+          "param_count_cfg": cfg.param_count(),
+          "batch": TRAIN[0], "seq": TRAIN[1],
+          "reduced": "train_4k global batch 256 -> 1 (one card)",
+          "allocated_before_bytes": allocated_before, "steps": steps,
+          "step_s": step_s, "tokens_per_s": tokens / step_s,
+          "flash_launches_per_step": {"forward": 2 * cfg.n_layers,
+                                      "backward": cfg.n_layers},
+          "max_memory_allocated": peak, "launches": launches})
+    del params, opt, model, batches, step_fn, met
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two layers at full width in float32, B=1, T=256: card vs CPU port,
+    # the parts of a step apart.  Each step: the loss and gradients of each
+    # device at its own weights; then ``adamw_update`` on the card from its
+    # gradients and on the CPU from the same gradients copied to the host,
+    # so the optimizers' results are held element by element on equal
+    # inputs (the CPU port's weights stay the CPU optimizer's).
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    gpu, cpu = build_model(cfg2, device="cuda"), build_model(cfg2,
+                                                             device="cpu")
+    pg = gpu.init(0)
+    pc = copy.deepcopy(pg).to("cpu")
+    og, oc = adamw_init(pg), adamw_init(pc)
+    opt_cfg = AdamWConfig()
+
+    def loss_and_grads(model, p, batch) -> tuple[float, dict]:
+        for x in p.parameters():
+            x.grad = None
+        loss = model.loss(p, batch)
+        loss.backward()
+        grads = {n: x.grad for n, x in p.named_parameters()}
+        for x in p.parameters():
+            x.grad = None
+        return float(loss.detach()), grads
+
+    grad_rel: dict[str, float] = {}
+    compress_equal = False
+    train_rows = []
+    for i in range(2):
+        bg = make_batch(cfg2, 1, 256, i, device="cuda")
+        bc = {k: v.cpu() for k, v in bg.items()}
+        (lg, gg), (lc, gc_) = loss_and_grads(gpu, pg, bg), \
+            loss_and_grads(cpu, pc, bc)
+        host = {n: g.cpu() for n, g in gg.items()}
+        for n, g in gc_.items():
+            grad_rel[n] = max(grad_rel.get(n, 0.0), float(
+                (host[n] - g).norm() / g.norm().clamp_min(1e-30)))
+        cpu_norm = float(global_norm(gc_.values()))
+        del gc_
+        if i == 0:  # the same gradients compressed on each device
+            qg, sg, _ = compress_tree(gg, ef_init(gg))
+            qc, sc, _ = compress_tree(host, ef_init(host))
+            compress_equal = all(torch.equal(qg[n].cpu(), qc[n]) and
+                                 torch.equal(sg[n].cpu(), sc[n])
+                                 for n in qc)
+            del qg, sg, qc, sc
+        pg, og, mg = adamw_update(opt_cfg, pg, gg, og)
+        pc, oc, mc = adamw_update(opt_cfg, pc, host, oc)
+        del gg, host
+        train_rows.append({"loss": [lg, lc],
+                           "grad_norm": [float(mg["grad_norm"]), cpu_norm],
+                           "grad_norm_same_grads": [float(mg["grad_norm"]),
+                                                    float(mc["grad_norm"])]})
+    walls["parity_s"] = time.perf_counter() - t0
+    param_err = 0.0
+    for a, b in zip(pg.parameters(), pc.parameters()):
+        param_err = max(param_err,
+                        float((a.detach().cpu() - b.detach()).abs().max()))
+    # v (a sum of squares) relative to each element, floored at 1e-30; m
+    # in units of the step it drives, |dm| / (sqrt(v) + eps): an element
+    # of m that cancels to near 0 has no relative precision to hold
+    moment_err = {"m": 0.0, "v": 0.0}
+    for mg_, mc_, vg_, vc_ in zip(tree_leaves(og.m), tree_leaves(oc.m),
+                                  tree_leaves(og.v), tree_leaves(oc.v)):
+        moment_err["m"] = max(moment_err["m"], float(
+            ((mg_.cpu() - mc_).abs() / (vc_.sqrt() + opt_cfg.eps)).max()))
+        moment_err["v"] = max(moment_err["v"], float(
+            ((vg_.cpu() - vc_).abs() / vc_.abs().clamp_min(1e-30)).max()))
+    steps_equal = int(og.step) == int(oc.step) == 2
+    n_elems = sum(x.numel() for x in pc.parameters())
+    del pc, oc, cpu
+    rel = lambda pair: abs(pair[0] - pair[1]) / abs(pair[1])
+    # limits: float32 products summed in another order on each device
+    tol = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "grad_norm_rel": 1e-5,
+           "param_abs": 1e-5, "m_over_sqrt_v_eps": 1e-5, "v_rel": 1e-5}
+    ok = (all(rel(r["loss"]) <= tol["loss_rel"] and
+              rel(r["grad_norm"]) <= tol["grad_norm_rel"] and
+              rel(r["grad_norm_same_grads"]) <= tol["grad_norm_rel"]
+              for r in train_rows) and
+          max(grad_rel.values()) <= tol["grad_rel_l2"] and
+          param_err <= tol["param_abs"] and
+          moment_err["m"] <= tol["m_over_sqrt_v_eps"] and
+          moment_err["v"] <= tol["v_rel"] and steps_equal and
+          compress_equal)
+
+    # the checkpoint round trip, bit for bit, into fresh state
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(pg, og, 2)
+        fresh = gpu.init(5)
+        fresh_opt = adamw_init(fresh)
+        fresh, fresh_opt, step = mgr.restore_latest(fresh, fresh_opt)
+        ckpt_bytes = dir_bytes(Path(tmp))
+    ckpt_equal = step == 2 and int(fresh_opt.step) == int(og.step) and all(
+        np.array_equal(a, b) for a, b in zip(
+            tree_leaves(params_to_numpy(pg)),
+            tree_leaves(params_to_numpy(fresh))))
+    for name in ("m", "v"):
+        ckpt_equal = ckpt_equal and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(getattr(og, name)),
+                tree_leaves(getattr(fresh_opt, name))))
+    walls["checkpoint_s"] = time.perf_counter() - t0
+    emit({"phase": "train-parity", "arch": cfg.name, "n_layers": 2,
+          "compute_dtype": "float32", "batch": 1, "seq": 256,
+          "steps": train_rows, "grad_rel_l2_max": max(grad_rel.values()),
+          "grad_rel_l2_worst_leaf": max(grad_rel, key=grad_rel.get),
+          "param_max_abs_err": param_err, "elements": n_elems,
+          "m_max_err_over_sqrt_v_eps": moment_err["m"],
+          "v_max_rel_err": moment_err["v"],
+          "optimizer_steps_equal": steps_equal, "tolerance": tol,
+          "compress_q_and_scales_equal": compress_equal,
+          "checkpoint_round_trip_bit_exact": ckpt_equal,
+          "checkpoint_bytes": ckpt_bytes, "ok": ok})
+    if not ok:
+        raise AssertionError("train-parity: the card's train steps disagree "
+                             "with the CPU port's (see the line above)")
+    if not ckpt_equal:
+        raise AssertionError("train-parity: the checkpoint round trip is "
+                             "not bit-exact")
+    emit({"phase": "train-walls", **walls})
     return launches
 
 
@@ -2560,6 +2994,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = phase_kernels(torch, skew_in)
     rows["flash_attention"] = phase_flash(torch)
+    rows["flash_attention_bwd"] = phase_flash_bwd(torch)
     walls["kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     lubm = phase_lubm(torch)
@@ -2633,6 +3068,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["flash_attention"] = phase_lm(torch)["flash_attention"]
     walls["lm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the backward's launches are the train path's (the forward's stay
+    # prefill's: the LM serving path)
+    train_launches = phase_train(torch)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    walls["train_s"] = time.perf_counter() - t0
     emit({"phase": "walls", **walls})
 
     sources = {"range_search": ("probe.cu",
@@ -2646,7 +3087,10 @@ def main() -> int:
                # the main path runs the bf16 kernel; f32 runs flash_attn.cu
                "flash_attention": (
                    "flash_attn_sm90.cu",
-                   "src/repro/kernels/flash_attention/flash_attention.py:76")}
+                   "src/repro/kernels/flash_attention/flash_attention.py:76"),
+               # no TPU kernel: the reference differentiates _blocked_attn
+               "flash_attention_bwd": (
+                   "flash_attn_bwd.cu", "src/repro/models/attention.py:62")}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{src}", "replaces": tpu,

@@ -7,13 +7,22 @@ format, so a snapshot written by either package restores in the other:
   * ``save`` / ``restore_latest`` write one flat ``.npz`` per array tree
     (dicts, lists or tuples of tensors or numpy arrays; leaf names are the
     tree path joined by ``/``, as the reference names them) plus a JSON
-    manifest (``format: 1``).  Writes go to a temp directory, fsynced, then
-    ``os.replace``-d into place (atomic on POSIX), so a crash mid-save
-    never corrupts the latest step.  An optional background thread writes
-    while the caller continues.  Restore casts each leaf to the dtype of
-    the tree it is restored into and puts tensors on a given device; there
-    is no mesh to re-place onto.  bfloat16 leaves are stored as float32
-    (exact) since numpy has no bfloat16.
+    manifest (``format: 1``).  The LM-training pair is the port's ``LM``
+    and ``OptState``: the ``LM`` is written as the reference's parameter
+    tree (``models.convert.params_to_numpy``: ``embed/table``,
+    ``blocks/attn/wq`` stacked over the layers, ...) and a NamedTuple's
+    fields as JAX names them (``.step``, ``.m/blocks/attn/wq``), so a
+    checkpoint written by either package's train CLI restores in the
+    other.  An ``LM`` and an ``OptState`` restore in place (their tensors
+    are overwritten, so a full-size restore needs no second copy on the
+    card); other trees restore into new arrays.  Writes go to a temp
+    directory, fsynced, then ``os.replace``-d into place (atomic on
+    POSIX), so a crash mid-save never corrupts the latest step.  An
+    optional background thread writes while the caller continues.
+    Restore casts each leaf to the dtype of the tree it is restored into
+    and puts tensors on a given device; there is no mesh to re-place
+    onto.  bfloat16 leaves are stored as float32 (exact) since numpy has
+    no bfloat16.
   * ``save_engine_state``: dictionary + statistics (read-only, saved
     once), the placement table, and the **append-only** query log the PI
     replay needs (offset-tracked — a mid-workload save appends only the new
@@ -50,6 +59,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.convert import params_to_numpy, ref_path
+
 __all__ = ["CheckpointManager"]
 
 _STORE_LEAVES = ("spo_ps", "keys_ps", "spo_po", "keys_po", "counts")
@@ -72,47 +83,90 @@ def _to_host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _items(tree: Any):
     """(name, child) pairs in the reference's flattening order: dict keys
-    sorted, sequences by index."""
+    sorted, a NamedTuple's fields as ``.field`` (JAX's ``GetAttrKey``),
+    sequences by index."""
     if isinstance(tree, dict):
         return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
     if isinstance(tree, (list, tuple)):
         return [(str(i), v) for i, v in enumerate(tree)]
     return None
 
 
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}/{name}" if prefix else name
+
+
 def _flatten_with_names(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    if isinstance(tree, torch.nn.Module):
+        tree = params_to_numpy(tree)
     items = _items(tree)
     if items is None:
         return {prefix: _to_host(tree)}
     flat: dict[str, np.ndarray] = {}
     for name, child in items:
-        flat.update(_flatten_with_names(
-            child, f"{prefix}/{name}" if prefix else name))
+        flat.update(_flatten_with_names(child, _join(prefix, name)))
     return flat
 
 
-def _unflatten_like(tree: Any, flat: dict[str, np.ndarray], device,
-                    prefix: str = "") -> Any:
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    # ascontiguousarray makes a 0-d array 1-d: keep the leaf's shape
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+
+
+def _check_shape(name: str, arr: np.ndarray, like) -> None:
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {name}: shape {arr.shape} != "
+                         f"{tuple(like.shape)}")
+
+
+@torch.no_grad()
+def _restore_module(module: torch.nn.Module, flat, prefix: str
+                    ) -> torch.nn.Module:
+    """Copy the reference-named leaves into the module's parameters."""
+    stacked: dict[str, np.ndarray] = {}
+    for pname, p in module.named_parameters():
+        path, layer = ref_path(pname)
+        name = _join(prefix, "/".join(path))
+        if name not in stacked:
+            stacked[name] = flat[name]
+        arr = stacked[name] if layer is None else stacked[name][layer]
+        _check_shape(pname, arr, p)
+        p.copy_(_tensor(arr))
+    return module
+
+
+def _unflatten_like(tree: Any, flat, device, prefix: str = "",
+                    in_place: bool = False) -> Any:
+    if isinstance(tree, torch.nn.Module):
+        return _restore_module(tree, flat, prefix)
     items = _items(tree)
     if items is None:
         arr = flat[prefix]
-        if tuple(arr.shape) != tuple(tree.shape):
-            raise ValueError(
-                f"checkpoint leaf {prefix}: shape {arr.shape} != "
-                f"{tuple(tree.shape)}"
-            )
+        _check_shape(prefix, arr, tree)
         if isinstance(tree, torch.Tensor):
+            src = _tensor(arr)
+            if in_place:
+                with torch.no_grad():
+                    return tree.copy_(src)
             dev = tree.device if device is None else torch.device(device)
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                device=dev, dtype=tree.dtype)
+            return src.to(device=dev, dtype=tree.dtype)
         return arr.astype(np.asarray(tree).dtype)
-    out = {name: _unflatten_like(child, flat, device,
-                                 f"{prefix}/{name}" if prefix else name)
+    in_place = in_place or _is_namedtuple(tree)
+    out = {name: _unflatten_like(child, flat, device, _join(prefix, name),
+                                 in_place)
            for name, child in items}
     if isinstance(tree, dict):
         return {k: out[str(k)] for k in tree}
+    if _is_namedtuple(tree):
+        return type(tree)(*(out[f".{f}"] for f in tree._fields))
     return type(tree)(out[str(i)] for i in range(len(tree)))
 
 
@@ -189,16 +243,18 @@ class CheckpointManager:
     def restore_latest(self, params_like: Any, opt_like: Any,
                        device: str | torch.device | None = None):
         """Restore into the structure of (params_like, opt_like): each leaf
-        takes its like-leaf's dtype; tensor leaves go to ``device`` (default:
-        the like-leaf's device), numpy leaves stay numpy."""
+        takes its like-leaf's dtype.  An ``LM`` and a NamedTuple state
+        (``OptState``) are overwritten in place on their own device; other
+        tensor leaves go to ``device`` (default: the like-leaf's device),
+        numpy leaves stay numpy."""
         step = self.latest_step()
         if step is None:
             return None
         d = self.dir / f"step{step:010d}"
         with np.load(d / "params.npz") as z:
-            params = _unflatten_like(params_like, dict(z), device)
+            params = _unflatten_like(params_like, z, device)
         with np.load(d / "opt.npz") as z:
-            opt = _unflatten_like(opt_like, dict(z), device)
+            opt = _unflatten_like(opt_like, z, device)
         return params, opt, step
 
     # --------------------------------------- AdHash master state (paper §3.1)

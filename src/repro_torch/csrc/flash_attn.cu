@@ -31,6 +31,10 @@
 // the K buffer and accumulates P.V into its 4 rows' slice of the output.
 // Causal CTAs run longest-first (the last query tile is blockIdx.x = 0).
 // Shared memory: 97 KB at hd = 128, two CTAs per SM.
+//
+// When ``lse`` is not null the kernel also stores each row's log-sum-exp of
+// the scaled logits, (B, H, T) float32, which the backward
+// (flash_attn_bwd.cu) takes to recompute the softmax.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -86,7 +90,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  int64_t t_len,
+                  float* __restrict__ lse, int64_t t_len,
                   int64_t s_len, int n_heads, int n_kv, int causal,
                   int64_t q_offset, float qscale) {
   // output columns per thread: NCH chunks of VEC at chunk*8*VEC + tx*VEC
@@ -252,6 +256,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l += __shfl_xor_sync(ADHASH_FULL_MASK, l, 4);
     const int64_t r = m0 + ty * kRows + i;
     if (r >= t_len) continue;
+    if (lse != nullptr && tx == 0)  // m and l are in log2 units
+      lse[((int64_t)b * n_heads + h) * t_len + r] =
+          (m_run[i] + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
     float* orow = o + (((int64_t)b * t_len + r) * n_heads + h) * HD;
 #pragma unroll
@@ -266,9 +273,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int64_t t, int64_t s, int h, int kv, int causal, int64_t q_offset,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int b, int64_t t, int64_t s, int h, int kv, int causal,
+           int64_t q_offset, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -277,17 +284,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((unsigned)((t + kBM - 1) / kBM), (unsigned)(b * h));
   const float qscale = kLog2e / sqrtf((float)HD);
   flash_attn_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, t, s, h,
-      kv, causal, q_offset, qscale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, t, s, h, kv, causal, q_offset, qscale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (b, t, h, hd) float32; k, v: (b, s, kv, hd) float32; all contiguous
-// and 16-byte aligned, h a multiple of kv, hd in {16, 32, 64, 128}.
+// and 16-byte aligned, h a multiple of kv, hd in {16, 32, 64, 128}; lse
+// (b, h, t) float32 or null.
 extern "C" int adhash_flash_attn_f32(const void* q, const void* k,
-                                     const void* v, void* o, int b, int64_t t,
+                                     const void* v, void* o, void* lse,
+                                     int b, int64_t t,
                                      int64_t s, int h, int kv, int hd,
                                      int causal, int64_t q_offset,
                                      void* stream) {
@@ -295,13 +304,17 @@ extern "C" int adhash_flash_attn_f32(const void* q, const void* k,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<16>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     case 32:
-      return launch<32>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<32>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     case 64:
-      return launch<64>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<64>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     case 128:
-      return launch<128>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<128>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -52,6 +52,9 @@
 // Registers: 168 a thread at launch (384 x 168 = 64,512 of the SM's 65,536),
 // redistributed to 24 (producer) and 240 (consumers) by setmaxnreg; the
 // build log (`-Xptxas -v`) prints the figure and any spill.
+// When ``lse`` is not null the epilogue also stores each row's log-sum-exp
+// of the scaled logits, (B, H, T) float32, for the backward
+// (flash_attn_bwd.cu): one lane of each quad, from the m and l it holds.
 // Not in this kernel yet: ping-pong scheduling of the two consumer
 // warpgroups, overlap of the softmax with the next wgmma, persistent CTAs.
 #include <cuda.h>
@@ -322,7 +325,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int t_len, int s_len,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int t_len, int s_len,
                 int n_heads, int n_kv, int causal, int64_t q_offset,
                 float scale_log2) {
   using L = Tile<HD>;
@@ -510,6 +514,9 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
     l += __shfl_xor_sync(ADHASH_FULL_MASK, l, 2);
     const int t = row0 + r0 + 8 * r;
     if (wg_tiles == 0 || t >= t_len) continue;
+    if (lse != nullptr && (lane & 3) == 0)  // m and l are in log2 units
+      lse[((int64_t)b * n_heads + h) * t_len + t] =
+          (m_run[r] + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
     __nv_bfloat16* orow = o + (((int64_t)b * t_len + t) * n_heads + h) * HD;
 #pragma unroll
@@ -568,9 +575,9 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int bsz,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int64_t t, int64_t s, int h, int kv, int causal, int64_t q_offset,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int b, int64_t t, int64_t s, int h, int kv, int causal,
+           int64_t q_offset, cudaStream_t stream) {
   using L = Tile<HD>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -586,8 +593,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((unsigned)((t + kBM - 1) / kBM), (unsigned)(b * h));
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   flash_attn_sm90<HD><<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (int)t, (int)s, h, kv, causal, q_offset,
-      scale_log2);
+      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse, (int)t, (int)s, h, kv,
+      causal, q_offset, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -595,23 +602,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 // q, o: (b, t, h, hd) bf16; k, v: (b, s, kv, hd) bf16; all contiguous with
 // 16-byte aligned storage; h a multiple of kv; t, s < 2^31; hd in
-// {16, 32, 64, 128}.
+// {16, 32, 64, 128}; lse (b, h, t) float32 or null.
 extern "C" int adhash_flash_attn_bf16(const void* q, const void* k,
-                                      const void* v, void* o, int b,
-                                      int64_t t, int64_t s, int h, int kv,
+                                      const void* v, void* o, void* lse,
+                                      int b, int64_t t, int64_t s, int h,
+                                      int kv,
                                       int hd, int causal, int64_t q_offset,
                                       void* stream) {
   if (b == 0 || t == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<16>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     case 32:
-      return launch<32>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<32>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     case 64:
-      return launch<64>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<64>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     case 128:
-      return launch<128>(q, k, v, o, b, t, s, h, kv, causal, q_offset, st);
+      return launch<128>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                          st);
     default:
       return (int)cudaErrorInvalidValue;
   }

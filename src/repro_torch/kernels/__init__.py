@@ -13,6 +13,10 @@ else, so a run can show that the main path went through the kernels.
   bucket_by_dest  relalg_ops.bucket.bucket_by_dest_cuda     bucket_by_dest_pallas
   unique_compact  relalg_ops.compact.unique_compact_cuda    unique_compact_pallas
   flash_attention flash_attention.ops.flash_attention_cuda  flash_attention_fwd
+
+``flash_attention_bwd`` (``flash_attention.ops.flash_attention_bwd_cuda``)
+replaces no TPU kernel: the JAX package differentiates
+``repro.models.attention._blocked_attn`` by autodiff.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ LAUNCHES: dict[str, int] = {
     "bucket_by_dest": 0,
     "unique_compact": 0,
     "flash_attention": 0,
+    "flash_attention_bwd": 0,
 }
 
 

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu", "flash_attn.cu",
-           "flash_attn_sm90.cu")
+           "flash_attn_sm90.cu", "flash_attn_bwd.cu")
 _HEADERS = ("common.cuh",)
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -54,10 +54,14 @@ _SIGNATURES = {
                                   _L, ctypes.c_int32, _P],
     "adhash_unique_compact_i64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                   _L, ctypes.c_int64, _P],
-    "adhash_flash_attn_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _L,
-                              _P],
-    "adhash_flash_attn_bf16": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
-                               _L, _P],
+    "adhash_flash_attn_f32": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
+                              _I, _L, _P],
+    "adhash_flash_attn_bf16": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
+                               _I, _L, _P],
+    "adhash_flash_attn_bwd_f32": [_P] * 10 + [_I, _L, _L, _I, _I, _I, _I,
+                                              _L, _P],
+    "adhash_flash_attn_bwd_bf16": [_P] * 10 + [_I, _L, _L, _I, _I, _I, _I,
+                                               _L, _P],
 }
 
 

@@ -6,6 +6,16 @@ warp-specialised pipeline; ``csrc/flash_attn_sm90.cu``), float32 on the
 CUDA cores (``csrc/flash_attn.cu``), because TF32 tensor-core products
 would not hold float32's 1e-4.  Both count as ``LAUNCHES["flash_attention"]``.
 
+Under autograd (grad enabled and an operand that requires grad) the call
+goes through ``FlashAttentionFn``: its forward launches the same kernel,
+which then also writes each row's log-sum-exp, and its backward launches
+the hand-written backward (``csrc/flash_attn_bwd.cu``, both dtypes on the
+CUDA cores, counted as ``LAUNCHES["flash_attention_bwd"]``).  The JAX
+package has no backward kernel: it differentiates ``_blocked_attn`` by
+autodiff, and the backward computes what that autodiff computes.  On CPU
+tensors the same Function runs the plain forward and
+``flash_attention_bwd_plain``.
+
 Replaces ``repro.kernels.flash_attention.flash_attention.flash_attention_fwd``
 (the TPU forward kernel) in the function ``repro.models.attention.
 _blocked_attn`` computes for ``window = 0``: softmax attention with scale
@@ -27,7 +37,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, check_cuda, stream_ptr
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
-           "flash_engine", "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "flash_attention_bwd_cuda",
+           "FlashAttentionFn", "flash_engine", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 #: head dims the kernel is compiled for
@@ -35,6 +46,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: dtype -> (engine, exported symbol) of the kernel that serves it
 _ENGINES = {torch.bfloat16: ("wgmma", "adhash_flash_attn_bf16"),
             torch.float32: ("cuda-core", "adhash_flash_attn_f32")}
+#: dtype -> exported symbol of the backward kernel (CUDA cores, both dtypes)
+_BWD = {torch.bfloat16: "adhash_flash_attn_bwd_bf16",
+        torch.float32: "adhash_flash_attn_bwd_f32"}
 
 
 def flash_engine(dtype: torch.dtype) -> str:
@@ -61,22 +75,69 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: no keys (S == 0)")
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, q_offset: int = 0
-                          ) -> torch.Tensor:
-    """Masked float32 softmax attention, GQA by ``repeat_interleave``."""
-    _check_shapes(q, k, v)
+def _masked_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   q_offset: int) -> torch.Tensor:
+    """(B, H, T, S) float32 scaled logits, masked keys at NEG_INF; KV heads
+    repeated to the query heads."""
     t, h, hd = q.shape[1:]
     s, kvh = k.shape[1:3]
     kf = k.float().repeat_interleave(h // kvh, dim=2)
-    vf = v.float().repeat_interleave(h // kvh, dim=2)
     logits = torch.einsum("bthd,bshd->bhts", q.float(), kf) * (hd ** -0.5)
     if causal:
         qpos = q_offset + torch.arange(t, device=q.device)
         kpos = torch.arange(s, device=q.device)
         logits = logits.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+    return logits
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_offset: int = 0,
+                          return_lse: bool = False):
+    """Masked float32 softmax attention, GQA by ``repeat_interleave``.
+    With ``return_lse`` also each row's log-sum-exp of the scaled logits,
+    (B, H, T) float32."""
+    _check_shapes(q, k, v)
+    h, kvh = q.shape[2], k.shape[2]
+    logits = _masked_logits(q, k, causal, q_offset)
+    vf = v.float().repeat_interleave(h // kvh, dim=2)
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", w, vf).to(q.dtype)
+    o = torch.einsum("bhts,bshd->bthd", w, vf).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(logits, dim=-1)
+    return o
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True, q_offset: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) of the attention output ``o`` for the output gradient
+    ``do``, in float32 math from the forward's log-sum-exp ``lse``
+    (B, H, T): P = exp(logits - lse), D = rowsum(dO * O), dS = P (dO V^T -
+    D), dQ = scale dS K, dK = scale dS^T Q, dV = P^T dO, the KV gradients
+    summed over each KV head's query heads.  Returned in the inputs'
+    dtype."""
+    _check_shapes(q, k, v)
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1:3]
+    g = h // kvh
+    scale = hd ** -0.5
+    p = torch.exp(_masked_logits(q, k, causal, q_offset) -
+                  lse.float()[..., None])
+    dof = do.float()
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    dsum = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, H, T)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - dsum[..., None])
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q.float()) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    dk = dk.reshape(b, s, kvh, g, hd).sum(3)
+    dv = dv.reshape(b, s, kvh, g, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -86,53 +147,129 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, q_offset: int = 0
-                         ) -> torch.Tensor:
-    """Launch the hand-written kernel that ``q``'s dtype selects
-    (``flash_engine``); forward only."""
-    from repro_torch.kernels.build import check, library
-
-    check_cuda("flash_attention", q, k, v)
+def _check_launch(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, q_offset: int) -> None:
+    """What both kernels' launches take: one CUDA device and dtype, a head
+    dim they are compiled for, the grid's and the index type's limits."""
+    check_cuda(name, q, k, v)
     _check_shapes(q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k and v must share one dtype; "
+        raise TypeError(f"{name}: q, k and v must share one dtype; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     flash_engine(q.dtype)
     b, t, h, hd = q.shape
-    s, kvh = k.shape[1:3]
+    s = k.shape[1]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
     if b * h > 65535:
-        raise ValueError(f"flash_attention: B*H = {b * h} exceeds the grid's "
-                         "65535")
+        raise ValueError(f"{name}: B*H = {b * h} exceeds the grid's 65535")
     if max(t, s) >= 2**31:
-        raise ValueError(f"flash_attention: T = {t} or S = {s} is not below "
-                         "2^31")
+        raise ValueError(f"{name}: T = {t} or S = {s} is not below 2^31")
     if q_offset < 0:
-        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel is forward-only; its backward "
-            "comes with the LM training slice (ROADMAP §1 item 12b). Run "
-            "under torch.inference_mode() or torch.no_grad()"
-        )
+        raise ValueError(f"{name}: q_offset {q_offset} < 0")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int = 0,
+                         return_lse: bool = False):
+    """Launch the hand-written forward kernel that ``q``'s dtype selects
+    (``flash_engine``).  With ``return_lse`` the kernel also writes each
+    row's log-sum-exp, returned as a second (B, H, T) float32 tensor."""
+    from repro_torch.kernels.build import check, library
+
+    _check_launch("flash_attention", q, k, v, q_offset)
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1:3]
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if b > 0 and t > 0:
+        fn = getattr(library(), _ENGINES[q.dtype][1])
+        check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if lse is None else lse.data_ptr(), b, t, s, h, kvh,
+                 hd, int(causal), int(q_offset), stream_ptr(q)),
+              "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, q_offset: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch the hand-written backward (``csrc/flash_attn_bwd.cu``): dq,
+    dk and dv in the inputs' dtype, from the forward's output ``o`` and
+    log-sum-exp ``lse`` (B, H, T) float32."""
+    from repro_torch.kernels.build import check, library
+
+    _check_launch("flash_attention_bwd", q, k, v, q_offset)
+    check_cuda("flash_attention_bwd", q, o, do, lse)
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1:3]
+    if o.shape != q.shape or do.shape != q.shape or \
+            o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: o and do must have q's shape "
+                         f"{tuple(q.shape)} and dtype {q.dtype}; got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: lse must be (B, H, T) = "
+                         f"{(b, h, t)} float32; got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or t == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    fn = getattr(library(), _BWD[q.dtype])
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, t, s, h, kvh, hd, int(causal),
+             int(q_offset), stream_ptr(q)),
+          "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable attention: the kernels on CUDA tensors, the plain
+    versions on CPU tensors.  Saves q, k, v, o and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        if q.is_cuda:
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          q_offset=q_offset, return_lse=True)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=q_offset,
+                                           return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
         return o
-    fn = getattr(library(), _ENGINES[q.dtype][1])
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, s,
-             h, kvh, hd, int(causal), int(q_offset), stream_ptr(q)),
-          "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if do.is_cuda else \
+            flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, do, lse, causal=ctx.causal,
+                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """(B, T, H, hd) attention output.  A CUDA tensor launches the kernel
-    (or raises); a CPU tensor runs the plain version."""
+    (or raises); a CPU tensor runs the plain version.  With grad enabled
+    and an operand that requires grad, through ``FlashAttentionFn``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal,
                                     q_offset=q_offset)

@@ -70,8 +70,8 @@ class ModelConfig:
     adaptive: AdaptiveConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    remat: bool = True  # activation checkpointing (training; unused here)
-    remat_policy: str = "full"
+    remat: bool = True  # activation checkpointing of blocks and loss chunks
+    remat_policy: str = "full"  # "full" | "dots" (keep matmul outputs)
     scan_unroll: bool = False  # JAX lowering switch; no meaning in torch
 
     @property

@@ -7,9 +7,12 @@ Each arch exposes:
   init_cache(batch, max_len)     -> decode cache (zeros)
   decode(params, cache, batch)   -> (logits, cache)   (the serve lowering)
 
-``loss`` and ``decode`` run under ``torch.inference_mode()``: this slice
-serves; training (and the attention kernel's backward) is ROADMAP §1 item
-12b.  The vlm and audio families raise (item 12c).
+``loss`` follows the caller's grad mode, as the reference's one ``loss``
+serves both prefill and training: ``launch.train`` differentiates it,
+serving callers wrap it in ``torch.inference_mode()``.  ``init_cache`` and
+``decode`` run under ``torch.inference_mode()``.  ``init`` must not: a
+parameter made there could never take a gradient.  The vlm and audio
+families raise (item 12c).
 """
 from __future__ import annotations
 
@@ -47,7 +50,6 @@ def build_model(cfg: ModelConfig,
         gen = torch.Generator(device=dev).manual_seed(seed)
         return tfm.init_lm(gen, cfg, dtype)
 
-    @torch.inference_mode()
     def loss(params, batch):
         return tfm.lm_loss(params, batch["tokens"], batch["labels"], cfg)
 

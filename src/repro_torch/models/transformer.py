@@ -10,14 +10,26 @@ PyTorch port of the dense branches of ``repro.models.transformer``:
 * decode carries one KV cache per layer, stacked as the JAX package stacks
   it, and writes it in place.
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item.
-Activation checkpointing comes with training (ROADMAP §1 item 12b), the JAX
-package's mesh and cache options (``RuntimeOptions``) with item 12d.
+* with ``cfg.remat`` and grad enabled, each block and each loss chunk runs
+  under non-reentrant activation checkpointing
+  (``torch.utils.checkpoint``), as the reference wraps them in
+  ``jax.checkpoint``: a block keeps only its input and recomputes the rest
+  in the backward.  ``remat_policy == "dots"`` keeps the matrix products'
+  outputs (``aten.mm`` / ``aten.addmm``), as
+  ``dots_with_no_batch_dims_saveable`` does.  Without grad (serving) the
+  blocks run as they are.
+
+The other families raise ``NotImplementedError`` naming their ROADMAP item,
+the JAX package's mesh and cache options (``RuntimeOptions``) item 12d.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import embedding as emb
@@ -40,6 +52,29 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a family not ported yet."""
     if cfg.family != "dense":
         raise unported(f"the {cfg.family!r} family ({cfg.name})", "12c")
+
+
+# ------------------------------------------------------- remat (checkpoint)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing when ``cfg.remat`` asks for it
+    and autograd is recording; else ``fn`` itself.  The model draws no
+    random numbers, so no RNG state is saved for the recompute."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kwargs = {}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False, **kwargs)
 
 
 # ------------------------------------------------------------------- blocks
@@ -98,8 +133,18 @@ def lm_forward(
     check_supported(cfg)
     x = emb.embed(params.embed, tokens, cfg)
     for block in params.blocks:
-        x = block(x)
+        x = _remat(block, cfg)(x)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
+
+
+def _chunk_nll(hc: torch.Tensor, lc: torch.Tensor, w_out: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked NLL, count of unmasked labels) of one chunk."""
+    logits = (hc @ w_out).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
 
 
 def lm_loss(
@@ -115,16 +160,13 @@ def lm_loss(
              else params.embed.out).to(h.dtype)
     t = h.shape[1]
     c = min(loss_chunk, t)
+    chunk = _remat(_chunk_nll, cfg)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, t, c):
-        hc, lc = h[:, s:s + c], labels[:, s:s + c].long()
-        logits = (hc @ w_out).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
-        mask = (lc >= 0).float()
-        tot = tot + ((lse - gold) * mask).sum()
-        cnt = cnt + mask.sum()
+        nll, n = chunk(h[:, s:s + c], labels[:, s:s + c].long(), w_out)
+        tot = tot + nll
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
 

@@ -32,8 +32,11 @@ story, mapped onto this framework:
                  shard-local route to the distributed route
                  (``QueryStats.route == "<substrate>-degraded"``), answers
                  bit-identical throughout.  See repro_torch.core.health.
-  LM training    not ported yet (ROADMAP.md §1 item 12b); the policy
-                 below is the step-boundary logic it will use.
+  LM training    atomic checkpoints of the LM and its optimizer state
+                 (repro_torch.checkpoint, the reference's leaf names) on
+                 one device; the multi-pod loop needs the mesh (ROADMAP.md
+                 §1 item 12d), and the policy below is the step-boundary
+                 logic it will use.
 
 Straggler mitigation (``StragglerPolicy``) lives at the step boundary:
 per-step deadlines, skip-and-log for late pods (the gradient reduction over

@@ -11,6 +11,9 @@ only for ``expand``).  The flash_attention kernels are held to their plain
 version within 1e-4 (float32: summation order) and 2e-2 (bfloat16 output
 rounding), atol = rtol; the bf16 tensor-core cases also within 1e-2 of each
 output row's largest magnitude (one bf16 ulp is at most 2^-7 of it).  The
+backward kernel is held to its plain version with the same limits per
+gradient row, and two launches must give the same bits; the smoke model's
+train steps on the card equal the CPU port's.  The
 mesh substrate runs over a world-size-1 NCCL group here (one rank: NCCL
 takes one rank a card), held to the single substrate and, collective by
 collective, to a gloo mesh on the CPU.
@@ -667,18 +670,142 @@ def test_cuda_flash_attention_offsets_and_ragged_keys(cuda_device, t, s,
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_is_forward_only(cuda_device):
+    """Without grad the kernel runs forward only: no log-sum-exp, no
+    backward launch, no graph.  With grad it goes through
+    ``FlashAttentionFn``, whose backward launches the backward kernel."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     q = torch.randn((1, 8, 2, 64), device=cuda_device, requires_grad=True)
     k = torch.randn((1, 8, 2, 64), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        flash_attention(q, k, k)
+    fwd, bwd = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
     with torch.no_grad():
-        assert flash_attention(q, k, k).shape == q.shape
+        out = flash_attention(q, k, k)
+        assert out.shape == q.shape and out.grad_fn is None
+    assert LAUNCHES["flash_attention"] == fwd + 1
+    out = flash_attention(q, k, k)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert LAUNCHES["flash_attention"] == fwd + 2
+    assert LAUNCHES["flash_attention_bwd"] == bwd + 1
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(torch.zeros((1, 4, 2, 48), device=cuda_device),
                         torch.zeros((1, 4, 2, 48), device=cuda_device),
                         torch.zeros((1, 4, 2, 48), device=cuda_device))
+
+
+# chip_smoke.py phase 1's backward variants, at widths a test can afford:
+# (B, T, S, H, KV, hd, dtype, causal, q_offset)
+BWD_CASES = [
+    (1, 1024, 1024, 20, 20, 128, torch.bfloat16, True, 0),  # qwen1.5-4b
+    (1, 1024, 1024, 32, 8, 128, torch.bfloat16, True, 0),   # llama3-8b GQA
+    (1, 1024, 1024, 20, 20, 128, torch.float32, True, 0),   # f32
+    (1, 256, 1024, 20, 20, 128, torch.bfloat16, True, 768),  # T != S
+    (1, 300, 777, 8, 2, 128, torch.float32, True, 133),     # ragged, f32
+    (1, 1024, 1024, 32, 8, 64, torch.bfloat16, True, 0),    # hd = 64
+    (2, 200, 200, 4, 2, 32, torch.float32, True, 0),        # hd = 32, B = 2
+    (1, 129, 129, 4, 4, 16, torch.bfloat16, True, 0),       # hd = 16
+    (1, 1024, 1024, 20, 20, 128, torch.bfloat16, False, 0),  # non-causal
+    (1, 1001, 1001, 20, 20, 128, torch.bfloat16, True, 0),  # odd T
+    (1, 1, 1, 2, 1, 128, torch.float32, True, 0),           # one row
+]
+
+
+def _check_grads(got, want, dtype):
+    """chip_smoke.py's limits (``grad_errors``): f32 1e-4, bf16 2e-2 of
+    max(1, the tensor's largest magnitude), and 1e-4 / 1e-2 of each
+    gradient row's largest magnitude, floored at 1% of that max(1, ...)
+    (a row whose exact gradient is 0 holds only rounding noise: with one
+    query and one key, dq and dk are 0)."""
+    lim = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        d = (g.float() - w.float()).abs().amax(-1)
+        row = w.float().abs().amax(-1)
+        top = max(1.0, float(row.max()))
+        assert float(d.max()) <= lim[0] * top, float(d.max())
+        rel = float((d / row.clamp_min(1e-2 * top)).max())
+        assert rel <= lim[1], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_backward_matches_plain(cuda_device, case):
+    """The backward kernel against ``flash_attention_bwd_plain`` (float32
+    math on the same q, k, v, o, dO and log-sum-exp); two launches give
+    the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain)
+
+    b, t, s, h, kv, hd, dtype, causal, off = case
+    g = torch.Generator().manual_seed(t * 3 + s + hd)
+    q, do = (torch.randn((b, t, h, hd), generator=g).to(dtype).to(cuda_device)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, kv, hd), generator=g).to(dtype).to(cuda_device)
+            for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                  return_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, causal=causal, q_offset=off,
+                                        return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                   q_offset=off)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                     q_offset=off)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _check_grads(got, flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                causal=causal, q_offset=off),
+                 dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """Two train steps of the float32 smoke model (remat on) on the card
+    equal the CPU port's: losses 1e-5 relative, every gradient leaf 1e-4
+    relative in L2, parameters 1e-5 absolute; 2 forward and 1 backward
+    flash launches a layer and step."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              remat=True)
+    gpu, cpu = build_model(cfg, device="cuda"), build_model(cfg, device="cpu")
+    pg = gpu.init(0)
+    pc = copy.deepcopy(pg).to("cpu")
+    bg = make_batch(cfg, 2, 200, 0, device="cuda")
+    bc = {k: v.cpu() for k, v in bg.items()}
+    gpu.loss(pg, bg).backward()
+    cpu.loss(pc, bc).backward()
+    for (n, a), b in zip(pg.named_parameters(), pc.parameters()):
+        rel = float((a.grad.cpu() - b.grad).norm() / b.grad.norm())
+        assert rel <= 1e-4, (n, rel)
+    og, oc = adamw_init(pg), adamw_init(pc)
+    sg, sc = make_train_step(gpu), make_train_step(cpu)
+    for i in range(2):
+        fwd = LAUNCHES["flash_attention"]
+        bwd = LAUNCHES["flash_attention_bwd"]
+        pg, og, mg = sg(pg, og, bg)
+        pc, oc, mc = sc(pc, oc, bc)
+        assert LAUNCHES["flash_attention"] == fwd + 2 * cfg.n_layers
+        assert LAUNCHES["flash_attention_bwd"] == bwd + cfg.n_layers
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                                   rtol=1e-5)
+    for a, b in zip(pg.parameters(), pc.parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

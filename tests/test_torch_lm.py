@@ -297,7 +297,6 @@ def test_tokens_and_configs_match_jax():
 # ------------------------------------------------ (h) unported options
 def test_unported_options_raise():
     from repro_torch.launch import serve
-    from repro_torch.launch.train import make_train_step
     from repro_torch.models import embedding as TE
 
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
@@ -328,8 +327,6 @@ def test_unported_options_raise():
                             f32_cache_math=False)
     with pytest.raises(NotImplementedError, match="item 12d"):
         TE.adaptive_embed(params.embed, None, cfg)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        make_train_step(model)
     with pytest.raises(NotImplementedError, match="item 12d"):
         serve.main(["--arch", "llama3-8b", "--smoke", "--int8-kv",
                     "--device", "cpu"])
