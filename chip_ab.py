@@ -23,6 +23,12 @@ Groups (all by default):
           (torch.profiler)
   flash   the bf16 flash_attention rows below 32k, with
           ``F.scaled_dot_product_attention`` beside them
+  flash_bwd  the bf16 rows of phase 1's attention backward
+          (``chip_smoke.FLASH_BWD_SHAPES``, the train phase's shape first):
+          ``flash_attention_bwd_cuda`` on the forward kernel's o and
+          log-sum-exp, with SDPA's backward beside it; beside each row's
+          time, one call's device time by kernel (torch.profiler: the
+          passes of the backward)
   unique  the unique_compact rows, with ``torch.unique`` beside them
   lubm    LUBM-100 as phase 2 drives it (W = 8, 60 workload queries after
           a cold pass): each template's warm p50 (ms) and its device busy
@@ -54,7 +60,7 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 # (n, value range, out_cap, dtype) per worker row, W = 8
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
-GROUPS = ("dsj", "bucket", "flash", "unique", "lubm", "lm")
+GROUPS = ("dsj", "bucket", "flash", "flash_bwd", "unique", "lubm", "lm")
 
 
 def measure(root: str, groups: list[str]) -> dict:
@@ -127,6 +133,8 @@ def measure(root: str, groups: list[str]) -> dict:
             out[f"sdpa {name}"] = time_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
+    if "flash_bwd" in groups:
+        out.update(measure_flash_bwd(torch, chip_smoke))
     rng = np.random.default_rng(0)
     for n, hi, cap, dt in UNIQUE if "unique" in groups else ():
         vals = torch.from_numpy(rng.integers(0, hi, (8, n)).astype(dt)).to(dev)
@@ -143,6 +151,49 @@ def measure(root: str, groups: list[str]) -> dict:
         out.update(measure_lubm(torch, chip_smoke))
     if "lm" in groups:
         out.update(measure_lm(torch, chip_smoke))
+    return out
+
+
+def measure_flash_bwd(torch, chip_smoke) -> dict[str, float]:
+    """Medians of the bf16 attention backward and of SDPA's backward at
+    phase 1's bf16 backward rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for name, b, t, s, h, kv, hd, dt, causal, off in \
+            chip_smoke.FLASH_BWD_SHAPES:
+        if dt != "bfloat16":
+            continue
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev
+                                         ).to(torch.bfloat16)
+        q, k, v, do = rnd(b, t, h, hd), rnd(b, s, kv, hd), \
+            rnd(b, s, kv, hd), rnd(b, t, h, hd)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                      return_lse=True)
+        fn = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                              causal=causal, q_offset=off)
+        out[f"flash_attention_bwd {name}"] = chip_smoke.time_ms(torch, fn)
+        prof = chip_smoke.profile_run(torch, fn)
+        out[f"flash_attention_bwd device ms {name}"] = {
+            t["kernel"]: t["ms"] for t in prof["top"]}
+        mask = None
+        if causal and off:
+            mask = torch.arange(s, device=dev)[None, :] <= \
+                off + torch.arange(t, device=dev)[:, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        res = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        out[f"sdpa backward {name}"] = chip_smoke.time_ms(
+            torch, lambda: res.backward(dot, retain_graph=True))
+        del q, k, v, do, o, lse, qt, kt, vt, res, dot, mask, fn
+        torch.cuda.empty_cache()
     return out
 
 

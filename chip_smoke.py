@@ -5,8 +5,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100.  It
 builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (six
-kernels; flash_attention's forward has a bf16 tensor-core and an f32
-CUDA-core one, its backward one CUDA-core source for both dtypes),
+kernels; flash_attention's forward and its backward each have a bf16
+tensor-core source and an f32 CUDA-core one),
 holds each against its plain PyTorch version on the card, drives the port's
 main paths -- the RDF engine on a LUBM-style graph (``query`` with
 ``adaptive=False``, ``query_batch``, and the adaptive engine through both),
@@ -61,9 +61,12 @@ Phases:
             1e-5 + 1e-5 of the plain one's; two launches bit-identical;
             the kernel pipeline (forward kernel, then the backward on its
             o and log-sum-exp) and the plain one printed against the
-            float32 gradient; SDPA's backward beside it (a boolean mask
-            for q_offset > 0); kernel, plain and library-call
-            medians over CUDA events, and the roofline bound
+            float32 gradient, and SDPA's backward against it too
+            (``sdpa_vs_f32``: the yardstick of a bf16 kernel's error,
+            printed, not gated); SDPA's backward timed beside the kernel
+            (a boolean mask for q_offset > 0); kernel, plain and
+            library-call medians over CUDA events, the roofline bound, and
+            for bf16 the share of the tensor-core peak (``tc_share``)
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run and, by
@@ -865,13 +868,24 @@ def phase_flash(torch) -> dict:
                "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)",
                "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
-               "ops": flops, "tflops": flops / ms / 1e9}
+               "ops": flops, "tflops": flops / ms / 1e9,
+               "tc_share": tc_share(dt, flops, ms)}
         emit(row)
         if main_row is None:
             main_row = row
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return main_row
+
+
+def tc_share(dt, flops: int, ms: float) -> float | None:
+    """A bf16 row's achieved rate over the tensor cores' dense peak (989
+    TFLOP/s); None for float32, which runs on the CUDA cores."""
+    import torch
+
+    if dt != torch.bfloat16:
+        return None
+    return flops / (ms * 1e-3) / BF16_FLOPS_PER_S
 
 
 def grad_errors(got, want) -> tuple[float, float]:
@@ -903,6 +917,21 @@ def visible_pairs(t: int, s: int, causal: bool, q_offset: int) -> int:
 # the forward kernels' log-sum-exp against the plain forward's: float32
 # sums of the same exponentials in another order (as in the card tests)
 LSE_TOL = 1e-5
+# phase 1's backward rows, the train phase's shape first (``chip_ab.py
+# flash_bwd`` times the bf16 ones): (variant, B, T, S, H, KV, hd, dtype,
+# causal, q_offset)
+FLASH_BWD_SHAPES = [
+    ("qwen1.5-4b train_4k layer B=1 T=S=4096 H=KV=20 bf16 causal", 1, 4096,
+     4096, 20, 20, 128, "bfloat16", True, 0),
+    ("llama3-8b GQA H=32 KV=8", 1, 4096, 4096, 32, 8, 128, "bfloat16", True,
+     0),
+    ("f32", 1, 4096, 4096, 20, 20, 128, "float32", True, 0),
+    ("T=1024 S=4096 q_offset=3072", 1, 1024, 4096, 20, 20, 128, "bfloat16",
+     True, 3072),
+    ("hd=64", 1, 4096, 4096, 32, 8, 64, "bfloat16", True, 0),
+    ("non-causal", 1, 4096, 4096, 20, 20, 128, "bfloat16", False, 0),
+    ("odd T=S=1001", 1, 1001, 1001, 20, 20, 128, "bfloat16", True, 0),
+]
 
 
 def phase_flash_bwd(torch) -> dict:
@@ -918,7 +947,7 @@ def phase_flash_bwd(torch) -> dict:
 
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
-        flash_attention_cuda, flash_attention_plain)
+        flash_attention_cuda, flash_attention_plain, flash_engine)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -927,21 +956,8 @@ def phase_flash_bwd(torch) -> dict:
     # 2^-8 of its own magnitude, 2^-7 of its row's largest.
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
     main_row = None
-    # (variant, B, T, S, H, KV, hd, dtype, causal, q_offset)
-    shapes = [
-        ("qwen1.5-4b train_4k layer B=1 T=S=4096 H=KV=20 bf16 causal", 1,
-         4096, 4096, 20, 20, 128, torch.bfloat16, True, 0),
-        ("llama3-8b GQA H=32 KV=8", 1, 4096, 4096, 32, 8, 128,
-         torch.bfloat16, True, 0),
-        ("f32", 1, 4096, 4096, 20, 20, 128, torch.float32, True, 0),
-        ("T=1024 S=4096 q_offset=3072", 1, 1024, 4096, 20, 20, 128,
-         torch.bfloat16, True, 3072),
-        ("hd=64", 1, 4096, 4096, 32, 8, 64, torch.bfloat16, True, 0),
-        ("non-causal", 1, 4096, 4096, 20, 20, 128, torch.bfloat16, False, 0),
-        ("odd T=S=1001", 1, 1001, 1001, 20, 20, 128, torch.bfloat16, True,
-         0),
-    ]
-    for variant, b, t, s, h, kv, hd, dt, causal, off in shapes:
+    for variant, b, t, s, h, kv, hd, dt, causal, off in FLASH_BWD_SHAPES:
+        dt = getattr(torch, dt)
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                          dtype=torch.float32).to(dt)
         q, k, v, do = rnd(b, t, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd), \
@@ -983,7 +999,23 @@ def phase_flash_bwd(torch) -> dict:
         pipeline = {"kernels_vs_plain": grad_errors(chain, want),
                     "kernels_vs_f32": grad_errors(chain, exact),
                     "plain_vs_f32": grad_errors(want, exact)}
-        del chain, f32, o32, lse32, exact, want
+        # SDPA's is_causal aligns top-left at q_offset 0; with an offset the
+        # same mask goes in as a (T, S) boolean attn_mask
+        mask = None
+        if causal and off:
+            mask = torch.arange(s, device=dev)[None, :] <= \
+                off + torch.arange(t, device=dev)[:, None]
+        sdpa = lambda *x: F.scaled_dot_product_attention(
+            *x, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        # SDPA's backward against the same float32 gradient: the yardstick
+        # of a kernel's error in the input dtype (printed, not gated)
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        sdpa(*leaves).backward(do.transpose(1, 2))
+        pipeline["sdpa_vs_f32"] = grad_errors(
+            [x.grad.transpose(1, 2) for x in leaves], exact)
+        del chain, f32, o32, lse32, exact, want, leaves
         if not lse_ok:
             raise AssertionError(
                 f"flash_attention {variant}: the forward's log-sum-exp is "
@@ -1003,21 +1035,13 @@ def phase_flash_bwd(torch) -> dict:
                 f"over its max {rel} (limit {tols[dt][1]})")
         ms = time_ms(torch, kern)
         plain_ms = time_ms(torch, plain)
-        # SDPA's is_causal aligns top-left at q_offset 0; with an offset the
-        # same mask goes in as a (T, S) boolean attn_mask
-        mask = None
-        if causal and off:
-            mask = torch.arange(s, device=dev)[None, :] <= \
-                off + torch.arange(t, device=dev)[:, None]
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        out = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+        out = sdpa(qt, kt, vt)
         dot = do.transpose(1, 2)
         library_ms = time_ms(
             torch, lambda: out.backward(dot, retain_graph=True))
-        del qt, kt, vt, out, dot, mask
+        del qt, kt, vt, out, dot, mask, sdpa
         isz = q.element_size()
         # inputs q, o, dO (B, T, H, hd), k, v (B, S, KV, hd) and the
         # log-sum-exp; outputs dq (B, T, H, hd), dk, dv (B, S, KV, hd)
@@ -1030,7 +1054,7 @@ def phase_flash_bwd(torch) -> dict:
                "variant": variant, "shape": {"B": b, "T": t, "S": s, "H": h,
                                              "KV": kv, "hd": hd},
                "dtype": str(dt).split(".")[1], "causal": causal,
-               "q_offset": off, "engine": "cuda-core",
+               "q_offset": off, "engine": flash_engine(dt),
                "max_abs_err": err, "max_row_rel_err": rel,
                "errors": "max |err| / max(1, max |grad|); max |err| in a row"
                " / max(row max, 1% of max(1, max |grad|)); both backwards "
@@ -1045,7 +1069,8 @@ def phase_flash_bwd(torch) -> dict:
                "library": "F.scaled_dot_product_attention(enable_gqa=True)"
                " backward alone (out.backward(dO, retain_graph=True))",
                "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
-               "ops": flops, "tflops": flops / ms / 1e9}
+               "ops": flops, "tflops": flops / ms / 1e9,
+               "tc_share": tc_share(dt, flops, ms)}
         emit(row)
         if main_row is None:
             main_row = row
@@ -3088,9 +3113,11 @@ def main() -> int:
                "flash_attention": (
                    "flash_attn_sm90.cu",
                    "src/repro/kernels/flash_attention/flash_attention.py:76"),
-               # no TPU kernel: the reference differentiates _blocked_attn
+               # no TPU kernel: the reference differentiates _blocked_attn;
+               # the main path runs the bf16 kernel, f32 runs flash_attn_bwd.cu
                "flash_attention_bwd": (
-                   "flash_attn_bwd.cu", "src/repro/models/attention.py:62")}
+                   "flash_attn_bwd_sm90.cu",
+                   "src/repro/models/attention.py:62")}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{src}", "replaces": tpu,

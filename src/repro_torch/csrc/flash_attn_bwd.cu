@@ -1,5 +1,5 @@
-// flash_attention backward: dq, dk and dv of the attention forward pass, on
-// the CUDA cores, for bf16 and float32 inputs.
+// flash_attention backward, float32: dq, dk and dv of the attention forward
+// pass, on the CUDA cores.
 //
 // No TPU kernel to replace: the JAX package differentiates
 // src/repro/models/attention.py:_blocked_attn (:62) by autodiff.  This
@@ -14,18 +14,15 @@
 //   dQ = hd^-1/2 dS K,   dK = hd^-1/2 dS^T Q,   dV = P^T dO
 //
 // with dK and dV summed over the H / KV query heads of each KV head (GQA).
-// q, o, dO, dq: (B, T, H, hd); k, v, dk, dv: (B, S, KV, hd); contiguous, one
-// dtype; L and D (B, H, T) float32.  Every product and sum is float32; the
-// outputs are rounded to the input dtype once, at the store.
+// q, o, dO, dq: (B, T, H, hd); k, v, dk, dv: (B, S, KV, hd); contiguous,
+// float32; L and D (B, H, T) float32.  Every product and sum is float32.
+// bf16 inputs go to the tensor-core kernel of flash_attn_bwd_sm90.cu.
 //
 // Bound on the card: operations.  With P recomputed in both passes a
 // (query tile, key tile) pair costs 7 products of 64 x 64 x hd (S and dP
-// twice, dV, dK, dQ), 3.5x the forward's two; the useful work (S, dP, dV,
-// dK, dQ: 2.5x the forward's) over the bf16 tensor-core rate is the bound
-// chip_smoke.py reports.  This first kernel runs f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak) for both dtypes, so it sits far from that bound; the
-// tensor-core redesign (wgmma, TMA, a persistent schedule) is queued in
-// ROADMAP.md §2.
+// twice, dV, dK, dQ), 3.5x the forward's two.  The tensor cores would take
+// f32 only as TF32, which would not hold float32's 1e-4, so this kernel
+// runs exact f32 FMAs on the CUDA cores (67 TFLOP/s peak).
 //
 // Design: three launches, deterministic, no atomics (two launches on the
 // same inputs give the same bits).
@@ -42,8 +39,6 @@
 // Rows past T and keys past S are loaded as zeros and masked out of P, so
 // they add nothing to any sum.  Shared memory at hd = 128: 170 KB (dK dV)
 // and 153 KB (dQ), one CTA per SM.
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -55,21 +50,9 @@ constexpr int kC = 4;          // tile columns per thread: tx + 16 * j
 constexpr int kPld = kB + 4;   // row stride of the 64 x 64 tiles in smem
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Four consecutive elements as float, and one float stored as T.
+// Four consecutive floats.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 // Columns a thread owns in a 64 x HD accumulator: NC = HD / 16 of them, in
@@ -84,9 +67,9 @@ struct Cols {
 
 // Rows [0, 64) of a (rows, HD) matrix with row stride ``ld`` into shared
 // memory as float, row stride HD + 4; rows at or past ``valid`` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* sm, const T* g, int64_t ld,
-                                          int64_t valid) {
+template <int HD>
+__device__ __forceinline__ void load_tile(float* sm, const float* g,
+                                          int64_t ld, int64_t valid) {
   constexpr int kPerRow = HD / 4;
   for (int i = threadIdx.x; i < kB * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
@@ -172,8 +155,8 @@ __device__ __forceinline__ void acc_tile(const float* p, const float* x,
 
 // Rows ty*4 + i (< valid) of a 64 x HD accumulator, times ``mul``, into
 // global memory with row stride ``ld``.
-template <typename T, int HD>
-__device__ __forceinline__ void store_acc(T* g, int64_t ld, int64_t valid,
+template <int HD>
+__device__ __forceinline__ void store_acc(float* g, int64_t ld, int64_t valid,
                                           const float (&acc)[kR][HD / 16],
                                           float mul, int ty, int tx) {
   using C = Cols<HD>;
@@ -185,15 +168,15 @@ __device__ __forceinline__ void store_acc(T* g, int64_t ld, int64_t valid,
     for (int ch = 0; ch < C::NCH; ++ch)
 #pragma unroll
       for (int e = 0; e < C::VEC; ++e)
-        store1(g + r * ld + ch * 16 * C::VEC + tx * C::VEC + e,
-               acc[i][ch * C::VEC + e] * mul);
+        g[r * ld + ch * 16 * C::VEC + tx * C::VEC + e] =
+            acc[i][ch * C::VEC + e] * mul;
   }
 }
 
 // 1. D[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d], one warp a row.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-bwd_rowdot(const T* __restrict__ o, const T* __restrict__ dout,
+bwd_rowdot(const float* __restrict__ o, const float* __restrict__ dout,
            float* __restrict__ dsum, int64_t rows, int64_t t_len,
            int n_heads) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
@@ -226,12 +209,12 @@ constexpr int dq_smem_floats() {
 }
 
 // 2. dK and dV of one tile of 64 keys of one KV head.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, const float* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ dsum,
-         T* __restrict__ dk, T* __restrict__ dv, int64_t t_len,
+         float* __restrict__ dk, float* __restrict__ dv, int64_t t_len,
          int64_t s_len, int n_heads, int n_kv, int causal, int64_t q_offset,
          float scale) {
   constexpr int LD = Cols<HD>::LD;
@@ -256,8 +239,8 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_ld = (int64_t)n_heads * HD;
   const int64_t kv_ld = (int64_t)n_kv * HD;
   const int64_t kv_off = ((int64_t)b * s_len * n_kv + kh) * HD + n0 * kv_ld;
-  load_tile<T, HD>(Ks, k + kv_off, kv_ld, s_len - n0);
-  load_tile<T, HD>(Vs, v + kv_off, kv_ld, s_len - n0);
+  load_tile<HD>(Ks, k + kv_off, kv_ld, s_len - n0);
+  load_tile<HD>(Vs, v + kv_off, kv_ld, s_len - n0);
 
   float dk_acc[kR][NC], dv_acc[kR][NC];
 #pragma unroll
@@ -275,8 +258,8 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t r_off = ((int64_t)b * n_heads + h) * t_len;
     for (int64_t m0 = m_first; m0 < t_len; m0 += kB) {
       __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are read
-      load_tile<T, HD>(Qs, q + q_off + m0 * q_ld, q_ld, t_len - m0);
-      load_tile<T, HD>(Os, dout + q_off + m0 * q_ld, q_ld, t_len - m0);
+      load_tile<HD>(Qs, q + q_off + m0 * q_ld, q_ld, t_len - m0);
+      load_tile<HD>(Os, dout + q_off + m0 * q_ld, q_ld, t_len - m0);
       if (tid < kB) {
         const int64_t t = m0 + tid;
         Ls[tid] = t < t_len ? lse[r_off + t] * kLog2e : 0.f;
@@ -305,17 +288,17 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       acc_tile<HD>(Ss, Qs, dk_acc, ty, tx);  // dK += dS^T Q
     }
   }
-  store_acc<T, HD>(dk + kv_off, kv_ld, s_len - n0, dk_acc, scale, ty, tx);
-  store_acc<T, HD>(dv + kv_off, kv_ld, s_len - n0, dv_acc, 1.f, ty, tx);
+  store_acc<HD>(dk + kv_off, kv_ld, s_len - n0, dk_acc, scale, ty, tx);
+  store_acc<HD>(dv + kv_off, kv_ld, s_len - n0, dv_acc, 1.f, ty, tx);
 }
 
 // 3. dQ of one tile of 64 queries of one query head.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, const float* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ dsum,
-       T* __restrict__ dq, int64_t t_len, int64_t s_len, int n_heads,
+       float* __restrict__ dq, int64_t t_len, int64_t s_len, int n_heads,
        int n_kv, int causal, int64_t q_offset, float scale) {
   constexpr int LD = Cols<HD>::LD;
   constexpr int NC = Cols<HD>::NC;
@@ -342,8 +325,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_off = ((int64_t)b * t_len * n_heads + h) * HD + m0 * q_ld;
   const int64_t r_off = ((int64_t)b * n_heads + h) * t_len;
   const int64_t kv_off = ((int64_t)b * s_len * n_kv + kh) * HD;
-  load_tile<T, HD>(Qs, q + q_off, q_ld, t_len - m0);
-  load_tile<T, HD>(Os, dout + q_off, q_ld, t_len - m0);
+  load_tile<HD>(Qs, q + q_off, q_ld, t_len - m0);
+  load_tile<HD>(Os, dout + q_off, q_ld, t_len - m0);
   if (tid < kB) {
     const int64_t t = m0 + tid;
     Ls[tid] = t < t_len ? lse[r_off + t] * kLog2e : 0.f;
@@ -364,8 +347,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int64_t tile = 0; tile < n_tiles; ++tile) {
     const int64_t n0 = tile * kB;
     __syncthreads();  // the previous tile's K and dS are read
-    load_tile<T, HD>(Ks, k + kv_off + n0 * kv_ld, kv_ld, s_len - n0);
-    load_tile<T, HD>(Vs, v + kv_off + n0 * kv_ld, kv_ld, s_len - n0);
+    load_tile<HD>(Ks, k + kv_off + n0 * kv_ld, kv_ld, s_len - n0);
+    load_tile<HD>(Vs, v + kv_off + n0 * kv_ld, kv_ld, s_len - n0);
     __syncthreads();
     float s[kR][kC], dp[kR][kC];
     dot_tile<HD>(Qs, Ks, s, ty, tx);   // Q K^T
@@ -385,10 +368,10 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     acc_tile<HD>(Ss, Ks, dq_acc, ty, tx);  // dQ += dS K
   }
-  store_acc<T, HD>(dq + q_off, q_ld, t_len - m0, dq_acc, scale, ty, tx);
+  store_acc<HD>(dq + q_off, q_ld, t_len - m0, dq_acc, scale, ty, tx);
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dsum, void* dq, void* dk,
            void* dv, int b, int64_t t, int64_t s, int h, int kv, int causal,
@@ -396,79 +379,62 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const size_t smem_kv = dkdv_smem_floats<HD>() * sizeof(float);
   const size_t smem_q = dq_smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_kv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq<T, HD>,
+  err = cudaFuncSetAttribute(bwd_dq<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return (int)err;
   const float scale = 1.f / sqrtf((float)HD);
   const int64_t rows = (int64_t)b * t * h;
-  bwd_rowdot<T, HD><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
-                      kThreads, 0, stream>>>(
-      (const T*)o, (const T*)dout, (float*)dsum, rows, t, h);
+  bwd_rowdot<HD><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                   kThreads, 0, stream>>>(
+      (const float*)o, (const float*)dout, (float*)dsum, rows, t, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkdv<T, HD><<<dim3((unsigned)((s + kB - 1) / kB), (unsigned)(b * kv)),
-                    kThreads, smem_kv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dsum, (T*)dk, (T*)dv, t, s, h, kv,
-      causal, q_offset, scale);
+  bwd_dkdv<HD><<<dim3((unsigned)((s + kB - 1) / kB), (unsigned)(b * kv)),
+                 kThreads, smem_kv, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)dsum, (float*)dk, (float*)dv, t, s, h,
+      kv, causal, q_offset, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dq<T, HD><<<dim3((unsigned)((t + kB - 1) / kB), (unsigned)(b * h)),
-                  kThreads, smem_q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dsum, (T*)dq, t, s, h, kv, causal,
+  bwd_dq<HD><<<dim3((unsigned)((t + kB - 1) / kB), (unsigned)(b * h)),
+               kThreads, smem_q, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)dsum, (float*)dq, t, s, h, kv, causal,
       q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const void* lse, void* dsum, void* dq,
-             void* dk, void* dv, int b, int64_t t, int64_t s, int h, int kv,
-             int hd, int causal, int64_t q_offset, void* stream) {
-  if (b == 0 || t == 0) return (int)cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s,
-                           h, kv, causal, q_offset, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s,
-                           h, kv, causal, q_offset, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s,
-                           h, kv, causal, q_offset, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s,
-                            h, kv, causal, q_offset, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// q, o, dout, dq: (b, t, h, hd); k, v, dk, dv: (b, s, kv, hd); one dtype,
-// contiguous, 16-byte aligned; lse and dsum (scratch for D): (b, h, t)
-// float32; h a multiple of kv; hd in {16, 32, 64, 128}; t, s < 2^31.
+// q, o, dout, dq: (b, t, h, hd); k, v, dk, dv: (b, s, kv, hd); float32,
+// contiguous, 16-byte aligned; lse (b, h, t) float32; dsum: scratch for D,
+// at least b * h * t float32; h a multiple of kv; hd in {16, 32, 64, 128};
+// t, s < 2^31.
 extern "C" int adhash_flash_attn_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, int b, int64_t t, int64_t s, int h, int kv, int hd, int causal,
     int64_t q_offset, void* stream) {
-  return dispatch<float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
-                         kv, hd, causal, q_offset, stream);
-}
-
-extern "C" int adhash_flash_attn_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-    void* dv, int b, int64_t t, int64_t s, int h, int kv, int hd, int causal,
-    int64_t q_offset, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b,
-                                 t, s, h, kv, hd, causal, q_offset, stream);
+  if (b == 0 || t == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return launch<16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
+                        kv, causal, q_offset, st);
+    case 32:
+      return launch<32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
+                        kv, causal, q_offset, st);
+    case 64:
+      return launch<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
+                        kv, causal, q_offset, st);
+    case 128:
+      return launch<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
+                         kv, causal, q_offset, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -20,15 +20,16 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["SOURCES", "SCAN_TILE", "RADIX_TILE", "build", "library",
-           "build_log", "check"]
+__all__ = ["SOURCES", "SCAN_TILE", "RADIX_TILE", "BWD_T_PAD", "build",
+           "library", "build_log", "check"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("probe.cu", "expand.cu", "bucket.cu", "compact.cu", "flash_attn.cu",
-           "flash_attn_sm90.cu", "flash_attn_bwd.cu")
-_HEADERS = ("common.cuh",)
+           "flash_attn_sm90.cu", "flash_attn_bwd.cu", "flash_attn_bwd_sm90.cu")
+#: headers the sources include: hashed with them, so an edited header rebuilds
+_HEADERS = ("common.cuh", "sm90.cuh")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 #: rows per tile of the card-wide scans (kScanTile in csrc/common.cuh); the
@@ -37,6 +38,10 @@ SCAN_TILE = 8192
 #: keys per tile of unique_compact's radix passes (kTile in csrc/compact.cu);
 #: the wrapper sizes the per-tile histograms with it
 RADIX_TILE = 4096
+#: T is padded to this in the attention backward's rows of L and D (kPad in
+#: csrc/flash_attn_bwd_sm90.cu, whose bulk copies read a row's tiles whole);
+#: the wrapper sizes that scratch with it
+BWD_T_PAD = 128
 
 _lib: ctypes.CDLL | None = None
 

@@ -9,12 +9,14 @@ would not hold float32's 1e-4.  Both count as ``LAUNCHES["flash_attention"]``.
 Under autograd (grad enabled and an operand that requires grad) the call
 goes through ``FlashAttentionFn``: its forward launches the same kernel,
 which then also writes each row's log-sum-exp, and its backward launches
-the hand-written backward (``csrc/flash_attn_bwd.cu``, both dtypes on the
-CUDA cores, counted as ``LAUNCHES["flash_attention_bwd"]``).  The JAX
-package has no backward kernel: it differentiates ``_blocked_attn`` by
-autodiff, and the backward computes what that autodiff computes.  On CPU
-tensors the same Function runs the plain forward and
-``flash_attention_bwd_plain``.
+the hand-written backward on the forward's engine, counted as
+``LAUNCHES["flash_attention_bwd"]``: bfloat16 on the tensor cores
+(``wgmma``, TMA, warp-specialised dK/dV and dQ passes;
+``csrc/flash_attn_bwd_sm90.cu``), float32 on the CUDA cores
+(``csrc/flash_attn_bwd.cu``).  The JAX package has no backward kernel: it
+differentiates ``_blocked_attn`` by autodiff, and the backward computes
+what that autodiff computes.  On CPU tensors the same Function runs the
+plain forward and ``flash_attention_bwd_plain``.
 
 Replaces ``repro.kernels.flash_attention.flash_attention.flash_attention_fwd``
 (the TPU forward kernel) in the function ``repro.models.attention.
@@ -46,7 +48,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: dtype -> (engine, exported symbol) of the kernel that serves it
 _ENGINES = {torch.bfloat16: ("wgmma", "adhash_flash_attn_bf16"),
             torch.float32: ("cuda-core", "adhash_flash_attn_f32")}
-#: dtype -> exported symbol of the backward kernel (CUDA cores, both dtypes)
+#: dtype -> exported symbol of the backward kernel, on the forward's engine:
+#: bf16 on the tensor cores (flash_attn_bwd_sm90.cu), float32 on the CUDA
+#: cores (flash_attn_bwd.cu)
 _BWD = {torch.bfloat16: "adhash_flash_attn_bwd_bf16",
         torch.float32: "adhash_flash_attn_bwd_f32"}
 
@@ -200,10 +204,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, q_offset: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch the hand-written backward (``csrc/flash_attn_bwd.cu``): dq,
-    dk and dv in the inputs' dtype, from the forward's output ``o`` and
-    log-sum-exp ``lse`` (B, H, T) float32."""
-    from repro_torch.kernels.build import check, library
+    """Launch the hand-written backward that ``q``'s dtype selects
+    (``flash_engine``): dq, dk and dv in the inputs' dtype, from the
+    forward's output ``o`` and log-sum-exp ``lse`` (B, H, T) float32."""
+    from repro_torch.kernels.build import BWD_T_PAD, check, library
 
     _check_launch("flash_attention_bwd", q, k, v, q_offset)
     check_cuda("flash_attention_bwd", q, o, do, lse)
@@ -224,10 +228,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or t == 0:
         return dq, dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    # D = rowsum(dO * O) and, for bf16, L * log2(e), in rows padded to
+    # BWD_T_PAD (float32 uses the first B*H*T entries for D)
+    t_pad = -(-t // BWD_T_PAD) * BWD_T_PAD
+    scratch = torch.empty((2, b, h, t_pad), dtype=torch.float32,
+                          device=q.device)
     fn = getattr(library(), _BWD[q.dtype])
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, t, s, h, kvh, hd, int(causal),
              int(q_offset), stream_ptr(q)),
           "flash_attention_bwd")

@@ -709,6 +709,22 @@ BWD_CASES = [
     (1, 1024, 1024, 20, 20, 128, torch.bfloat16, False, 0),  # non-causal
     (1, 1001, 1001, 20, 20, 128, torch.bfloat16, True, 0),  # odd T
     (1, 1, 1, 2, 1, 128, torch.float32, True, 0),           # one row
+] + [
+    # the bf16 kernel's tile edges: 64-row query / key steps, 128-row CTAs
+    (1, n, n, 4, 2, 128, torch.bfloat16, True, 0)
+    for n in (1, 63, 64, 65, 127, 128, 129)
+] + [
+    (1, 63, 129, 4, 2, 128, torch.bfloat16, True, 66),      # T != S, offset
+    (1, 65, 127, 4, 4, 64, torch.bfloat16, True, 62),
+    (1, 129, 64, 4, 2, 128, torch.bfloat16, False, 0),      # T > S
+    (1, 200, 200, 4, 2, 16, torch.bfloat16, False, 0),      # hd = 16
+    (1, 200, 333, 4, 2, 32, torch.bfloat16, True, 133),     # hd = 32
+    (1, 200, 200, 4, 2, 32, torch.bfloat16, False, 0),
+    (1, 300, 300, 8, 2, 128, torch.bfloat16, True, 0),      # GQA group 4
+    (1, 333, 333, 16, 2, 64, torch.bfloat16, True, 0),      # GQA group 8
+    (1, 250, 250, 32, 4, 128, torch.bfloat16, False, 0),
+    (3, 130, 130, 4, 2, 128, torch.bfloat16, True, 0),      # B = 3
+    (3, 65, 200, 8, 8, 32, torch.bfloat16, True, 135),
 ]
 
 
@@ -735,12 +751,15 @@ def _check_grads(got, want, dtype):
 def test_cuda_flash_attention_backward_matches_plain(cuda_device, case):
     """The backward kernel against ``flash_attention_bwd_plain`` (float32
     math on the same q, k, v, o, dO and log-sum-exp); two launches give
-    the same bits (no atomics)."""
+    the same bits (no atomics).  bf16 runs the tensor-core kernel, float32
+    the CUDA-core one."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
-        flash_attention_cuda, flash_attention_plain)
+        flash_attention_cuda, flash_attention_plain, flash_engine)
 
     b, t, s, h, kv, hd, dtype, causal, off = case
+    assert flash_engine(dtype) == {torch.bfloat16: "wgmma",
+                                   torch.float32: "cuda-core"}[dtype]
     g = torch.Generator().manual_seed(t * 3 + s + hd)
     q, do = (torch.randn((b, t, h, hd), generator=g).to(dtype).to(cuda_device)
              for _ in range(2))

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -360,14 +361,66 @@ def test_flash_wrapper_checks_its_operands():
     assert q.grad is not None
 
 
+def _defining_sources(symbol: str) -> list[Path]:
+    """The files of ``csrc/`` that define the ``extern "C"`` function
+    ``symbol``."""
+    from repro_torch.kernels import build
+
+    pat = re.compile(r'extern "C"\s+\w+\s+' + symbol + r"\s*\(")
+    return [p for p in sorted(build.CSRC.iterdir())
+            if pat.search(p.read_text())]
+
+
 def test_flash_engine_is_chosen_by_dtype():
     """A CUDA tensor's dtype names its kernel, with no fallback: bf16 the
-    tensor-core kernel, float32 the CUDA-core one, anything else raises."""
+    tensor-core kernel, float32 the CUDA-core one, anything else raises.
+    The backward runs on its forward's engine: the bf16 forward and
+    backward are defined in sources built on the Hopper header (wgmma,
+    TMA), the float32 ones in sources without it."""
+    from repro_torch.kernels.flash_attention import ops as FA
+
     assert flash_engine(torch.bfloat16) == "wgmma"
     assert flash_engine(torch.float32) == "cuda-core"
     for dtype in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(TypeError, match="no kernel"):
             flash_engine(dtype)
+    assert set(FA._BWD) == set(FA._ENGINES)
+    assert len(set(FA._BWD.values())) == len(FA._BWD)
+    for dtype, (engine, fwd) in FA._ENGINES.items():
+        for symbol in (fwd, FA._BWD[dtype]):
+            (src,) = _defining_sources(symbol)
+            hopper = '#include "sm90.cuh"' in src.read_text()
+            assert hopper == (engine == "wgmma"), (dtype, symbol, src.name)
+
+
+def test_bound_kernel_symbols_are_defined_once_in_the_build():
+    """Each ``extern "C"`` symbol a wrapper binds (the flash_attention
+    forward and backward by dtype, the four DSJ kernels) is defined in
+    exactly one source that ``build.SOURCES`` compiles, and every file of
+    ``csrc/`` is a source or a header the build hashes, so an edited
+    header gives a new library, not a stale cached one."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.relalg_ops import bucket, compact, expand
+    from repro_torch.kernels.semijoin import probe
+
+    bound = set()
+    for mod in (FA, probe, expand, bucket, compact):
+        bound |= set(re.findall(r"adhash_[a-z0-9_]+",
+                                Path(mod.__file__).read_text()))
+    flash = {sym for _, sym in FA._ENGINES.values()} | set(FA._BWD.values())
+    assert flash <= bound
+    for name in ("range_search", "expand", "bucket_by_dest",
+                 "unique_compact"):
+        assert any(name in sym for sym in bound), name
+    for symbol in sorted(bound):
+        srcs = _defining_sources(symbol)
+        assert len(srcs) == 1 and srcs[0].name in build.SOURCES, \
+            (symbol, [p.name for p in srcs])
+    files = {p.name for p in build.CSRC.iterdir()
+             if p.suffix in (".cu", ".cuh")}
+    assert files == set(build.SOURCES) | set(build._HEADERS)
+    assert len(build.SOURCES) == len(set(build.SOURCES))
 
 
 # -------------------------------------------- (i) the port imports no jax
