@@ -39,6 +39,8 @@ Groups (all by default):
           (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches with
           the adaptive controller; tokens/s by ``launch/serve.py``'s
           formula, and each batch's seconds)
+  moe     qwen2-moe-a2.7b as the moe phase drives it, the same calls and
+          tokens/s as ``lm`` (the controller's budget from its config)
 
 The last line holds each key's times per tree.  Without a card it exits 1.
 """
@@ -60,7 +62,8 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 # (n, value range, out_cap, dtype) per worker row, W = 8
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
-GROUPS = ("dsj", "bucket", "flash", "flash_bwd", "unique", "lubm", "lm")
+GROUPS = ("dsj", "bucket", "flash", "flash_bwd", "unique", "lubm", "lm",
+          "moe")
 
 
 def measure(root: str, groups: list[str]) -> dict:
@@ -150,7 +153,10 @@ def measure(root: str, groups: list[str]) -> dict:
     if "lubm" in groups:
         out.update(measure_lubm(torch, chip_smoke))
     if "lm" in groups:
-        out.update(measure_lm(torch, chip_smoke))
+        out.update(measure_lm(torch, chip_smoke, "llama3-8b"))
+    if "moe" in groups:
+        out.update({f"moe {key}": v for key, v in measure_lm(
+            torch, chip_smoke, chip_smoke.MOE_ARCH).items()})
     return out
 
 
@@ -227,8 +233,8 @@ def measure_lubm(torch, chip_smoke) -> dict[str, float]:
     return out
 
 
-def measure_lm(torch, chip_smoke) -> dict:
-    """Warm prefill and steady decode tokens/s of llama3-8b."""
+def measure_lm(torch, chip_smoke, arch: str) -> dict:
+    """Warm prefill and steady decode tokens/s of ``arch``."""
     import time
 
     import numpy as np
@@ -238,7 +244,7 @@ def measure_lm(torch, chip_smoke) -> dict:
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models.model_zoo import build_model
 
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     model = build_model(cfg, device="cuda")
     params = model.init(0, dtype=torch.bfloat16)
     batch = make_batch(cfg, *chip_smoke.PREFILL, 0, device="cuda")
@@ -248,7 +254,8 @@ def measure_lm(torch, chip_smoke) -> dict:
         with torch.inference_mode():
             float(model.loss(params, batch))
         prefill_s.append(time.perf_counter() - a)
-    ctrl = AdaptiveShardingController(cfg.vocab_size, budget=8192)
+    budget = cfg.adaptive.embedding_hot_budget if cfg.adaptive else 8192
+    ctrl = AdaptiveShardingController(cfg.vocab_size, budget=budget)
     times, _ = serve_loop(model, params, batch_size=8, max_len=128,
                           steps=16, n_batches=4, controller=ctrl)
     return {"prefill tokens/s": batch["tokens"].numel() /

@@ -30,10 +30,11 @@ format, so a snapshot written by either package restores in the other:
     packages.
   * ``save_adaptivity`` / ``restore_adaptivity`` snapshot the *full*
     adaptivity state (heat map, pattern-index structure + LRU clock,
-    replica module contents, placement table) in one atomically published
-    directory: ``manifest.json`` and ``replicas.npz`` with
-    ``"{sid}/{leaf}"`` names.  Restore onto the same W is bit-identical;
-    onto a different W the replica state is dropped and the query log
+    replica module contents, placement table, tuned kernel table) in one
+    atomically published directory: ``manifest.json``, ``replicas.npz``
+    with ``"{sid}/{leaf}"`` names and ``tuned/<platform>.json``.  Restore
+    onto the same W is bit-identical; onto a different W the replica state
+    is dropped and the query log
     replays from the start — the paper's pay-as-you-go recovery — while
     the placement table re-derives base shards under the new modulus.
     On a mesh substrate every rank gathers each replica module's worker
@@ -41,10 +42,14 @@ format, so a snapshot written by either package restores in the other:
     restore places the modules through the engine's substrate
     (``shard_store``), so each rank keeps its own block.
 
-The port has no tuned-kernel table yet (ROADMAP.md §1 item 11): its
-manifest writes ``"tuned": {}`` and its snapshot holds no ``tuned/``
-directory.  ``restore_adaptivity`` ignores ``tuned`` in both packages, so a
-reference snapshot that carries one restores here all the same.
+The tuned table is the port's (``repro_torch.kernels.tuning``, keyed by
+the CUDA kernels' tiles) for the engine's platform: on the card ``"sm90"``
+with the table the loaded kernel library was built with, on the CPU
+``"cpu"``; it is written in the loader's own format under ``tuned/`` and under
+``"tuned"`` in the manifest, as the reference writes its platform's.
+``restore_adaptivity`` ignores it in both packages, so snapshots cross
+either way; point ``ADHASH_TUNED_DIR`` at ``<snapshot>/tuned`` to build
+the kernels with it.
 """
 from __future__ import annotations
 
@@ -342,12 +347,14 @@ class CheckpointManager:
         """Snapshot the engine's *entire* adaptivity state in one atomically
         published directory: heat map (counts, Boyer-Moore metadata, clock),
         pattern-index structure (specializations, storage ids, LRU
-        timestamps, clock), every replica module's five tensors, and the
-        placement table.
+        timestamps, clock), every replica module's five tensors, the
+        placement table, and the tuned kernel table for the engine's
+        platform.
 
         The manifest records how many query-log lines the snapshot covers
         (``n_queries_logged``), so a restore replays only the suffix."""
         from repro_torch.core.placement import placement_state
+        from repro_torch.kernels import build, tuning
 
         tmp = self.dir / f".tmp_adaptivity{step}"
         final = self.dir / f"adaptivity{step:010d}"
@@ -365,6 +372,22 @@ class CheckpointManager:
             modules[sid] = {"n_ids": int(st.n_ids)}
         np.savez(tmp / "replicas.npz", **arrays)
 
+        # tuned kernel table, in the loader's own on-disk format: a restored
+        # master builds with it by pointing ADHASH_TUNED_DIR at
+        # <snapshot>/tuned.  On the card it is the table the loaded kernel
+        # library was built with; the CPU builds no kernel, and its "cpu"
+        # table is written for the reference's format alone.
+        if torch.device(engine.device).type == "cuda":
+            platform, table = tuning.BUILD_PLATFORM, build.built_table()
+        else:
+            platform, table = "cpu", tuning.tuned_table("cpu")
+        tuned_dir = tmp / "tuned"
+        tuned_dir.mkdir()
+        (tuned_dir / f"{platform}.json").write_text(json.dumps(
+            {"platform": platform, "kernels": table},
+            indent=2, sort_keys=True,
+        ) + "\n")
+
         manifest = {
             "step": step,
             "time": time.time(),
@@ -376,7 +399,7 @@ class CheckpointManager:
             "placement": placement_state(engine.placement),
             "replica_modules": modules,
             "replica_next_id": engine.replicas.next_id_n,
-            "tuned": {},  # no tuned-kernel table in the port yet
+            "tuned": {platform: table},
         }
         with open(tmp / "manifest.json", "w") as f:
             json.dump(manifest, f)
@@ -408,7 +431,9 @@ class CheckpointManager:
         substrate.  Different W (elastic): the worker-indexed state (PI +
         replica modules) is dropped and offset 0 is returned — replaying
         the whole log rebuilds them on the new W, the paper's pay-as-you-go
-        recovery.  ``tuned`` is ignored."""
+        recovery.  The tuned kernel table travels in the snapshot and is
+        not read here; point ``ADHASH_TUNED_DIR`` at ``<snapshot>/tuned``
+        to build with it."""
         from repro_torch.core.heatmap import HeatMap
         from repro_torch.core.pattern_index import PatternIndex
         from repro_torch.core.triples import ShardedTripleStore

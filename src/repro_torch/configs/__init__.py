@@ -1,7 +1,8 @@
 """Architecture configs (one module per arch) + shape sets.
 
 The port's own copy of ``repro.configs`` for the dense family
-(``llama3-8b``, ``qwen1.5-4b``, ``yi-9b``, ``codeqwen1.5-7b``), which
+(``llama3-8b``, ``qwen1.5-4b``, ``yi-9b``, ``codeqwen1.5-7b``) and the moe
+family (``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b``), which
 ``repro_torch.models.model_zoo.build_model`` builds.  The other archs of the
 JAX package are named here and raise ``NotImplementedError``: their configs
 come with the slice that builds them (ROADMAP §1 item 12c).
@@ -12,7 +13,8 @@ from dataclasses import dataclass
 
 from repro_torch.models.common import ModelConfig, unported
 
-from . import codeqwen15_7b, llama3_8b, qwen15_4b, yi_9b
+from . import (codeqwen15_7b, llama3_8b, moonshot_v1_16b_a3b, qwen2_moe_a27b,
+               qwen15_4b, yi_9b)
 
 __all__ = ["ARCH_IDS", "LATER", "SHAPES", "ShapeSpec", "get_config",
            "get_smoke_config"]
@@ -22,13 +24,13 @@ _MODULES = {
     "llama3-8b": llama3_8b,
     "codeqwen1.5-7b": codeqwen15_7b,
     "qwen1.5-4b": qwen15_4b,
+    "qwen2-moe-a2.7b": qwen2_moe_a27b,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
 }
 #: the JAX package's other archs, by family
 LATER = {
     "mamba2-130m": "ssm",
     "recurrentgemma-2b": "hybrid",
-    "qwen2-moe-a2.7b": "moe",
-    "moonshot-v1-16b-a3b": "moe",
     "internvl2-2b": "vlm",
     "whisper-tiny": "audio",
 }

@@ -144,9 +144,13 @@ __device__ inline int64_t look_back(const unsigned long long* states,
 //   3. a kernel of the caller, grid (n_tiles, W), that rescans its tile
 //      with block_inclusive_scan and adds the tile's base.
 // Each thread takes kScanItems consecutive elements.  The wrappers size the
-// (W, n_tiles) scratch with the same tile (SCAN_TILE in Python).
+// (W, n_tiles) scratch with the same tile (build.tiles().scan in Python).
+// The build sets ADHASH_SCAN_ITEMS from the tuned table (kernels/tuning.py).
+#ifndef ADHASH_SCAN_ITEMS
+#define ADHASH_SCAN_ITEMS 8
+#endif
 constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 8;
+constexpr int kScanItems = ADHASH_SCAN_ITEMS;
 constexpr int64_t kScanTile = (int64_t)kScanThreads * kScanItems;
 
 inline int64_t scan_tiles(int64_t n) { return (n + kScanTile - 1) / kScanTile; }

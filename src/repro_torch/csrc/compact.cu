@@ -58,8 +58,14 @@ namespace {
 
 constexpr int kThreads = 256;              // radix passes: one bin a thread
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 16;                 // keys per thread
-constexpr int kTile = kThreads * kItems;   // 4096 keys per tile
+// keys per thread; the build sets ADHASH_RADIX_ITEMS from the tuned table
+// (kernels/tuning.py), and the wrapper sizes its histograms with the same
+// tile (build.tiles().radix)
+#ifndef ADHASH_RADIX_ITEMS
+#define ADHASH_RADIX_ITEMS 16
+#endif
+constexpr int kItems = ADHASH_RADIX_ITEMS;
+constexpr int kTile = kThreads * kItems;   // 4096 keys per tile by default
 constexpr int kWarpKeys = kTile / kWarps;  // 512 consecutive keys per warp
 constexpr int kBins = 256;
 constexpr int kNone = kBins;               // digit of an empty slot

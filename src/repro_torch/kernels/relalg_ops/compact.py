@@ -22,8 +22,7 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(uniq (W, out_cap), mask, n_unique (W,) int64) of
     ``relalg.unique_compact``; the whole output is specified."""
-    from repro_torch.kernels.build import (RADIX_TILE, SCAN_TILE, check,
-                                           library)
+    from repro_torch.kernels.build import check, library, tiles
 
     check_cuda("unique_compact", values, valid)
     if values.dtype not in _FN or values.dim() != 2 or \
@@ -38,7 +37,8 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"unique_compact: row length {n} is not below 2^31")
     dev = values.device
     digits = values.element_size()  # 8-bit radix digits per key
-    n_tiles = -(-n // RADIX_TILE)
+    tile = tiles()  # the loaded library's, never set apart from its build
+    n_tiles = -(-n // tile.radix)
     values = values.contiguous()
     valid = valid.contiguous()
     keys = torch.empty((2, w, n), dtype=values.dtype, device=dev)
@@ -47,7 +47,7 @@ def unique_compact_cuda(values: torch.Tensor, valid: torch.Tensor,
     # row bin totals, summed with atomics; a row of one tile sorts without
     totals = torch.zeros((w, digits, 256), dtype=torch.int32, device=dev) \
         if n_tiles > 1 else scratch
-    tile_sums = torch.empty((w, -(-max(n, 1) // SCAN_TILE)),
+    tile_sums = torch.empty((w, -(-max(n, 1) // tile.scan)),
                             dtype=torch.int64, device=dev)
     uniq = torch.empty((w, out_cap), dtype=values.dtype, device=dev)
     n_unique = torch.empty((w,), dtype=torch.int64, device=dev)

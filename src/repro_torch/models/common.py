@@ -1,8 +1,9 @@
 """Shared model components: config schema, norms, RoPE, initializers.
 
-PyTorch port of ``repro.models.common`` for the dense family.  The config
-dataclasses are plain data; the moe, ssm, hybrid, vlm and audio families'
-sub-configs come with the slice that builds them (ROADMAP §1 item 12c).
+PyTorch port of ``repro.models.common`` for the dense and moe families.
+The config dataclasses are plain data; the ssm, hybrid, vlm and audio
+families' sub-configs come with the slice that builds them (ROADMAP §1 item
+12c).
 The layers are tensor functions with the JAX package's cast semantics: the
 compute dtype is pinned per config (bf16 by default), norms and RoPE angles
 are taken in float32, and every weight is cast to the compute dtype where it
@@ -17,6 +18,7 @@ import torch
 
 __all__ = [
     "AdaptiveConfig",
+    "MoEConfig",
     "ModelConfig",
     "torch_dtype",
     "rms_norm",
@@ -31,6 +33,16 @@ def unported(what: str, item: str) -> NotImplementedError:
     """The error every option the port does not have yet raises."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0  # shared (always-on) experts
+    d_expert: int = 0  # expert FFN width (0 -> use d_ff)
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -67,6 +79,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
+    moe: MoEConfig | None = None
     adaptive: AdaptiveConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -93,7 +106,27 @@ class ModelConfig:
         att = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (
             self.n_heads * hd
         ) * d
-        ffn = 3 * d * self.d_ff
+        if self.moe:
+            de = self.moe.d_expert or self.d_ff
+            ffn = (self.moe.n_experts + self.moe.n_shared) * 3 * d * de
+            ffn += d * self.moe.n_experts  # router
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = att + ffn + 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb
+
+    def active_param_count(self) -> int:
+        """N_active for MoE (routed experts counted at top_k of n_experts)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        hd = self.hd
+        de = self.moe.d_expert or self.d_ff
+        att = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (
+            self.n_heads * hd
+        ) * d
+        ffn = (self.moe.top_k + self.moe.n_shared) * 3 * d * de
         per_layer = att + ffn + 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb

@@ -28,6 +28,7 @@ from repro_torch.core.backend import resolve_device
 from . import attention as attn
 from . import embedding as emb
 from . import mlp as mlpm
+from . import moe as moem
 from . import transformer as tfm
 from .common import ModelConfig
 
@@ -122,9 +123,9 @@ def opt_state_from_numpy(step, m: dict, v: dict,
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: str | torch.device = "cuda",
                       dtype: torch.dtype | None = None) -> tfm.LM:
-    """The port's ``LM`` holding the weights of ``tree`` (a dense model's
-    numpy pytree), on ``device``, stored as ``dtype`` (default the config's
-    param dtype)."""
+    """The port's ``LM`` holding the weights of ``tree`` (a dense or moe
+    model's numpy pytree), on ``device``, stored as ``dtype`` (default the
+    config's param dtype)."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.pdtype
@@ -136,10 +137,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     blocks = []
     for i in range(cfg.n_layers):
         layer = lambda d: {k: t(v[i]) for k, v in d.items()}
+        if cfg.moe is not None:
+            m = stacked["moe"]
+            ffn = moem.MoE(layer({k: v for k, v in m.items()
+                                  if k != "shared"}),
+                           mlpm.SwiGLU(layer(m["shared"]))
+                           if "shared" in m else None)
+        else:
+            ffn = mlpm.SwiGLU(layer(stacked["mlp"]))
         blocks.append(tfm.Block(
             cfg, t(stacked["ln1"][i]), t(stacked["ln2"][i]),
-            attn.Attention(cfg, layer(stacked["attn"])),
-            mlpm.SwiGLU(layer(stacked["mlp"]))))
+            attn.Attention(cfg, layer(stacked["attn"])), ffn))
     return tfm.LM(cfg, emb.Embedding({k: t(v) for k, v in
                                       tree["embed"].items()}),
                   blocks, t(tree["ln_f"]))

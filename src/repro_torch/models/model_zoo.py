@@ -1,6 +1,7 @@
 """Uniform model API over the ported architectures.
 
-PyTorch port of the decoder-only branch of ``repro.models.model_zoo``.
+PyTorch port of the decoder-only branch of ``repro.models.model_zoo``
+(the dense and moe families).
 Each arch exposes:
   init(seed, dtype)              -> params (an ``nn.Module`` on the device)
   loss(params, batch)            -> scalar CE loss (the prefill lowering)
@@ -11,8 +12,8 @@ Each arch exposes:
 serves both prefill and training: ``launch.train`` differentiates it,
 serving callers wrap it in ``torch.inference_mode()``.  ``init_cache`` and
 ``decode`` run under ``torch.inference_mode()``.  ``init`` must not: a
-parameter made there could never take a gradient.  The vlm and audio
-families raise (item 12c).
+parameter made there could never take a gradient.  The ssm, hybrid, vlm
+and audio families raise (item 12c).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ class ModelAPI:
 
 def build_model(cfg: ModelConfig,
                 device: str | torch.device = "cuda") -> ModelAPI:
-    """The dense family's API on ``device``.  The JAX package's
+    """The dense or moe family's API on ``device``.  The JAX package's
     ``RuntimeOptions`` (mesh placement, int8 KV cache, bf16 cache math) have
     no counterpart yet (ROADMAP §1 item 12d)."""
     tfm.check_supported(cfg)

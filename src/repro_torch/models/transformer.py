@@ -1,6 +1,6 @@
-"""Decoder-only LM assembly for the dense family.
+"""Decoder-only LM assembly for the dense and moe families.
 
-PyTorch port of the dense branches of ``repro.models.transformer``:
+PyTorch port of the dense and moe branches of ``repro.models.transformer``:
 
 * the layers are an ``nn.ModuleList`` walked in a Python loop (the JAX
   package scans a stacked pytree; ``convert.params_from_numpy`` unstacks
@@ -8,7 +8,10 @@ PyTorch port of the dense branches of ``repro.models.transformer``:
 * the LM-head cross-entropy is computed in sequence chunks so the (B, T, V)
   logits tensor never materializes (V is 128k for llama3-8b);
 * decode carries one KV cache per layer, stacked as the JAX package stacks
-  it, and writes it in place.
+  it, and writes it in place;
+* a moe block swaps its SwiGLU for ``moe.MoE``; ``lm_forward``, ``lm_loss``
+  and ``lm_decode_step`` take the hot-expert plan ``slot_map``, as the
+  reference's do.
 
 * with ``cfg.remat`` and grad enabled, each block and each loss chunk runs
   under non-reentrant activation checkpointing
@@ -16,7 +19,8 @@ PyTorch port of the dense branches of ``repro.models.transformer``:
   ``jax.checkpoint``: a block keeps only its input and recomputes the rest
   in the backward.  ``remat_policy == "dots"`` keeps the matrix products'
   outputs (``aten.mm`` / ``aten.addmm``), as
-  ``dots_with_no_batch_dims_saveable`` does.  Without grad (serving) the
+  ``dots_with_no_batch_dims_saveable`` does; the moe expert products are
+  batched (``aten.bmm``) and recomputed.  Without grad (serving) the
   blocks run as they are.
 
 The other families raise ``NotImplementedError`` naming their ROADMAP item,
@@ -34,6 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import attention as attn
 from . import embedding as emb
 from . import mlp as mlpm
+from . import moe as moem
 from .common import ModelConfig, rms_norm, unported
 
 __all__ = [
@@ -50,7 +55,7 @@ __all__ = [
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a family not ported yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise unported(f"the {cfg.family!r} family ({cfg.name})", "12c")
 
 
@@ -79,22 +84,30 @@ def _remat(fn, cfg: ModelConfig):
 
 # ------------------------------------------------------------------- blocks
 class Block(nn.Module):
-    """Pre-norm attention + SwiGLU block."""
+    """Pre-norm attention + FFN block: a SwiGLU ``mlp``, or in the moe
+    family an ``moe.MoE`` named ``moe`` (the reference's leaf names)."""
 
     def __init__(self, cfg: ModelConfig, ln1: torch.Tensor,
                  ln2: torch.Tensor, attention: attn.Attention,
-                 mlp: mlpm.SwiGLU):
+                 ffn: mlpm.SwiGLU | moem.MoE):
         super().__init__()
         self.cfg = cfg
         self.ln1 = nn.Parameter(ln1)
         self.ln2 = nn.Parameter(ln2)
         self.attn = attention
-        self.mlp = mlp
+        setattr(self, "moe" if cfg.moe is not None else "mlp", ffn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def ffn(self, z: torch.Tensor,
+            slot_map: tuple[int, ...] | None = None) -> torch.Tensor:
+        if self.cfg.moe is not None:
+            return moem.moe_ffn(self.moe, z, self.cfg, slot_map)[0]
+        return self.mlp(z)
+
+    def forward(self, x: torch.Tensor,
+                slot_map: tuple[int, ...] | None = None) -> torch.Tensor:
         eps = self.cfg.norm_eps
         h = x + self.attn(rms_norm(x, self.ln1, eps))
-        return h + self.mlp(rms_norm(h, self.ln2, eps))
+        return h + self.ffn(rms_norm(h, self.ln2, eps), slot_map)
 
 
 class LM(nn.Module):
@@ -117,9 +130,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig,
     check_supported(cfg)
     dt = dtype or cfg.pdtype
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    init_ffn = moem.init_moe if cfg.moe is not None else mlpm.init_swiglu
     blocks = [Block(cfg, ones(), ones(),
                     attn.init_attention(gen, cfg, dtype=dt),
-                    mlpm.init_swiglu(gen, cfg, dtype=dt))
+                    init_ffn(gen, cfg, dtype=dt))
               for _ in range(cfg.n_layers)]
     return LM(cfg, emb.init_embedding(gen, cfg, dt), blocks, ones())
 
@@ -128,12 +142,13 @@ def lm_forward(
     params: LM,
     tokens: torch.Tensor,  # (B, T) ids
     cfg: ModelConfig,
+    slot_map: tuple[int, ...] | None = None,  # moe hot-expert plan
 ) -> torch.Tensor:
     """Returns final hidden states (B, T, D) after ln_f."""
     check_supported(cfg)
     x = emb.embed(params.embed, tokens, cfg)
     for block in params.blocks:
-        x = _remat(block, cfg)(x)
+        x = _remat(block, cfg)(x, slot_map)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -152,10 +167,11 @@ def lm_loss(
     tokens: torch.Tensor,  # (B, T)
     labels: torch.Tensor,  # (B, T), -1 = masked
     cfg: ModelConfig,
+    slot_map: tuple[int, ...] | None = None,
     loss_chunk: int = 128,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy over unmasked labels, float32."""
-    h = lm_forward(params, tokens, cfg)
+    h = lm_forward(params, tokens, cfg, slot_map)
     w_out = (params.embed.table.t() if cfg.tie_embeddings
              else params.embed.out).to(h.dtype)
     t = h.shape[1]
@@ -187,6 +203,7 @@ def lm_decode_step(
     tokens: torch.Tensor,  # (B, 1) current token
     pos: int | torch.Tensor,  # position of the current token
     cfg: ModelConfig,
+    slot_map: tuple[int, ...] | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step.  Returns (logits (B, 1, V), cache) with the cache
     updated in place."""
@@ -199,6 +216,6 @@ def lm_decode_step(
                                      pos, cfg)
         x = x + y
         z2 = rms_norm(x, block.ln2, cfg.norm_eps)
-        x = x + mlpm.swiglu(block.mlp, z2)
+        x = x + block.ffn(z2, slot_map)  # moe: moe_ffn on (B, 1, D)
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
     return emb.lm_head(params.embed, x, cfg), cache

@@ -1,4 +1,5 @@
-"""The port's dense LM serving path against the JAX package, on the CPU.
+"""The port's LM serving path (dense and moe) against the JAX package, on
+the CPU.
 
 Inputs are made from a seed with numpy and fed to both packages; weights
 are made by the JAX package and carried across with
@@ -13,6 +14,15 @@ in the two frameworks), as atol = rtol.  A bf16 model's hidden states are
 held to 2e-2 of their largest magnitude instead: one ulp of a residual
 element of magnitude ~4 (0.016 to 0.03) passes through the next rms_norm
 into elements of any size.
+
+bf16 moe models: the router's gates of a token can tie or lie one bf16
+rounding apart, so the two packages may route a token to different
+experts.  The forward test records each layer's gates in both packages;
+each token routed differently whose layer input no earlier rerouting
+reached must be a near-tie (the reference's k-th and (k+1)-th gates less
+than one bf16 ulp apart), and the hidden states are compared on the tokens
+no rerouting reached (a reroute reaches its own token and, through causal
+attention at later layers, the later tokens of its row).
 """
 from __future__ import annotations
 
@@ -70,11 +80,62 @@ def _close(got, want, tol: float) -> None:
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
 
 
-def _close_hidden(got, want, dtype: str) -> None:
-    w = _np(want)
+def _close_hidden(got, want, dtype: str, keep=None) -> None:
+    """Hidden states (B, T, D) within the dtype's limits, on the (B, T)
+    tokens ``keep`` selects (default all)."""
+    g, w = _np(got), _np(want)
+    if keep is not None:
+        g, w = g[keep], w[keep]
     scale = max(1.0, float(np.abs(w).max())) if dtype == "bfloat16" else 1.0
-    np.testing.assert_allclose(_np(got), w, atol=TOL[dtype] * scale,
+    np.testing.assert_allclose(g, w, atol=TOL[dtype] * scale,
                                rtol=TOL[dtype])
+
+
+def _spy_router_gates(monkeypatch) -> dict[str, list[np.ndarray]]:
+    """Record every moe layer's router gates (B, T, E), in call order, in
+    each package, each from its own input to ``moe_ffn`` (the reference's
+    through ``jax.debug.callback`` inside its jitted scan)."""
+    from repro.models import moe as JM
+    from repro_torch.models import moe as TM
+
+    seen: dict[str, list[np.ndarray]] = {"jax": [], "torch": []}
+    jax_ffn, torch_ffn = JM.moe_ffn, TM.moe_ffn
+
+    def jax_spy(p, x, cfg, slot_map=None):
+        g = jax.nn.softmax((x @ p["router"].astype(x.dtype))
+                           .astype(jnp.float32), axis=-1)
+        jax.debug.callback(lambda v: seen["jax"].append(np.asarray(v)), g)
+        return jax_ffn(p, x, cfg, slot_map)
+
+    def torch_spy(p, x, cfg, slot_map=None):
+        with torch.no_grad():
+            seen["torch"].append(torch.softmax(
+                (x @ p.router.to(x.dtype)).float(), dim=-1).numpy())
+        return torch_ffn(p, x, cfg, slot_map)
+
+    monkeypatch.setattr(JM, "moe_ffn", jax_spy)
+    monkeypatch.setattr(TM, "moe_ffn", torch_spy)
+    return seen
+
+
+def _tokens_no_reroute_reached(seen, k: int, dtype: str) -> np.ndarray:
+    """(B, T) mask of the tokens whose hidden state no rerouting reached;
+    asserts the near-tie of every reroute whose input was clear."""
+    assert len(seen["jax"]) == len(seen["torch"]) > 0
+    reached = np.zeros(seen["jax"][0].shape[:2], bool)
+    for layer, (jg, tg) in enumerate(zip(seen["jax"], seen["torch"])):
+        top = lambda g: np.sort(np.argsort(-g, -1, kind="stable")[..., :k],
+                                -1)
+        rerouted = (top(jg) != top(tg)).any(-1)
+        # causal attention carries what reached a token to the later ones
+        reached = np.logical_or.accumulate(reached, axis=1)
+        for b, t in zip(*np.nonzero(rerouted & ~reached)):
+            assert dtype == "bfloat16", (layer, b, t)  # float32 routes alike
+            g = np.sort(jg[b, t])[::-1]
+            ulp = 2.0 ** (np.floor(np.log2(g[k - 1])) - 7)
+            assert g[k - 1] - g[k] < ulp, (layer, b, t, g)
+        reached |= rerouted
+    return ~reached
 
 
 def _qkv(rng, b, t, s, h, kv, d, dtype):
@@ -160,7 +221,9 @@ def test_causal_alignment_is_top_left_like_the_kernel():
 
 
 # ------------------------------------- (c) attention and decode_attention
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
+                                  "qwen2-moe-a2.7b",
+                                  "moonshot-v1-16b-a3b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_and_decode_attention_match_jax(arch, dtype):
     jcfg, tcfg = _cfg(arch, dtype)
@@ -192,9 +255,11 @@ def test_attention_and_decode_attention_match_jax(arch, dtype):
 
 
 # ------------------------------------------ (d) lm_forward and model.loss
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
+                                  "qwen2-moe-a2.7b",
+                                  "moonshot-v1-16b-a3b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lm_forward_and_loss_match_jax(arch, dtype):
+def test_lm_forward_and_loss_match_jax(arch, dtype, monkeypatch):
     from repro.data.tokens import make_batch as jax_make_batch
     from repro_torch.data.tokens import make_batch
 
@@ -202,10 +267,19 @@ def test_lm_forward_and_loss_match_jax(arch, dtype):
     jb = jax_make_batch(jcfg, 2, 150, 0)
     tb = make_batch(tcfg, 2, 150, 0, device="cpu")
     np.testing.assert_array_equal(tb["tokens"].numpy(), np.asarray(jb["tokens"]))
+    seen = _spy_router_gates(monkeypatch) if jcfg.moe is not None else None
     with torch.inference_mode():
         h = TT.lm_forward(tp, tb["tokens"], tcfg)
-    jh = jax.jit(JT.lm_forward, static_argnums=2)(jp, jb["tokens"], jcfg)
-    _close_hidden(h, jh, dtype)
+    # a fresh function, so that the trace holds the spy
+    jh = jax.jit(lambda p, t: JT.lm_forward(p, t, jcfg))(jp, jb["tokens"])
+    keep = None
+    if seen is not None:
+        jax.effects_barrier()
+        assert len(seen["jax"]) == jcfg.n_layers
+        keep = _tokens_no_reroute_reached(seen, jcfg.moe.top_k, dtype)
+        assert keep.any()
+        monkeypatch.undo()
+    _close_hidden(h, jh, dtype, keep)
     loss = tm.loss(tp, tb)
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
     np.testing.assert_allclose(float(loss), float(jax.jit(jm.loss)(jp, jb)),
@@ -213,7 +287,9 @@ def test_lm_forward_and_loss_match_jax(arch, dtype):
 
 
 # ---------------------------------------------------- (e) lm_decode_step
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
+                                  "qwen2-moe-a2.7b",
+                                  "moonshot-v1-16b-a3b"])
 def test_decode_steps_match_jax(arch):
     """Greedy tokens equal and the caches close over a few steps (float32,
     so that no near-tie of bf16 logits can flip an argmax)."""
@@ -273,7 +349,8 @@ def test_tokens_and_configs_match_jax():
     from repro_torch.data.tokens import synthetic_batches
 
     assert set(ARCH_IDS) == {"llama3-8b", "qwen1.5-4b", "yi-9b",
-                             "codeqwen1.5-7b"}
+                             "codeqwen1.5-7b", "qwen2-moe-a2.7b",
+                             "moonshot-v1-16b-a3b"}
     for arch in ARCH_IDS:
         for get, jget in ((get_config, jax_get_config),
                           (get_smoke_config, jax_smoke_config)):
@@ -303,8 +380,9 @@ def test_unported_options_raise():
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, LATER
 
-    # the moe (and with it sharded_moe), ssm, hybrid, vlm and audio families
+    # the ssm, hybrid, vlm and audio families (sharded_moe is item 12d)
     assert set(LATER) == set(JAX_ARCH_IDS) - set(ARCH_IDS)
+    assert set(LATER.values()) == {"ssm", "hybrid", "vlm", "audio"}
     for arch, family in LATER.items():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match="item 12c"):

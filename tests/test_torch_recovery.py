@@ -16,6 +16,8 @@ has a tolerance.
 """
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from repro.runtime import fault_tolerance as JFT
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.core.engine import AdHashEngine
 from repro_torch.core.query import Query as TQuery
+from repro_torch.kernels.tuning import tuned_table
 from repro_torch.runtime import fault_injection as TFI
 from repro_torch.runtime import fault_tolerance as TFT
 
@@ -242,7 +245,10 @@ def test_crash_mid_save_keeps_previous_adaptivity_snapshot(tmp_path):
         offsets[pkg + "_manifest"] = m
     assert offsets["t"] == offsets["j"] == 3
     jm, tm = offsets["j_manifest"], offsets["t_manifest"]
-    assert tm.pop("tuned") == {} and jm.pop("tuned")
+    # each package writes its own platform's table: the port's is keyed by
+    # the CUDA kernels' tiles, the reference's by the Pallas block sizes
+    assert tm.pop("tuned") == {"cpu": tuned_table("cpu")}
+    assert set(jm.pop("tuned")) == {"cpu"}
     assert tm == jm  # the same manifest, key for key, but ``tuned``
 
 
@@ -331,7 +337,11 @@ def test_snapshot_crosses_packages(tmp_path, zipf_masters, writer):
         mgr = CheckpointManager(tmp_path)
         mgr.save_engine_state(t_eng, [_port(q) for q in qs])
         mgr.save_adaptivity(t_eng, step=7)
-        assert not (tmp_path / "adaptivity0000000007" / "tuned").exists()
+        # the tuned table in the loader's format, which the reference's
+        # restore leaves unread as its own does
+        table = tmp_path / "adaptivity0000000007" / "tuned" / "cpu.json"
+        assert json.loads(table.read_text()) == {
+            "platform": "cpu", "kernels": tuned_table("cpu")}
         rec = JFT.recover_master(JManager(tmp_path), triples, 4, **_J, **kw)
         src = t_eng
     assert_same_master(rec, src)

@@ -71,7 +71,7 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      global_norm)
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["llama3-8b", "qwen1.5-4b"]
+ARCHS = ["llama3-8b", "qwen1.5-4b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"]
 
 
 def _f32(arch: str):
