@@ -41,6 +41,10 @@ Groups (all by default):
           formula, and each batch's seconds)
   moe     qwen2-moe-a2.7b as the moe phase drives it, the same calls and
           tokens/s as ``lm`` (the controller's budget from its config)
+  ssm, hybrid, vlm  mamba2-130m, recurrentgemma-2b and internvl2-2b as
+          their phases drive them, the same calls and tokens/s as ``lm``
+          (a vlm prefill is 256 patches and 3,840 tokens a row; its
+          tokens/s count both)
 
 The last line holds each key's times per tree.  Without a card it exits 1.
 """
@@ -63,7 +67,10 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
 GROUPS = ("dsj", "bucket", "flash", "flash_bwd", "unique", "lubm", "lm",
-          "moe")
+          "moe", "ssm", "hybrid", "vlm")
+#: the model groups past ``lm``: group -> arch (``chip_smoke.py``'s)
+FAMILIES = {"moe": "MOE_ARCH", "ssm": "SSM_ARCH", "hybrid": "HYBRID_ARCH",
+            "vlm": "VLM_ARCH"}
 
 
 def measure(root: str, groups: list[str]) -> dict:
@@ -154,9 +161,10 @@ def measure(root: str, groups: list[str]) -> dict:
         out.update(measure_lubm(torch, chip_smoke))
     if "lm" in groups:
         out.update(measure_lm(torch, chip_smoke, "llama3-8b"))
-    if "moe" in groups:
-        out.update({f"moe {key}": v for key, v in measure_lm(
-            torch, chip_smoke, chip_smoke.MOE_ARCH).items()})
+    for group, attr in FAMILIES.items():
+        if group in groups:
+            out.update({f"{group} {key}": v for key, v in measure_lm(
+                torch, chip_smoke, getattr(chip_smoke, attr)).items()})
     return out
 
 
@@ -247,7 +255,9 @@ def measure_lm(torch, chip_smoke, arch: str) -> dict:
     cfg = get_config(arch)
     model = build_model(cfg, device="cuda")
     params = model.init(0, dtype=torch.bfloat16)
-    batch = make_batch(cfg, *chip_smoke.PREFILL, 0, device="cuda")
+    b, t = chip_smoke.PREFILL  # a vlm row: its patches, then the text
+    prefix = cfg.vlm.n_patches if cfg.vlm is not None else 0
+    batch = make_batch(cfg, b, t - prefix, 0, device="cuda")
     prefill_s = []
     for _ in range(4):  # one cold call, three warm
         a = time.perf_counter()
@@ -258,8 +268,7 @@ def measure_lm(torch, chip_smoke, arch: str) -> dict:
     ctrl = AdaptiveShardingController(cfg.vocab_size, budget=budget)
     times, _ = serve_loop(model, params, batch_size=8, max_len=128,
                           steps=16, n_batches=4, controller=ctrl)
-    return {"prefill tokens/s": batch["tokens"].numel() /
-            float(np.mean(prefill_s[1:])),
+    return {"prefill tokens/s": b * t / float(np.mean(prefill_s[1:])),
             "decode tokens/s": 8 * 16 / float(np.mean(times[1:])),
             "decode batch s": [float(x) for x in times]}
 

@@ -17,8 +17,11 @@ substrate (W split over ``torch.distributed`` ranks: NCCL at world size 1,
 two gloo ranks on the card), a 32 M-triple Zipf stream, the dense LM's
 serving path (prefill and decode of llama3-8b) and its training path
 (qwen1.5-4b train steps), the moe family (qwen2-moe-a2.7b served at full
-size, trained at full width) and the partitioning baselines of the startup
-claim -- checks the answers, and prints one JSON line per phase.  Any
+size, trained at full width), the partitioning baselines of the startup
+claim, and the ssm, hybrid and vlm families (mamba2-130m, recurrentgemma-2b
+and internvl2-2b served at full size; mamba2-130m trained at full size,
+internvl2-2b's train step held to the CPU port) -- checks the answers, and
+prints one JSON line per phase.  Any
 mismatch or exception exits non-zero; without a card it exits 1 before
 doing anything.
 
@@ -73,7 +76,16 @@ Phases:
             printed, not gated); SDPA's backward timed beside the kernel
             (a boolean mask for q_offset > 0); kernel, plain and
             library-call medians over CUDA events, the roofline bound, and
-            for bf16 the share of the tensor-core peak (``tc_share``)
+            for bf16 the share of the tensor-core peak (``tc_share``); the
+            forward with a window and at hd 256 (``FLASH_WINDOW_SHAPES``):
+            the hybrid prefill's shape (B=4, T=S=4096, H=10, KV=1, hd=256,
+            bf16, causal, window 2048), then f32 at hd 256, window 1,
+            window 4096 >= T (which must give the unwindowed launch's
+            bits), T=1024 S=4096 q_offset=3072, odd T=S=1001 and hd 256
+            with no window, each within the limits above and bit-identical
+            on relaunch; the bound counts the visible pairs; SDPA with the
+            window as a boolean mask (KV heads repeated) is the library
+            call, and the row names the backend it took
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run and, by
@@ -214,6 +226,34 @@ Phases:
             state), B=1, T=4096: one warm-up and two timed steps, 8
             forward / 4 backward flash launches a step, finite loss and
             grad_norm, tokens/s, peak memory, one profiled step
+  6b ssm    mamba2-130m at full size, bf16 weights from seed 0: prefill
+            (``model.loss``, B=4, T=4096) cold and 3x warm, no attention;
+            decode (``serve_loop``: batch 8, 16 steps, 4 batches); profiled
+            prefill and decode batch (busy share); then ``ssm-train``: the
+            train CLI with no ``--arch`` (its default, the reference's) for
+            two steps, and ``make_train_step`` at B=1, T=4096 (float32
+            parameters, bf16 compute, remat), a warm-up and 3 timed steps,
+            finite loss and grad_norm, tokens/s, peak memory
+    ssm-parity  2 layers at full width in float32, B=1, T=520 (not a
+            multiple of the chunk, 256), card against the CPU port: hidden
+            states within 1e-4 and the loss within 1e-5 relative; 24
+            decode steps, each step's state within 1e-4 and its logits
+            within 1e-4 of their largest magnitude; one train step at
+            phase 5's limits
+    hybrid  recurrentgemma-2b at full size (26 layers: 8 groups and a tail
+            of 2), bf16: as ``ssm``, with 8 flash_attention launches a
+            prefill, each windowed (2048) at hd 256, counted
+    hybrid-parity  one group (3 layers) at full width in float32, B=1,
+            T=4096 (the window cuts in): hidden states within 1e-4, the
+            loss within 1e-5 relative; 16 decode steps at positions 2040
+            to 2055 on caches filled from a seed, crossing the ring's wrap
+            (2048 slots), logits and every cache leaf as in ssm-parity
+    vlm     internvl2-2b at full size, bf16: as ``ssm``, the prefill 256
+            patches and 3,840 text tokens a row, 24 flash_attention
+            launches a call
+    vlm-parity  2 layers at full width in float32, 256 patches and 264
+            tokens: hidden states and loss as above, one train step at
+            phase 5's limits
   7 startup ``benchmarks/bench_startup.py``'s rows at W = 16 on phase
             2's LUBM-100 triples (run right after phase 2b, while they are
             held): hash on subject, random and ``mincut_lite`` seconds
@@ -223,8 +263,8 @@ Phases:
 Each path's kernels must launch on that path's run (the DSJ kernels on
 LUBM, on the directory engines and on the mesh; on a served stream probe and
 ``expand`` always, all four once a staged answer was served;
-flash_attention on the LM and on the moe path; its backward on the train
-steps, dense and moe).  Each phase
+flash_attention on the LM, the moe, the hybrid (windowed, hd 256) and the
+vlm prefills; its backward on the train steps, dense and moe).  Each phase
 prints its wall seconds.  The line before the last holds every kernel's
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -944,13 +984,147 @@ def grad_errors(got, want) -> tuple[float, float]:
     return worst[0], worst[1]
 
 
-def visible_pairs(t: int, s: int, causal: bool, q_offset: int) -> int:
-    """(query, key) pairs the mask lets through: sum over t of
-    min(S, q_offset + t + 1) when causal, else T * S."""
-    if not causal:
-        return t * s
-    last = np.minimum(s, q_offset + np.arange(t, dtype=np.int64) + 1)
-    return int(last.sum())
+def visible_pairs(t: int, s: int, causal: bool, q_offset: int,
+                  window: int = 0) -> int:
+    """(query, key) pairs the mask lets through: over the queries t, the
+    keys below min(S, q_offset + t + 1) when causal (else S), from
+    max(0, q_offset + t - window + 1) with a window."""
+    qpos = q_offset + np.arange(t, dtype=np.int64)
+    hi = np.minimum(s, qpos + 1) if causal else np.full(t, s, np.int64)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+# phase 1's windowed and hd-256 forward rows, the hybrid prefill's shape
+# first (recurrentgemma-2b: H=10, KV=1, hd=256, window 2048): (variant, B,
+# T, S, H, KV, hd, dtype, causal, q_offset, window)
+FLASH_WINDOW_SHAPES = [
+    ("recurrentgemma-2b prefill layer B=4 T=S=4096 H=10 KV=1 hd=256 bf16 "
+     "causal window 2048", 4, 4096, 4096, 10, 1, 256, "bfloat16", True, 0,
+     2048),
+    ("f32 hd=256 window 2048", 1, 4096, 4096, 10, 1, 256, "float32", True,
+     0, 2048),
+    ("window 1 (the diagonal)", 1, 4096, 4096, 10, 1, 256, "bfloat16", True,
+     0, 1),
+    ("window 4096 >= T (the unwindowed bits)", 1, 4096, 4096, 10, 1, 256,
+     "bfloat16", True, 0, 4096),
+    ("T=1024 S=4096 q_offset=3072 window 2048", 1, 1024, 4096, 10, 1, 256,
+     "bfloat16", True, 3072, 2048),
+    ("odd T=S=1001 window 300", 1, 1001, 1001, 10, 1, 256, "bfloat16", True,
+     0, 300),
+    ("hd=256 no window", 1, 4096, 4096, 10, 1, 256, "bfloat16", True, 0, 0),
+]
+
+
+def sdpa_backend(torch, fn) -> dict:
+    """The CUDA kernel that takes most of ``fn()``'s device time under the
+    profiler, and the SDPA backend its name points to."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    self_us = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == cuda), key=self_us, reverse=True)
+    top = kernels[0].key if kernels else ""
+    low = top.lower()
+    backend = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+               else "efficient" if "fmha" in low or "efficient" in low
+               else "math")
+    return {"backend": backend, "top_kernel": top[:80]}
+
+
+def phase_flash_window(torch) -> dict:
+    """The forward kernels with a window and at hd 256 against the plain
+    version, at the hybrid prefill's shape and variants; returns the main
+    row (B=4, T=S=4096, H=10, KV=1, hd=256, bf16, causal, window 2048)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_cuda, flash_attention_plain, flash_engine)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+    main_row = None
+    for variant, b, t, s, h, kv, hd, dname, causal, off, w in \
+            FLASH_WINDOW_SHAPES:
+        dt = getattr(torch, dname)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                         dtype=torch.float32).to(dt)
+        q, k, v = rnd(b, t, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+        kw = dict(causal=causal, q_offset=off, window=w)
+        with torch.inference_mode():
+            got = flash_attention_cuda(q, k, v, **kw)
+            relaunch_equal = torch.equal(got, flash_attention_cuda(q, k, v,
+                                                                   **kw))
+            unwindowed_equal = None
+            if w >= off + t:  # hides nothing: the unwindowed launch's bits
+                unwindowed_equal = torch.equal(got, flash_attention_cuda(
+                    q, k, v, causal=causal, q_offset=off))
+            want = flash_attention_plain(q, k, v, **kw)
+            err, rel = attention_errors(got, want)
+            del want, got
+            if not (err <= tols[dt][0] and rel <= tols[dt][1]):
+                raise AssertionError(
+                    f"flash_attention {variant}: max abs err {err} (limit "
+                    f"{tols[dt][0]}), max err within a row over its max "
+                    f"{rel} (limit {tols[dt][1]})")
+            if not relaunch_equal or unwindowed_equal is False:
+                raise AssertionError(
+                    f"flash_attention {variant}: relaunch bit-identical "
+                    f"{relaunch_equal}, equal to the unwindowed launch "
+                    f"{unwindowed_equal}")
+            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
+            plain_ms = time_ms(torch, lambda: flash_attention_plain(
+                q, k, v, **kw), 5)
+            # SDPA with the window as a boolean mask, KV heads expanded
+            qpos = off + torch.arange(t, device=dev)[:, None]
+            kpos = torch.arange(s, device=dev)[None, :]
+            mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+            if w > 0:
+                mask = mask & (kpos > qpos - w)
+            qt = q.transpose(1, 2)
+            kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+                      for x in (k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
+            library_ms = time_ms(torch, sdpa, 5)
+            library = sdpa_backend(torch, sdpa)
+        pairs = visible_pairs(t, s, causal, off, w)
+        isz = q.element_size()
+        bytes_moved = 2 * b * t * h * hd * isz + 2 * b * s * kv * hd * isz
+        flops = 4 * b * h * hd * pairs
+        b_ms, b_by = bound(bytes_moved, flops, FLOPS_PER_S[dname])
+        row = {"phase": "kernels", "kernel": "flash_attention",
+               "variant": variant,
+               "shape": {"B": b, "T": t, "S": s, "H": h, "KV": kv, "hd": hd,
+                         "q_offset": off, "window": w},
+               "dtype": dname, "causal": causal, "engine": flash_engine(dt),
+               "max_abs_err": err, "max_row_rel_err": rel,
+               "tolerance": {"abs": tols[dt][0], "row_rel": tols[dt][1]},
+               "bit_identical_relaunch": relaunch_equal,
+               "equals_unwindowed_launch": unwindowed_equal,
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "F.scaled_dot_product_attention(attn_mask=window "
+                          "mask, KV heads repeated)", **{
+                              f"library_{k_}": v_
+                              for k_, v_ in library.items()},
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
+               "visible_pairs": pairs, "ops": flops,
+               "tflops": flops / ms / 1e9, "tc_share": tc_share(dt, flops,
+                                                                ms)}
+        emit(row)
+        if main_row is None:
+            main_row = row
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return main_row
 
 
 # the forward kernels' log-sum-exp against the plain forward's: float32
@@ -3446,6 +3620,379 @@ def phase_moe_train(torch) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 6b
+SSM_ARCH = "mamba2-130m"  # the train CLI's default arch, as the reference's
+HYBRID_ARCH = "recurrentgemma-2b"
+VLM_ARCH = "internvl2-2b"
+# float32 card against CPU port: products summed in another order
+PARITY_TOL = 1e-4
+
+
+@contextmanager
+def attention_spy(torch):
+    """Records (window, head dim) of every prefill attention call that goes
+    to ``flash_attention`` while open."""
+    from repro_torch.models import attention as TA
+
+    seen: list[tuple[int, int]] = []
+    inner = TA.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((int(kw.get("window", 0)), int(q.shape[-1])))
+        return inner(q, k, v, **kw)
+
+    TA.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        TA.flash_attention = inner
+
+
+def family_serving(torch, phase: str, arch: str, text_len: int,
+                   flash_per_call: int, window: int = 0) -> dict[str, int]:
+    """``arch`` at full width and depth, bf16 weights from seed 0, through
+    the port's entry points: prefill (``model.loss`` on B=4 and
+    ``text_len`` tokens under ``torch.inference_mode()``, one cold call and
+    three warm, each with ``flash_per_call`` flash_attention launches, all
+    with ``window``), a profiled prefill and decode batch, decode
+    (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches, with the
+    adaptive controller).  Returns the launches of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import AdaptiveShardingController
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch)
+    walls: dict[str, float] = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0, dtype=torch.bfloat16)
+    batch = make_batch(cfg, PREFILL[0], text_len, 0, device="cuda")
+    torch.cuda.synchronize()
+    walls["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    prefix = cfg.vlm.n_patches if cfg.vlm is not None else 0
+    positions = PREFILL[0] * (prefix + text_len)
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    losses, prefill_s = [], []
+    with attention_spy(torch) as calls:
+        for i in range(4):  # one cold call, three warm
+            before, seen = LAUNCHES["flash_attention"], len(calls)
+            a = time.perf_counter()
+            with torch.inference_mode():  # prefill: no autograd, no remat
+                loss = float(model.loss(params, batch))
+            prefill_s.append(time.perf_counter() - a)
+            losses.append(loss)
+            launched = LAUNCHES["flash_attention"] - before
+            if launched != flash_per_call or any(
+                    w != window or hd != cfg.hd for w, hd in calls[seen:]):
+                raise AssertionError(
+                    f"{phase} prefill call {i}: {launched} flash_attention "
+                    f"launches with (window, hd) {calls[seen:]}, expected "
+                    f"{flash_per_call} with {(window, cfg.hd)}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"{phase} prefill call {i}: loss {loss}")
+    walls["prefill_s"] = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    warm_s = float(np.mean(prefill_s[1:]))
+
+    t0 = time.perf_counter()
+    ctrl = AdaptiveShardingController(
+        cfg.vocab_size, budget=cfg.adaptive.embedding_hot_budget)
+    times, plan = serve_loop(model, params, batch_size=8, max_len=128,
+                             steps=16, n_batches=4, controller=ctrl)
+    walls["decode_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    decode_tps = 8 * 16 / float(np.mean(times[1:]))  # serve.py's formula
+
+    # where a warm prefill's and a decode batch's device time goes (the
+    # profiler's overhead is in these walls, not in the times above)
+    t0 = time.perf_counter()
+    prefill_prof = profile_run(torch, torch.inference_mode()(
+        lambda: model.loss(params, batch)))
+    decode_prof = profile_run(torch, lambda: serve_loop(
+        model, params, batch_size=8, max_len=128, steps=4, n_batches=1))
+    busy = {}
+    for what, prof in (("prefill B=%d T=%d" % (PREFILL[0], prefix + text_len),
+                        prefill_prof),
+                       ("decode batch 8 x 4 steps", decode_prof)):
+        busy[what.split()[0]] = 1 - prof["idle_share"]
+        emit({"phase": f"{phase}-profile", "what": what,
+              **{k: v for k, v in prof.items() if k != "port_kernels_ms"},
+              "busy_share": 1 - prof["idle_share"]})
+    walls["profile_s"] = time.perf_counter() - t0
+    emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+          "vocab": cfg.vocab_size, "weights_dtype": "bfloat16",
+          "params": n_params, "param_count_cfg": cfg.param_count(),
+          "weight_bytes": weight_bytes,
+          "prefill": {"batch": PREFILL[0], "patches": prefix,
+                      "text": text_len, "positions": positions,
+                      "cold_s": prefill_s[0], "warm_s": prefill_s[1:],
+                      "warm_tokens_per_s": positions / warm_s,
+                      "loss": losses, "busy_share": busy["prefill"],
+                      "flash_launches_per_call": flash_per_call,
+                      "attention_window": window,
+                      "max_memory_allocated": prefill_peak},
+          "decode": {"batch": 8, "max_len": 128, "steps": 16, "batches": 4,
+                     "batch_s": times, "steady_tok_per_s": decode_tps,
+                     "busy_share": busy["decode"], "n_hot": plan.n_hot,
+                     "coverage": plan.coverage},
+          "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "walls": walls})
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssm_train(torch) -> None:
+    """The train CLI's default arch (mamba2-130m, the reference's default)
+    on the card: ``launch.train.main`` for two steps with no ``--arch``,
+    then ``make_train_step`` at full width and depth (float32 parameters,
+    bf16 compute, remat) on ``make_batch(cfg, 1, 4096, step)``: a warm-up
+    step and three timed ones, each with finite loss and grad_norm."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train.main(["--steps", "2", "--batch", "1", "--seq", "4096"])
+    cli_s = time.perf_counter() - t0
+    text = out.getvalue()
+    cli_losses = [float(line.split()[3]) for line in text.splitlines()
+                  if line.startswith("step")]
+    if f"arch={SSM_ARCH} device=cuda" not in text or not cli_losses or \
+            not all(map(math.isfinite, cli_losses)):
+        raise AssertionError(f"ssm-train: the train CLI's default run "
+                             f"printed {text!r}")
+    cfg = get_config(SSM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig())
+    batches = [make_batch(cfg, *TRAIN, i, device="cuda") for i in range(4)]
+    steps = []
+    for i in range(4):  # one warm-up step, three timed
+        a = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batches[i])
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        steps.append({"step": i, "s": time.perf_counter() - a, "loss": loss,
+                      "grad_norm": gnorm})
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"ssm train step {i}: loss {loss}, "
+                                 f"grad_norm {gnorm}")
+    step_s = float(np.mean([r["s"] for r in steps[1:]]))
+    emit({"phase": "ssm-train", "arch": cfg.name,
+          "cli": {"argv": "--steps 2 --batch 1 --seq 4096 (no --arch)",
+                  "first_line": text.splitlines()[0], "losses": cli_losses,
+                  "s": cli_s},
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "remat": cfg.remat, "batch": TRAIN[0], "seq": TRAIN[1],
+          "steps": steps, "step_s": step_s,
+          "tokens_per_s": TRAIN[0] * TRAIN[1] / step_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del params, opt, model, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cache_leaves(cache) -> list:
+    """The tensors of a decode cache (nested dicts and lists), in order."""
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in cache_leaves(cache[k])]
+    if isinstance(cache, (list, tuple)):
+        return [t for c in cache for t in cache_leaves(c)]
+    return [cache]
+
+
+def max_err(torch, got, want, scaled: bool = False) -> tuple[float, bool]:
+    """Max abs difference of two tensors (``got`` on any device) and
+    whether they are close within PARITY_TOL (atol = rtol); with
+    ``scaled`` the atol is PARITY_TOL of max(1, the largest magnitude of
+    ``want``), as phase 4 holds hidden states: a logit is a sum of D
+    products of size ~1 (tens in all), so one near 0 keeps the sum's
+    absolute error."""
+    g = got.detach().float().cpu()
+    w = want.detach().float()
+    atol = PARITY_TOL * (max(1.0, float(w.abs().max())) if scaled else 1.0)
+    return (float((g - w).abs().max()),
+            bool(torch.allclose(g, w, atol=atol, rtol=PARITY_TOL)))
+
+
+def family_parity(torch, phase: str, cfg2, text_len: int,
+                  decode_at: tuple[int, int] | None, decode_max_len: int,
+                  train: bool) -> None:
+    """The float32 config ``cfg2`` at seed 0 on the card and a copy on the
+    CPU port: hidden states (one forward each) within PARITY_TOL and the
+    loss from them within 1e-5 relative; decode steps at positions
+    ``decode_at`` (a range) teacher-forced with the batch's tokens, each
+    step's logits (of their largest magnitude) and every cache leaf within
+    PARITY_TOL, from caches of
+    ``decode_max_len`` filled from a seed when the range starts past 0;
+    then, with ``train``, one train step at phase 5's limits."""
+    import copy
+
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import transformer as TT
+    from repro_torch.models import vlm as TV
+    from repro_torch.models.model_zoo import build_model
+
+    t0 = time.perf_counter()
+    gpu, cpu = build_model(cfg2, device="cuda"), build_model(cfg2,
+                                                             device="cpu")
+    pg = gpu.init(0)
+    pc = copy.deepcopy(pg).to("cpu")
+    bg = make_batch(cfg2, 1, text_len, 0, device="cuda")
+    bc = {k: v.cpu() for k, v in bg.items()}
+
+    def forward(p, batch) -> tuple[torch.Tensor, float, float]:
+        a = time.perf_counter()
+        with torch.inference_mode():
+            emb = (TV._project(p, batch["patches"], cfg2)
+                   if cfg2.vlm is not None else None)
+            h = TT.lm_forward(p, batch["tokens"], cfg2, inputs_embeds=emb)
+            text = h if emb is None else h[:, emb.shape[1]:]
+            loss = float(TT.hidden_loss(p, text, batch["labels"], cfg2))
+        return h, loss, time.perf_counter() - a
+
+    h_card, loss_card, card_s = forward(pg, bg)
+    h_host, loss_host, host_s = forward(pc, bc)
+    hidden_err, hidden_ok = max_err(torch, h_card, h_host)
+    loss_rel = abs(loss_card - loss_host) / abs(loss_host)
+    del h_card, h_host
+    forward_s = time.perf_counter() - t0
+
+    decode = None
+    if decode_at is not None:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cg = gpu.init_cache(1, decode_max_len)
+            cc = cpu.init_cache(1, decode_max_len)
+            if decode_at[0] > 0:  # a history the steps continue
+                gen = torch.Generator().manual_seed(7)
+                for a, b in zip(cache_leaves(cg), cache_leaves(cc)):
+                    b.copy_(torch.randn(b.shape, generator=gen))
+                    a.copy_(b)
+            logits_err, cache_err, ok = 0.0, 0.0, True
+            for i, pos in enumerate(range(*decode_at)):
+                tok = bc["tokens"][:, i % text_len:i % text_len + 1]
+                lg, cg = gpu.decode(pg, cg, {"tokens": tok.cuda(),
+                                             "pos": pos})
+                lc, cc = cpu.decode(pc, cc, {"tokens": tok, "pos": pos})
+                e, good = max_err(torch, lg, lc, scaled=True)
+                logits_err, ok = max(logits_err, e), ok and good
+                for a, b in zip(cache_leaves(cg), cache_leaves(cc)):
+                    e, good = max_err(torch, a, b)
+                    cache_err, ok = max(cache_err, e), ok and good
+        decode = {"positions": list(decode_at), "max_len": decode_max_len,
+                  "caches_from_seed": decode_at[0] > 0,
+                  "logits_max_abs_err": logits_err,
+                  "logits_tolerance": f"atol {PARITY_TOL} x max(1, "
+                                      f"max|logits|), rtol {PARITY_TOL}",
+                  "cache_max_abs_err": cache_err, "ok": ok,
+                  "s": time.perf_counter() - t0}
+        del cg, cc
+
+    row = None
+    models = [gpu, cpu, pg, pc]  # the train step starts from these weights
+    del gpu, cpu, pg, pc
+    if train:
+        t0 = time.perf_counter()
+        row = card_vs_cpu_steps(torch, cfg2, 1, text_len, models)[0]
+        row["s"] = time.perf_counter() - t0
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (hidden_ok and loss_rel <= STEP_TOL["loss_rel"] and
+          (decode is None or decode["ok"]) and (row is None or row["ok"]))
+    emit({"phase": phase, "arch": cfg2.name, "n_layers": cfg2.n_layers,
+          "compute_dtype": cfg2.dtype, "batch": 1, "seq": text_len,
+          "patches": cfg2.vlm.n_patches if cfg2.vlm is not None else 0,
+          "hidden_max_abs_err": hidden_err,
+          "tolerance": {"hidden": PARITY_TOL, "loss_rel":
+                        STEP_TOL["loss_rel"]},
+          "loss": [loss_card, loss_host], "loss_rel_err": loss_rel,
+          "decode": decode, "train_step": row,
+          "forward_s": {"card": card_s, "cpu": host_s, "phase": forward_s},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: the card's model disagrees with the "
+                             "CPU port's (see the line above)")
+
+
+def phase_families(torch) -> dict[str, int]:
+    """The ssm, hybrid and vlm families on the card (phases ssm,
+    ssm-parity, hybrid, hybrid-parity, vlm, vlm-parity); returns the
+    flash_attention launches of the hybrid and vlm prefill paths."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    walls: dict[str, float] = {}
+    launches = {"flash_attention": 0}
+    t0 = time.perf_counter()
+    family_serving(torch, "ssm", SSM_ARCH, PREFILL[1], 0)
+    phase_ssm_train(torch)
+    walls["ssm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family_parity(torch, "ssm-parity",
+                  dataclasses.replace(get_config(SSM_ARCH), n_layers=2,
+                                      dtype="float32"),
+                  520, (0, 24), 64, train=True)
+    walls["ssm_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hybrid = get_config(HYBRID_ARCH)
+    launches["flash_attention"] += family_serving(
+        torch, "hybrid", HYBRID_ARCH, PREFILL[1], hybrid.n_layers // 3,
+        window=hybrid.hybrid.window)["flash_attention"]
+    walls["hybrid_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # one group at full width; T = 4096 so the window cuts in; decode
+    # crosses the ring's wrap (2048 slots) from caches filled from a seed
+    w = hybrid.hybrid.window
+    family_parity(torch, "hybrid-parity",
+                  dataclasses.replace(hybrid, n_layers=3, dtype="float32"),
+                  PREFILL[1], (w - 8, w + 8), 2 * w, train=False)
+    walls["hybrid_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vlm = get_config(VLM_ARCH)
+    launches["flash_attention"] += family_serving(
+        torch, "vlm", VLM_ARCH, PREFILL[1] - vlm.vlm.n_patches,
+        vlm.n_layers)["flash_attention"]
+    walls["vlm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family_parity(torch, "vlm-parity",
+                  dataclasses.replace(vlm, n_layers=2, dtype="float32"),
+                  264, None, 0, train=True)
+    walls["vlm_parity_s"] = time.perf_counter() - t0
+    emit({"phase": "families-walls", **walls})
+    return launches
+
+
 # ------------------------------------------------------------ phase 7
 def phase_startup(torch, lubm: dict) -> None:
     """benchmarks/bench_startup.py's rows (paper Table 9) with the port at
@@ -3537,6 +4084,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = phase_kernels(torch, skew_in)
     rows["flash_attention"] = phase_flash(torch)
+    phase_flash_window(torch)
     rows["flash_attention_bwd"] = phase_flash_bwd(torch)
     walls["kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3633,6 +4181,10 @@ def main() -> int:
     launches["flash_attention_bwd"] += \
         phase_moe_train(torch)["flash_attention_bwd"]
     walls["moe_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the hybrid's windowed and the vlm's prefill launches join the others
+    launches["flash_attention"] += phase_families(torch)["flash_attention"]
+    walls["families_s"] = time.perf_counter() - t0
     emit({"phase": "walls", **walls})
 
     sources = {"range_search": ("probe.cu",

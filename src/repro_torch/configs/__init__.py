@@ -1,11 +1,13 @@
 """Architecture configs (one module per arch) + shape sets.
 
 The port's own copy of ``repro.configs`` for the dense family
-(``llama3-8b``, ``qwen1.5-4b``, ``yi-9b``, ``codeqwen1.5-7b``) and the moe
-family (``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b``), which
-``repro_torch.models.model_zoo.build_model`` builds.  The other archs of the
-JAX package are named here and raise ``NotImplementedError``: their configs
-come with the slice that builds them (ROADMAP §1 item 12c).
+(``llama3-8b``, ``qwen1.5-4b``, ``yi-9b``, ``codeqwen1.5-7b``), the moe
+family (``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b``), the ssm family
+(``mamba2-130m``), the hybrid family (``recurrentgemma-2b``) and the vlm
+family (``internvl2-2b``), which ``repro_torch.models.model_zoo.build_model``
+builds.  The JAX package's audio arch is named here and raises
+``NotImplementedError``: its config comes with the slice that builds it
+(ROADMAP §1 item 12c).
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from dataclasses import dataclass
 
 from repro_torch.models.common import ModelConfig, unported
 
-from . import (codeqwen15_7b, llama3_8b, moonshot_v1_16b_a3b, qwen2_moe_a27b,
-               qwen15_4b, yi_9b)
+from . import (codeqwen15_7b, internvl2_2b, llama3_8b, mamba2_130m,
+               moonshot_v1_16b_a3b, qwen2_moe_a27b, qwen15_4b,
+               recurrentgemma_2b, yi_9b)
 
 __all__ = ["ARCH_IDS", "LATER", "SHAPES", "ShapeSpec", "get_config",
            "get_smoke_config"]
@@ -24,14 +27,14 @@ _MODULES = {
     "llama3-8b": llama3_8b,
     "codeqwen1.5-7b": codeqwen15_7b,
     "qwen1.5-4b": qwen15_4b,
+    "mamba2-130m": mamba2_130m,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "qwen2-moe-a2.7b": qwen2_moe_a27b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "internvl2-2b": internvl2_2b,
 }
 #: the JAX package's other archs, by family
 LATER = {
-    "mamba2-130m": "ssm",
-    "recurrentgemma-2b": "hybrid",
-    "internvl2-2b": "vlm",
     "whisper-tiny": "audio",
 }
 

@@ -2,15 +2,15 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // (flash_attention_fwd :76, pallas_call at :97) for float32 inputs and
-// computes the function of repro.models.attention._blocked_attn for
-// window = 0:
+// computes the function of repro.models.attention._blocked_attn:
 //
 //   o[b,t,h] = softmax_s(q[b,t,h] . k[b,s,h/g] * hd^-1/2, masked) . v[b,s,h/g]
 //
 // with g = H / KV (grouped-query attention: each query head reads its KV
-// head in place, nothing is repeated), the mask ``s < S`` and, when causal,
+// head in place, nothing is repeated), the mask ``s < S``, when causal
 // ``s <= q_offset + t`` (top-left alignment shifted by q_offset, as the
-// Pallas kernel and _blocked_attn align it).  Inputs are (B, T, H, hd) and
+// Pallas kernel and _blocked_attn align it), and with a window w > 0
+// ``s > q_offset + t - w``.  Inputs are (B, T, H, hd) and
 // (B, S, KV, hd), contiguous, float32; T and S are any length (ragged tiles
 // are masked in the kernel, nothing is padded).  bf16 inputs go to the
 // tensor-core kernel of flash_attn_sm90.cu.
@@ -30,7 +30,12 @@
 // registers (the 8 threads of a row reduce with shuffles), writes P over
 // the K buffer and accumulates P.V into its 4 rows' slice of the output.
 // Causal CTAs run longest-first (the last query tile is blockIdx.x = 0).
-// Shared memory: 97 KB at hd = 128, two CTAs per SM.
+// With a window the CTA starts at the first key tile its first row sees,
+// and masks the tiles that cross a row's left edge; a window of at least
+// q_offset + T hides nothing and runs the unwindowed schedule (same bits).
+// Shared memory: 97 KB at hd = 128, two CTAs per SM; 193 KB at hd = 256
+// (recurrentgemma-2b's heads), one CTA per SM, and an accumulator of 4
+// rows x 32 columns a thread.
 //
 // When ``lse`` is not null the kernel also stores each row's log-sum-exp of
 // the scaled logits, (B, H, T) float32, which the backward
@@ -92,7 +97,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int64_t t_len,
                   int64_t s_len, int n_heads, int n_kv, int causal,
-                  int64_t q_offset, float qscale) {
+                  int64_t q_offset, int64_t window, float qscale) {
   // output columns per thread: NCH chunks of VEC at chunk*8*VEC + tx*VEC
   constexpr int VEC = HD >= 32 ? 4 : 2;
   constexpr int NCH = HD / (8 * VEC);
@@ -129,6 +134,10 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t last = q_offset + min(m0 + kBM, t_len) - 1;
     n_tiles = min(n_tiles, last / kBN + 1);
   }
+  // none wholly left of the first row's window
+  int64_t first = 0;
+  if (window > 0 && q_offset + m0 - window + 1 > 0)
+    first = min((q_offset + m0 - window + 1) / kBN, n_tiles);
 
   float acc[kRows][NCH * VEC];
   float m_run[kRows];
@@ -142,7 +151,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int64_t qpos0 = q_offset + m0 + ty * kRows;
 
-  for (int64_t tile = 0; tile < n_tiles; ++tile) {
+  for (int64_t tile = first; tile < n_tiles; ++tile) {
     const int64_t n0 = tile * kBN;
     __syncthreads();  // the previous tile's P and V are consumed
     load_tile<HD>(Ks, KLD, kb + n0 * kv_ld, kv_ld, s_len - n0, 1.f);
@@ -186,7 +195,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int64_t kpos = n0 + tx + 8 * j;
-        const bool ok = kpos < s_len && (!causal || kpos <= qpos0 + i);
+        const bool ok = kpos < s_len && (!causal || kpos <= qpos0 + i) &&
+                        (window <= 0 || kpos > qpos0 + i - window);
         sc[i][j] = ok ? sc[i][j] : -CUDART_INF_F;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -275,7 +285,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int64_t t, int64_t s, int h, int kv, int causal,
-           int64_t q_offset, cudaStream_t stream) {
+           int64_t q_offset, int64_t window, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -285,36 +295,41 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const float qscale = kLog2e / sqrtf((float)HD);
   flash_attn_kernel<HD><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, t, s, h, kv, causal, q_offset, qscale);
+      (float*)lse, t, s, h, kv, causal, q_offset, window, qscale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (b, t, h, hd) float32; k, v: (b, s, kv, hd) float32; all contiguous
-// and 16-byte aligned, h a multiple of kv, hd in {16, 32, 64, 128}; lse
-// (b, h, t) float32 or null.
+// and 16-byte aligned, h a multiple of kv, hd in {16, 32, 64, 128, 256};
+// window 0 (none) or the number of keys a query sees, itself included; lse
+// (b, h, t) float32 or null.  A row that sees no key gets zeros and an LSE
+// of -inf.
 extern "C" int adhash_flash_attn_f32(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int b, int64_t t,
                                      int64_t s, int h, int kv, int hd,
                                      int causal, int64_t q_offset,
-                                     void* stream) {
+                                     int64_t window, void* stream) {
   if (b == 0 || t == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                        window, st);
     case 32:
       return launch<32>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                        window, st);
     case 64:
       return launch<64>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                        window, st);
     case 128:
       return launch<128>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                         window, st);
+    case 256:
+      return launch<256>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                         window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

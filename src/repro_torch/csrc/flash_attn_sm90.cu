@@ -2,14 +2,17 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // (flash_attention_fwd :76, pallas_call at :97) for bf16 inputs and computes
-// the function of repro.models.attention._blocked_attn for window = 0:
+// the function of repro.models.attention._blocked_attn:
 //
 //   o[b,t,h] = softmax_s(q[b,t,h] . k[b,s,h/g] * hd^-1/2, masked) . v[b,s,h/g]
 //
 // with g = H / KV (each query head reads its KV head in place), the mask
-// ``s < S`` and, when causal, ``s <= q_offset + t`` (top-left alignment
-// shifted by q_offset).  q, o: (B, T, H, hd); k, v: (B, S, KV, hd); bf16,
-// contiguous; hd in {16, 32, 64, 128}; any T and S below 2^31.  Q.K^T is
+// ``s < S``, when causal ``s <= q_offset + t`` (top-left alignment shifted
+// by q_offset), and with a window w > 0 ``s > q_offset + t - w`` (the
+// hybrid family's local attention, _blocked_attn's mask at
+// src/repro/models/attention.py:117-118).  q, o: (B, T, H, hd); k, v: (B,
+// S, KV, hd); bf16, contiguous; hd in {16, 32, 64, 128, 256}; any T and S
+// below 2^31.  Q.K^T is
 // bf16 x bf16 summed in f32 (as the Pallas kernel computes it); logits, the
 // running max and sum and the accumulator are f32; P is rounded to bf16 for
 // the P.V product; the output is bf16.  float32 inputs go to the CUDA-core
@@ -46,9 +49,19 @@
 //    no transpose copy.
 //  * Causal: tiles above a warpgroup's diagonal are skipped, only tiles
 //    that cross it are masked; the last query tile runs first.
+//  * Window: the key tiles wholly left of a CTA's first row's window are
+//    never loaded (the producer starts at tile (q_offset + m0 - w + 1) /
+//    kBN), a warpgroup skips those left of its own first row's, and only
+//    the tiles that cross a row's left edge are masked.  A window of at
+//    least q_offset + T hides nothing and runs the unwindowed schedule, so
+//    it gives the same bits.
+//  * hd = 256 (recurrentgemma-2b's heads): K/V tiles of 64 keys, S by
+//    wgmma m64n64k16 (32 floats a thread) and O by m64n256k16 (128 floats
+//    a thread); a tile row is four 64-column TMA boxes.
 //
 // Shared memory at hd = 128: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
-// 160 KB (+1 KB for alignment), one CTA per SM; at hd = 64 it is 80 KB.
+// 160 KB (+1 KB for alignment), one CTA per SM; at hd = 64 it is 80 KB; at
+// hd = 256, Q 64 KB + 2 x (32 KB + 32 KB) = 192 KB.
 // Registers: 168 a thread at launch (384 x 168 = 64,512 of the SM's 65,536),
 // redistributed to 24 (producer) and 240 (consumers) by setmaxnreg; the
 // build log (`-Xptxas -v`) prints the figure and any spill.
@@ -69,16 +82,32 @@ namespace {
 using namespace adhash::sm90;
 
 constexpr int kBM = 128;       // query rows per CTA
-constexpr int kBN = 128;       // keys per KV tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
 
-// Shared memory of a CTA: the Q tile and kStages (K, V) tiles of 128 rows,
-// + barriers, + alignment.
+// Keys per K/V tile: 128, or 64 at hd = 256, where two stages of 128-key K
+// and V tiles beside the 128-row Q tile would need 320 KB of shared memory
+// and an S tile of 64 floats a thread beside O's 128.
 template <int HD>
-constexpr size_t kSmem =
-    (1 + 2 * kStages) * (size_t)Tile<HD, 128>::kBytes + 64 + 1024;
+constexpr int kBN = HD == 256 ? 64 : 128;
+
+// Shared memory of a CTA: the Q tile of kBM rows and kStages (K, V) tiles
+// of kBN rows, + barriers, + alignment.
+template <int HD>
+constexpr size_t kSmem = (size_t)Tile<HD, kBM>::kBytes +
+                         2 * kStages * (size_t)Tile<HD, kBN<HD>>::kBytes +
+                         64 + 1024;
+
+// First key tile a run of query rows starting at ``qpos0`` reads: none
+// wholly left of the window (every key s <= qpos0 - window is hidden from
+// all of them).
+__device__ __forceinline__ int first_tile(int64_t qpos0, int64_t window,
+                                          int bn) {
+  if (window <= 0) return 0;
+  const int64_t lo = qpos0 - window + 1;
+  return lo > 0 ? (int)(lo / bn) : 0;
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -88,15 +117,17 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int t_len, int s_len,
                 int n_heads, int n_kv, int causal, int64_t q_offset,
-                float scale_log2) {
-  using L = Tile<HD, 128>;
+                int64_t window, float scale_log2) {
+  constexpr int BN = kBN<HD>;
+  using LQ = Tile<HD, kBM>;  // the Q tile
+  using LK = Tile<HD, BN>;   // a K or V tile
   extern __shared__ uint8_t smem_raw[];
   // swizzle patterns repeat every 1024 bytes: align the tiles to that
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* sq = smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  uint8_t* sk = sq + L::kBytes;             // [kStages] tiles
-  uint8_t* sv = sk + kStages * L::kBytes;   // [kStages] tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + kStages * L::kBytes);
+  uint8_t* sk = sq + LQ::kBytes;             // [kStages] tiles
+  uint8_t* sv = sk + kStages * LK::kBytes;   // [kStages] tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + kStages * LK::kBytes);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;               // [kStages]
   uint64_t* empty = bars + 1 + kStages;    // [kStages]
@@ -108,11 +139,14 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int n_qt = (t_len + kBM - 1) / kBM;
   const int qt = causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int m0 = qt * kBM;
-  int n_tiles = (s_len + kBN - 1) / kBN;
+  // the CTA's key tiles [i0, n_tiles): none past S, none right of its last
+  // row's diagonal, none left of its first row's window
+  int n_tiles = (s_len + BN - 1) / BN;
   if (causal) {
     const int64_t last = q_offset + min(m0 + kBM, t_len) - 1;
-    n_tiles = (int)min((int64_t)n_tiles, last / kBN + 1);
+    n_tiles = (int)min((int64_t)n_tiles, last / BN + 1);
   }
+  const int i0 = min(first_tile(q_offset + m0, window, BN), n_tiles);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -130,21 +164,22 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
     // ---------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x != 0) return;
-    mbar_expect_tx(q_full, L::kBytes);
+    mbar_expect_tx(q_full, LQ::kBytes);
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c)
-      tma_load(sq + c * L::kChunkBytes, &tm_q, q_full, c * L::kCols, h, m0,
-               b);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
-      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
-      mbar_expect_tx(&full[s], 2 * L::kBytes);
+    for (int c = 0; c < LQ::kChunks; ++c)
+      tma_load(sq + c * LQ::kChunkBytes, &tm_q, q_full, c * LQ::kCols, h,
+               m0, b);
+    for (int i = i0; i < n_tiles; ++i) {
+      const int j = i - i0;
+      const int s = j % kStages;
+      mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+      mbar_expect_tx(&full[s], 2 * LK::kBytes);
 #pragma unroll
-      for (int c = 0; c < L::kChunks; ++c) {
-        tma_load(sk + s * L::kBytes + c * L::kChunkBytes, &tm_k, &full[s],
-                 c * L::kCols, kh, i * kBN, b);
-        tma_load(sv + s * L::kBytes + c * L::kChunkBytes, &tm_v, &full[s],
-                 c * L::kCols, kh, i * kBN, b);
+      for (int c = 0; c < LK::kChunks; ++c) {
+        tma_load(sk + s * LK::kBytes + c * LK::kChunkBytes, &tm_k, &full[s],
+                 c * LK::kCols, kh, i * BN, b);
+        tma_load(sv + s * LK::kBytes + c * LK::kChunkBytes, &tm_v, &full[s],
+                 c * LK::kCols, kh, i * BN, b);
       }
     }
     return;
@@ -159,12 +194,14 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = 16 * warp + (lane >> 2);  // this thread's rows: r0, r0 + 8
   const int cq = 2 * (lane & 3);           // its columns in each block of 8
   const int row0 = m0 + 64 * g;            // the warpgroup's first row
-  // tiles this warpgroup reads: none past T, none above its diagonal
+  // tiles this warpgroup reads, [wg_first, wg_tiles): none past T, none
+  // above its diagonal, none left of its window
   int wg_tiles = row0 < t_len ? n_tiles : 0;
   if (causal && wg_tiles > 0) {
     const int64_t last = q_offset + min(row0 + 64, t_len) - 1;
-    wg_tiles = (int)min((int64_t)wg_tiles, last / kBN + 1);
+    wg_tiles = (int)min((int64_t)wg_tiles, last / BN + 1);
   }
+  const int wg_first = first_tile(q_offset + row0, window, BN);
   const int64_t qpos[2] = {q_offset + row0 + r0, q_offset + row0 + r0 + 8};
 
   float acc[HD / 2];
@@ -173,43 +210,50 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l_run[2] = {0.f, 0.f};  // this thread's columns; reduced at the end
 
-  const uint32_t q_addr = smem_u32(sq) + 64 * g * L::kRowBytes;
+  const uint32_t q_addr = smem_u32(sq) + 64 * g * LQ::kRowBytes;
   const uint32_t k_addr = smem_u32(sk);
   const uint32_t v_addr = smem_u32(sv);
-  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8-row group stride
+  constexpr uint32_t kSbo = 8 * LQ::kRowBytes;  // 8-row group stride
   mbar_wait(q_full, 0);
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages;
-    mbar_wait(&full[s], (i / kStages) & 1);
-    if (i < wg_tiles) {
-      const int n0 = i * kBN;
-      // ---- S = Q . K^T (64 x 128, f32)
-      float sc[64];
+  for (int i = i0; i < n_tiles; ++i) {
+    const int j = i - i0;
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    if (i >= wg_first && i < wg_tiles) {
+      const int n0 = i * BN;
+      // ---- S = Q . K^T (64 x BN, f32)
+      float sc[BN / 2];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const int c = kk * 16 / L::kCols;
-        const uint32_t off = c * L::kChunkBytes + (kk * 16 % L::kCols) * 2;
-        wgmma_ss<128>(sc, make_desc(q_addr + off, 16, kSbo, L::kLayout),
-                      make_desc(k_addr + s * L::kBytes + off, 16, kSbo,
-                                L::kLayout),
-                      kk > 0);
+        const int c = kk * 16 / LQ::kCols;
+        const uint32_t col = (kk * 16 % LQ::kCols) * 2;
+        wgmma_ss<BN>(sc,
+                     make_desc(q_addr + c * LQ::kChunkBytes + col, 16, kSbo,
+                               LQ::kLayout),
+                     make_desc(k_addr + s * LK::kBytes + c * LK::kChunkBytes +
+                                   col,
+                               16, kSbo, LK::kLayout),
+                     kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<64>(sc);
+      fence_regs<BN / 2>(sc);
 
-      // ---- mask: keys past S, and keys right of the diagonal
-      if (n0 + kBN > s_len || (causal && n0 + kBN - 1 > q_offset + row0)) {
+      // ---- mask: keys past S, keys right of the diagonal, keys left of
+      // the window (kpos <= qpos - window)
+      if (n0 + BN > s_len || (causal && n0 + BN - 1 > q_offset + row0) ||
+          (window > 0 && n0 + window <= q_offset + row0 + 63)) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int jj = 0; jj < BN / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int64_t kpos = n0 + 8 * j + cq + (e & 1);
-            const bool ok =
-                kpos < s_len && (!causal || kpos <= qpos[e >> 1]);
-            if (!ok) sc[4 * j + e] = -CUDART_INF_F;
+            const int64_t kpos = n0 + 8 * jj + cq + (e & 1);
+            const int64_t qp = qpos[e >> 1];
+            const bool ok = kpos < s_len && (!causal || kpos <= qp) &&
+                            (window <= 0 || kpos > qp - window);
+            if (!ok) sc[4 * jj + e] = -CUDART_INF_F;
           }
       }
 
@@ -218,8 +262,8 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
       for (int r = 0; r < 2; ++r) {
         float mx = -CUDART_INF_F;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        for (int jj = 0; jj < BN / 8; ++jj)
+          mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * r], sc[4 * jj + 2 * r + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(ADHASH_FULL_MASK, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(ADHASH_FULL_MASK, mx, 2));
         const float m_new = fmaxf(m_run[r], mx * scale_log2);
@@ -228,36 +272,37 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
         m_run[r] = m_new;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int jj = 0; jj < BN / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float p = exp2f(fmaf(sc[4 * j + 2 * r + e], scale_log2,
+            const float p = exp2f(fmaf(sc[4 * jj + 2 * r + e], scale_log2,
                                        -base));
-            sc[4 * j + 2 * r + e] = p;
+            sc[4 * jj + 2 * r + e] = p;
             sum += p;
           }
         l_run[r] = l_run[r] * corr + sum;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
-          acc[4 * j + 2 * r] *= corr;
-          acc[4 * j + 2 * r + 1] *= corr;
+        for (int jj = 0; jj < HD / 8; ++jj) {
+          acc[4 * jj + 2 * r] *= corr;
+          acc[4 * jj + 2 * r + 1] *= corr;
         }
       }
 
       // ---- O += P . V: P as bf16 A fragments, V MN-major from smem
-      uint32_t pa[8][4];
+      uint32_t pa[BN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int x = 0; x < 4; ++x)
           pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
       fence_regs<HD / 2>(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
         wgmma_rs<HD>(acc, pa[kk],
-                     make_desc(v_addr + s * L::kBytes + kk * 16 * L::kRowBytes,
-                               L::kChunkBytes, kSbo, L::kLayout));
+                     make_desc(v_addr + s * LK::kBytes +
+                                   kk * 16 * LK::kRowBytes,
+                               LK::kChunkBytes, kSbo, LK::kLayout));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<HD / 2>(acc);
@@ -266,37 +311,38 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // ---- normalise and store this thread's two rows
+  // ---- normalise and store this thread's two rows (a row that sees no
+  // key -- possible only with a window -- gets zeros and an LSE of -inf)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(ADHASH_FULL_MASK, l, 1);
     l += __shfl_xor_sync(ADHASH_FULL_MASK, l, 2);
     const int t = row0 + r0 + 8 * r;
-    if (wg_tiles == 0 || t >= t_len) continue;
+    if (t >= t_len) continue;
     if (lse != nullptr && (lane & 3) == 0)  // m and l are in log2 units
       lse[((int64_t)b * n_heads + h) * t_len + t] =
           (m_run[r] + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
     __nv_bfloat16* orow = o + (((int64_t)b * t_len + t) * n_heads + h) * HD;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv_l,
-                                acc[4 * j + 2 * r + 1] * inv_l);
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + cq) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * r] * inv_l,
+                                acc[4 * jj + 2 * r + 1] * inv_l);
   }
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int64_t t, int64_t s, int h, int kv, int causal,
-           int64_t q_offset, cudaStream_t stream) {
+           int64_t q_offset, int64_t window, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map<HD, 128>(&tq, encode, q, b, t, h) ||
-      !make_map<HD, 128>(&tk, encode, k, b, s, kv) ||
-      !make_map<HD, 128>(&tv, encode, v, b, s, kv))
+  if (!make_map<HD, kBM>(&tq, encode, q, b, t, h) ||
+      !make_map<HD, kBN<HD>>(&tk, encode, k, b, s, kv) ||
+      !make_map<HD, kBN<HD>>(&tv, encode, v, b, s, kv))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -306,7 +352,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   flash_attn_sm90<HD><<<grid, kThreads, kSmem<HD>, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, (float*)lse, (int)t, (int)s, h, kv,
-      causal, q_offset, scale_log2);
+      causal, q_offset, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -314,28 +360,32 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // q, o: (b, t, h, hd) bf16; k, v: (b, s, kv, hd) bf16; all contiguous with
 // 16-byte aligned storage; h a multiple of kv; t, s < 2^31; hd in
-// {16, 32, 64, 128}; lse (b, h, t) float32 or null.
+// {16, 32, 64, 128, 256}; window 0 (none) or the number of keys a query
+// sees, itself included; lse (b, h, t) float32 or null.
 extern "C" int adhash_flash_attn_bf16(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int b, int64_t t, int64_t s, int h,
                                       int kv,
                                       int hd, int causal, int64_t q_offset,
-                                      void* stream) {
+                                      int64_t window, void* stream) {
   if (b == 0 || t == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                        window, st);
     case 32:
       return launch<32>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                        window, st);
     case 64:
       return launch<64>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                        window, st);
     case 128:
       return launch<128>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
-                          st);
+                         window, st);
+    case 256:
+      return launch<256>(q, k, v, o, lse, b, t, s, h, kv, causal, q_offset,
+                         window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

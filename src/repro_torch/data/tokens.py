@@ -2,7 +2,11 @@
 
 The port's counterpart of ``repro.data.tokens``.  Token ids follow a Zipf
 distribution drawn with numpy exactly as the JAX package draws them (same
-seed, same ids); the batches then land on ``device`` as int64 tensors.
+seed, same ids); the batches then land on ``device`` as int64 tensors.  A
+vlm batch also holds ``patches`` (B, n_patches, d_vision) float32, drawn
+after the tokens from the same generator, so they equal the reference's bit
+for bit.  The audio family's ``frames`` come with that family (ROADMAP §1
+item 12c).
 """
 from __future__ import annotations
 
@@ -38,7 +42,12 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, step: int,
     rng = np.random.default_rng((seed, step))
     toks = torch.from_numpy(zipf_tokens(rng, cfg.vocab_size, (batch, seq + 1))
                             .astype(np.int64))
-    return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    out = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    if cfg.family == "vlm":
+        patches = rng.normal(size=(batch, cfg.vlm.n_patches,
+                                   cfg.vlm.d_vision)).astype(np.float32)
+        out["patches"] = torch.from_numpy(patches).to(dev)
+    return out
 
 
 def synthetic_batches(cfg: ModelConfig, batch: int, seq: int, n_steps: int,

@@ -20,13 +20,23 @@ plain forward and ``flash_attention_bwd_plain``.
 
 Replaces ``repro.kernels.flash_attention.flash_attention.flash_attention_fwd``
 (the TPU forward kernel) in the function ``repro.models.attention.
-_blocked_attn`` computes for ``window = 0``: softmax attention with scale
-``hd**-0.5``, grouped-query heads (query head ``h`` reads KV head
-``h // (H / KV)``), keys past ``S`` masked and, when causal, key ``s``
-visible to query ``t`` iff ``s <= q_offset + t`` (top-left alignment, as the
-Pallas kernel and ``_blocked_attn`` have it; ``attention_ref`` in the JAX
-package aligns bottom-right and agrees only when T == S).  Logits, softmax
-state and the P.V sum are float32; the output has q's dtype.
+_blocked_attn`` computes: softmax attention with scale ``hd**-0.5``,
+grouped-query heads (query head ``h`` reads KV head ``h // (H / KV)``),
+keys past ``S`` masked, when causal key ``s`` visible to query ``t`` iff
+``s <= q_offset + t`` (top-left alignment, as the Pallas kernel and
+``_blocked_attn`` have it; ``attention_ref`` in the JAX package aligns
+bottom-right and agrees only when T == S), and with a window ``w > 0`` iff
+also ``s > q_offset + t - w`` (``_blocked_attn``'s local attention, which
+the TPU kernel does not take: the hybrid family's layers).  Logits, softmax
+state and the P.V sum are float32; the output has q's dtype.  A query row
+that sees no key at all (only a window can do that, with ``q_offset + t >=
+S + w - 1``) is outside the contract: the kernels give it zeros, the plain
+version the mean of v, ``_blocked_attn`` the mean over its padded keys.
+
+The forward kernels take head dims 16 to 256 (``HEAD_DIMS``); the backward
+kernels take neither a window nor hd 256 yet (``BWD_HEAD_DIMS``; ROADMAP §2
+kernel step 7): on a CUDA tensor they raise, on a CPU tensor the plain
+backward serves both.
 
 The layout is the model's: q (B, T, H, hd), k and v (B, S, KV, hd).  The
 TPU wrapper's artefacts are not carried over: KV heads are not repeated,
@@ -37,14 +47,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import LAUNCHES, check_cuda, stream_ptr
+from repro_torch.models.common import unported
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_bwd_plain", "flash_attention_bwd_cuda",
-           "FlashAttentionFn", "flash_engine", "HEAD_DIMS"]
+           "FlashAttentionFn", "flash_engine", "HEAD_DIMS", "BWD_HEAD_DIMS"]
 
 NEG_INF = -1e30
-#: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the forward kernels are compiled for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the backward kernels are compiled for (no window either)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 #: dtype -> (engine, exported symbol) of the kernel that serves it
 _ENGINES = {torch.bfloat16: ("wgmma", "adhash_flash_attn_bf16"),
             torch.float32: ("cuda-core", "adhash_flash_attn_f32")}
@@ -80,29 +93,34 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _masked_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                   q_offset: int) -> torch.Tensor:
+                   q_offset: int, window: int = 0) -> torch.Tensor:
     """(B, H, T, S) float32 scaled logits, masked keys at NEG_INF; KV heads
     repeated to the query heads."""
     t, h, hd = q.shape[1:]
     s, kvh = k.shape[1:3]
     kf = k.float().repeat_interleave(h // kvh, dim=2)
     logits = torch.einsum("bthd,bshd->bhts", q.float(), kf) * (hd ** -0.5)
-    if causal:
-        qpos = q_offset + torch.arange(t, device=q.device)
-        kpos = torch.arange(s, device=q.device)
-        logits = logits.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+    if causal or window > 0:
+        qpos = (q_offset + torch.arange(t, device=q.device))[:, None]
+        kpos = torch.arange(s, device=q.device)[None, :]
+        hidden = torch.zeros((t, s), dtype=torch.bool, device=q.device)
+        if causal:
+            hidden |= kpos > qpos
+        if window > 0:
+            hidden |= kpos <= qpos - window
+        logits = logits.masked_fill(hidden, NEG_INF)
     return logits
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, q_offset: int = 0,
-                          return_lse: bool = False):
+                          window: int = 0, return_lse: bool = False):
     """Masked float32 softmax attention, GQA by ``repeat_interleave``.
     With ``return_lse`` also each row's log-sum-exp of the scaled logits,
     (B, H, T) float32."""
     _check_shapes(q, k, v)
     h, kvh = q.shape[2], k.shape[2]
-    logits = _masked_logits(q, k, causal, q_offset)
+    logits = _masked_logits(q, k, causal, q_offset, window)
     vf = v.float().repeat_interleave(h // kvh, dim=2)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhts,bshd->bthd", w, vf).to(q.dtype)
@@ -114,7 +132,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
-                              causal: bool = True, q_offset: int = 0
+                              causal: bool = True, q_offset: int = 0,
+                              window: int = 0
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv) of the attention output ``o`` for the output gradient
@@ -128,7 +147,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     s, kvh = k.shape[1:3]
     g = h // kvh
     scale = hd ** -0.5
-    p = torch.exp(_masked_logits(q, k, causal, q_offset) -
+    p = torch.exp(_masked_logits(q, k, causal, q_offset, window) -
                   lse.float()[..., None])
     dof = do.float()
     kf = k.float().repeat_interleave(g, dim=2)
@@ -152,7 +171,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_launch(name: str, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, q_offset: int) -> None:
+                  v: torch.Tensor, q_offset: int, window: int) -> None:
     """What both kernels' launches take: one CUDA device and dtype, a head
     dim they are compiled for, the grid's and the index type's limits."""
     check_cuda(name, q, k, v)
@@ -171,17 +190,19 @@ def _check_launch(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: T = {t} or S = {s} is not below 2^31")
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset {q_offset} < 0")
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
-                         return_lse: bool = False):
+                         window: int = 0, return_lse: bool = False):
     """Launch the hand-written forward kernel that ``q``'s dtype selects
     (``flash_engine``).  With ``return_lse`` the kernel also writes each
     row's log-sum-exp, returned as a second (B, H, T) float32 tensor."""
     from repro_torch.kernels.build import check, library
 
-    _check_launch("flash_attention", q, k, v, q_offset)
+    _check_launch("flash_attention", q, k, v, q_offset, window)
     b, t, h, hd = q.shape
     s, kvh = k.shape[1:3]
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -192,7 +213,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = getattr(library(), _ENGINES[q.dtype][1])
         check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(), b, t, s, h, kvh,
-                 hd, int(causal), int(q_offset), stream_ptr(q)),
+                 hd, int(causal), int(q_offset), int(window), stream_ptr(q)),
               "flash_attention")
         LAUNCHES["flash_attention"] += 1
     return (o, lse) if return_lse else o
@@ -201,15 +222,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
-                             causal: bool = True, q_offset: int = 0
+                             causal: bool = True, q_offset: int = 0,
+                             window: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch the hand-written backward that ``q``'s dtype selects
     (``flash_engine``): dq, dk and dv in the inputs' dtype, from the
-    forward's output ``o`` and log-sum-exp ``lse`` (B, H, T) float32."""
+    forward's output ``o`` and log-sum-exp ``lse`` (B, H, T) float32.
+    Raises for a window or hd 256, which the backward kernels do not take
+    yet: it never returns a gradient of another mask."""
     from repro_torch.kernels.build import BWD_T_PAD, check, library
 
-    _check_launch("flash_attention_bwd", q, k, v, q_offset)
+    if window > 0 or q.shape[-1] not in BWD_HEAD_DIMS:
+        raise unported(f"the attention backward kernel with window {window} "
+                       f"at head dim {q.shape[-1]} (it takes no window and "
+                       f"head dims {BWD_HEAD_DIMS})", "7",
+                       where="§2 kernel step")
+    _check_launch("flash_attention_bwd", q, k, v, q_offset, window)
     check_cuda("flash_attention_bwd", q, o, do, lse)
     b, t, h, hd = q.shape
     s, kvh = k.shape[1:3]
@@ -248,16 +277,12 @@ class FlashAttentionFn(torch.autograd.Function):
     versions on CPU tensors.  Saves q, k, v, o and the log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_offset: int):
-        if q.is_cuda:
-            o, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                          q_offset=q_offset, return_lse=True)
-        else:
-            o, lse = flash_attention_plain(q, k, v, causal=causal,
-                                           q_offset=q_offset,
-                                           return_lse=True)
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, window: int = 0):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        o, lse = fwd(q, k, v, causal=causal, q_offset=q_offset,
+                     window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.causal, ctx.q_offset, ctx.window = causal, q_offset, window
         return o
 
     @staticmethod
@@ -266,19 +291,18 @@ class FlashAttentionFn(torch.autograd.Function):
         bwd = flash_attention_bwd_cuda if do.is_cuda else \
             flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, o, do, lse, causal=ctx.causal,
-                         q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None
+                         q_offset=ctx.q_offset, window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0,
+                    window: int = 0) -> torch.Tensor:
     """(B, T, H, hd) attention output.  A CUDA tensor launches the kernel
     (or raises); a CPU tensor runs the plain version.  With grad enabled
     and an operand that requires grad, through ``FlashAttentionFn``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, q_offset)
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal,
-                                    q_offset=q_offset)
-    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset, window)
+    fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+    return fwd(q, k, v, causal=causal, q_offset=q_offset, window=window)

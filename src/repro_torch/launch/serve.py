@@ -8,6 +8,8 @@ the plan is computed and reported but not placed (ROADMAP §1 item 12d).
 
 Run:  python -m repro_torch.launch.serve --arch llama3-8b [--device cuda]
       python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
+(any arch of ``repro_torch.configs``: dense, moe, ssm, hybrid or vlm; a vlm
+decodes text only, as the reference's does)
 """
 from __future__ import annotations
 

@@ -11,11 +11,10 @@ The CLI runs real steps with the synthetic data pipeline and optional
 checkpointing, on one device (the port has no mesh yet, ROADMAP §1 item
 12d):
 
-  python -m repro_torch.launch.train --arch qwen1.5-4b [--device cuda]
+  python -m repro_torch.launch.train [--arch mamba2-130m] [--device cuda]
   python -m repro_torch.launch.train --arch qwen1.5-4b --smoke --device cpu
 
-The reference's default arch, ``mamba2-130m``, is the ssm family (item
-12c), so the port's default is the dense ``qwen1.5-4b``.  Weights come from
+The default arch is the reference's, ``mamba2-130m``.  Weights come from
 seed 0 of the port's generator (the reference draws its own).
 """
 from __future__ import annotations
@@ -64,7 +63,7 @@ def make_serve_step(model: ModelAPI):
 # ------------------------------------------------------------------------ CLI
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-4b")
+    ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

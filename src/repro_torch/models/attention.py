@@ -1,13 +1,17 @@
-"""GQA attention: prefill through the flash_attention kernel, and
-single-token decode against a KV cache.
+"""GQA attention: prefill through the flash_attention kernel (global or
+windowed), and single-token decode against a KV cache (a ring buffer for
+windowed layers).
 
 PyTorch port of ``repro.models.attention``.  Prefill calls
 ``repro_torch.kernels.flash_attention.ops.flash_attention``, which launches
 the hand-written Hopper kernel on a CUDA tensor and runs its plain version
-on a CPU tensor; it computes what ``_blocked_attn`` computes for a global
-window.  Decode is plain PyTorch with float32 cache math, as the JAX
-package's decode is plain jnp.  Weights are stored as the JAX package
-stores them, (in, out), and cast to the activations' dtype where used.
+on a CPU tensor; it computes what ``_blocked_attn`` computes, the hybrid
+family's local window included.  Decode is plain PyTorch with float32
+cache math, as the JAX package's decode is plain jnp; a windowed layer's
+cache holds ``min(window, max_len)`` slots, written at ``pos % L`` and
+masked by the reference's age rule (floor modulo, as ``jnp`` computes it).
+Weights are stored as the JAX package stores them, (in, out), and cast to
+the activations' dtype where used.
 """
 from __future__ import annotations
 
@@ -49,9 +53,11 @@ class Attention(nn.Module):
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   dtype: torch.dtype | None = None) -> Attention:
+                   dtype: torch.dtype | None = None,
+                   kv_heads: int | None = None) -> Attention:
     d, hd = cfg.d_model, cfg.hd
-    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    nh = cfg.n_heads
+    nkv = kv_heads if kv_heads is not None else cfg.n_kv_heads
     dt = dtype or cfg.pdtype
     p = {
         "wq": dense_init(gen, (d, nh * hd), dt),
@@ -66,8 +72,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+    """q (B, T, H, hd), k and v (B, T, KV, hd); KV from wk's width."""
     b, t, _ = x.shape
-    hd, nkv = cfg.hd, cfg.n_kv_heads
+    hd = cfg.hd
+    nkv = p.wk.shape[1] // hd
     q = x @ p.wq.to(x.dtype)
     k = x @ p.wk.to(x.dtype)
     v = x @ p.wv.to(x.dtype)
@@ -86,16 +94,15 @@ def attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
-    """Causal self-attention over positions 0..T-1, for prefill."""
-    if window > 0:
-        raise unported("windowed attention (window > 0)", "12c")
+    """Causal self-attention over positions 0..T-1, for prefill; with
+    ``window > 0`` query t sees keys (t - window, t]."""
     b, t, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     cos, sin = rope_tables(torch.arange(t, device=x.device), cfg.hd,
                            cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=True, window=window)
     return o.reshape(b, t, -1) @ p.wo.to(x.dtype)
 
 
@@ -107,7 +114,8 @@ def cross_attention(*args, **kwargs):
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   int8: bool = False,
                   device: str | torch.device = "cuda") -> dict:
-    """{"k", "v"}: (B, max_len, KV, hd) in the compute dtype, zero."""
+    """{"k", "v"}: (B, max_len, KV, hd) in the compute dtype, zero.  A
+    windowed layer's caller passes ``min(window, max_len)`` slots."""
     if int8:
         raise unported("the int8 KV cache", "12d")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
@@ -129,31 +137,41 @@ def decode_attention(
     """One decode step: write K/V at ``pos``, attend to the cache.
 
     The cache keeps its static shape (B, L, KV, hd); positions > pos are
-    masked.  Unlike the JAX package (which returns a new cache), the port
-    writes the new K/V into ``cache`` in place and returns it, so a decode
-    step allocates no second cache."""
-    if window > 0:
-        raise unported("windowed (ring-buffer) decode", "12c")
+    masked.  With ``window > 0`` the cache is a ring buffer: the step writes
+    slot ``pos % L`` and sees the slots the reference's age rule
+    (``src/repro/models/attention.py:303-306``) lets through.  Unlike the
+    JAX package (which returns a new cache), the port writes the new K/V
+    into ``cache`` in place and returns it, so a decode step allocates no
+    second cache."""
     if not f32_cache_math:
         raise unported("bf16 cache math (bf16_cache_math)", "12d")
-    nkv = cfg.n_kv_heads
     b = x.shape[0]
     hd = cfg.hd
     pos = int(pos)
     q, k, v = _project_qkv(p, x, cfg)  # (B, 1, H/KV, hd)
+    nkv = k.shape[2]
     cos, sin = rope_tables(torch.full((1,), pos, device=x.device), hd,
                            cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
+    L = ck.shape[1]
+    slot = pos % L if window > 0 else pos  # ring buffer for local attention
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
 
     g = cfg.n_heads // nkv
     qg = q.reshape(b, nkv, g, hd).float()
     logits = torch.einsum("bkgd,blkd->bkgl", qg, ck.float()) * (hd ** -0.5)
-    idx = torch.arange(ck.shape[1], device=x.device)
-    logits = logits.masked_fill(idx > pos, NEG_INF)
+    idx = torch.arange(L, device=x.device)
+    if window > 0:
+        # the reference's distance in ring layout; floor modulo, as jnp's %
+        age = pos - (torch.remainder(idx - slot - 1, L) + 1)
+        visible = (age >= 0) & (age < window) & (age < pos + 1)
+        visible = visible | (idx == slot)
+    else:
+        visible = idx <= pos
+    logits = logits.masked_fill(~visible, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgl,blkd->bkgd", w, cv.float())
     o = o.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)

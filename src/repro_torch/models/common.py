@@ -1,8 +1,8 @@
 """Shared model components: config schema, norms, RoPE, initializers.
 
-PyTorch port of ``repro.models.common`` for the dense and moe families.
-The config dataclasses are plain data; the ssm, hybrid, vlm and audio
-families' sub-configs come with the slice that builds them (ROADMAP §1 item
+PyTorch port of ``repro.models.common`` for the dense, moe, ssm, hybrid
+and vlm families.  The config dataclasses are plain data; the audio
+family's sub-config comes with the slice that builds it (ROADMAP §1 item
 12c).
 The layers are tensor functions with the JAX package's cast semantics: the
 compute dtype is pinned per config (bf16 by default), norms and RoPE angles
@@ -19,6 +19,9 @@ import torch
 __all__ = [
     "AdaptiveConfig",
     "MoEConfig",
+    "SSMConfig",
+    "HybridConfig",
+    "VLMConfig",
     "ModelConfig",
     "torch_dtype",
     "rms_norm",
@@ -29,10 +32,12 @@ __all__ = [
 ]
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error every option the port does not have yet raises."""
+def unported(what: str, item: str, where: str = "§1 item"
+             ) -> NotImplementedError:
+    """The error every option the port does not have yet raises, naming
+    the ROADMAP entry that brings it (``where`` and ``item``)."""
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
+        f"{what} is not ported to repro_torch yet (ROADMAP {where} {item})")
 
 
 @dataclass(frozen=True)
@@ -43,6 +48,30 @@ class MoEConfig:
     d_expert: int = 0  # expert FFN width (0 -> use d_ff)
     capacity_factor: float = 1.25
     router_noise: float = 0.0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """RecurrentGemma-style: repeating (recurrent, recurrent, attention)."""
+
+    pattern: tuple[str, ...] = ("rec", "rec", "attn")
+    lru_width: int = 0  # 0 -> d_model
+    window: int = 2048  # local attention window
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    n_patches: int = 256  # visual tokens from the (stubbed) ViT frontend
+    d_vision: int = 1024
 
 
 @dataclass(frozen=True)
@@ -80,6 +109,9 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    hybrid: HybridConfig | None = None
+    vlm: VLMConfig | None = None
     adaptive: AdaptiveConfig | None = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"

@@ -2,16 +2,20 @@
 port, both ways.
 
 ``params_from_numpy`` takes the parameter pytree of ``repro.models.
-transformer.init_lm`` as numpy (``jax.tree.map(np.asarray, params)``), whose
-blocks are stacked on axis 0 by ``vmap``, and builds the port's ``LM``.  The
-port stores weights in the JAX package's (in, out) layout, so nothing is
-transposed; each array is copied and cast to ``dtype``.
+transformer.init_lm`` (or ``repro.models.vlm.init_vlm``) as numpy
+(``jax.tree.map(np.asarray, params)``), whose blocks (the hybrid family's
+groups) are stacked on axis 0 by ``vmap``, and builds the port's ``LM``.
+The port stores weights in the JAX package's (in, out) layout, so nothing
+is transposed; each array is copied and cast to ``dtype``.
 
 ``params_to_numpy`` goes the other way: the port's ``LM`` (or a mapping of
 its parameter names to tensors, such as its gradients) becomes the
 reference's tree, blocks stacked on axis 0.  ``ref_path`` is the one place
 that names a port parameter in that tree: ``"blocks.3.attn.wq"`` is leaf
-``("blocks", "attn", "wq")``, layer 3.  ``opt_state_to_numpy`` /
+``("blocks", "attn", "wq")``, layer 3; ``"groups.1.rec2.mixer.w_y"`` is
+``("groups", "rec2", "mixer", "w_y")``, group 1; the hybrid ``tail`` is a
+list in both trees, so ``"tail.0.mlp.w1"`` is ``("tail", "0", "mlp",
+"w1")`` with no layer.  ``opt_state_to_numpy`` /
 ``opt_state_from_numpy`` carry an ``OptState``, whose ``m`` and ``v`` are
 already trees of the reference's structure.
 """
@@ -29,19 +33,27 @@ from . import attention as attn
 from . import embedding as emb
 from . import mlp as mlpm
 from . import moe as moem
+from . import rglru as rg
+from . import ssm as ssmm
 from . import transformer as tfm
+from . import vlm as vlmm
 from .common import ModelConfig
 
 __all__ = ["params_from_numpy", "params_to_numpy", "ref_path", "ref_shapes",
            "tree_leaf", "opt_state_to_numpy", "opt_state_from_numpy"]
 
 
+#: the port's layer lists the reference stacks on axis 0
+_STACKED = ("blocks", "groups")
+
+
 def ref_path(name: str) -> tuple[tuple[str, ...], int | None]:
     """(path in the reference's tree, layer) of a port parameter name:
-    block parameters name their stacked leaf and their index on axis 0."""
+    block (group) parameters name their stacked leaf and their index on
+    axis 0; a hybrid tail parameter names its list index in the path."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ("blocks", *parts[2:]), int(parts[1])
+    if parts[0] in _STACKED:
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 
@@ -52,7 +64,7 @@ def tree_leaf(tree: dict, name: str):
     path, layer = ref_path(name)
     leaf = tree
     for key in path:
-        leaf = leaf[key]
+        leaf = leaf[int(key)] if isinstance(leaf, list) else leaf[key]
     return leaf if layer is None else leaf[layer]
 
 
@@ -81,6 +93,11 @@ def _ref_tree(src, leaf, stack) -> dict[str, Any]:
             stacked.setdefault(path, {})[layer] = leaf(t)
     for path, rows in stacked.items():
         _put(tree, path, stack([rows[i] for i in range(len(rows))]))
+    if isinstance(src, tfm.LM) and src.cfg.family == "hybrid":
+        tree.setdefault("tail", {})
+    if "tail" in tree:  # a list in the reference's tree
+        tree["tail"] = [tree["tail"][str(i)]
+                        for i in range(len(tree["tail"]))]
     return tree
 
 
@@ -123,9 +140,9 @@ def opt_state_from_numpy(step, m: dict, v: dict,
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: str | torch.device = "cuda",
                       dtype: torch.dtype | None = None) -> tfm.LM:
-    """The port's ``LM`` holding the weights of ``tree`` (a dense or moe
-    model's numpy pytree), on ``device``, stored as ``dtype`` (default the
-    config's param dtype)."""
+    """The port's ``LM`` holding the weights of ``tree`` (a dense, moe,
+    ssm, hybrid or vlm model's numpy pytree), on ``device``, stored as
+    ``dtype`` (default the config's param dtype)."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.pdtype
@@ -133,10 +150,23 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
 
+    embed = emb.Embedding({k: t(v) for k, v in tree["embed"].items()})
+    if cfg.family == "hybrid":
+        groups = [tfm.HybridGroup(*(
+            _hybrid_sub(cfg, kind, tree["groups"][name], t, g)
+            for name, kind in (("rec1", "rec"), ("rec2", "rec"),
+                               ("attn", "attn"))))
+            for g in range(tfm.hybrid_counts(cfg)[0])]
+        tail = [_hybrid_sub(cfg, "rec", d, t) for d in tree["tail"]]
+        return tfm.LM(cfg, embed, groups, t(tree["ln_f"]), tail)
     stacked = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
         layer = lambda d: {k: t(v[i]) for k, v in d.items()}
+        if cfg.family == "ssm":
+            blocks.append(tfm.SSMBlock(cfg, t(stacked["ln1"][i]),
+                                       ssmm.SSM(cfg, layer(stacked["ssm"]))))
+            continue
         if cfg.moe is not None:
             m = stacked["moe"]
             ffn = moem.MoE(layer({k: v for k, v in m.items()
@@ -148,6 +178,20 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
         blocks.append(tfm.Block(
             cfg, t(stacked["ln1"][i]), t(stacked["ln2"][i]),
             attn.Attention(cfg, layer(stacked["attn"])), ffn))
-    return tfm.LM(cfg, emb.Embedding({k: t(v) for k, v in
-                                      tree["embed"].items()}),
-                  blocks, t(tree["ln_f"]))
+    lm = tfm.LM(cfg, embed, blocks, t(tree["ln_f"]))
+    if "projector" in tree:
+        lm.projector = vlmm.Projector({k: t(v) for k, v in
+                                       tree["projector"].items()})
+    return lm
+
+
+def _hybrid_sub(cfg: ModelConfig, kind: str, d: dict, t,
+                i: int | None = None) -> tfm.HybridSub:
+    """A hybrid sub-block from its tree ``d``: row ``i`` of a stacked
+    group's leaves, or a tail entry's own (``i`` None)."""
+    row = (lambda a: t(a)) if i is None else (lambda a: t(a[i]))
+    leaves = lambda sub: {k: row(v) for k, v in sub.items()}
+    mixer = (rg.RGLRU(cfg, leaves(d["mixer"])) if kind == "rec" else
+             attn.Attention(cfg, leaves(d["mixer"])))
+    return tfm.HybridSub(cfg, kind, row(d["ln1"]), mixer, row(d["ln2"]),
+                         mlpm.SwiGLU(leaves(d["mlp"])))

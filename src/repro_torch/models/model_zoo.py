@@ -1,7 +1,7 @@
 """Uniform model API over the ported architectures.
 
-PyTorch port of the decoder-only branch of ``repro.models.model_zoo``
-(the dense and moe families).
+PyTorch port of the decoder-only and vlm branches of
+``repro.models.model_zoo`` (the dense, moe, ssm, hybrid and vlm families).
 Each arch exposes:
   init(seed, dtype)              -> params (an ``nn.Module`` on the device)
   loss(params, batch)            -> scalar CE loss (the prefill lowering)
@@ -12,8 +12,9 @@ Each arch exposes:
 serves both prefill and training: ``launch.train`` differentiates it,
 serving callers wrap it in ``torch.inference_mode()``.  ``init_cache`` and
 ``decode`` run under ``torch.inference_mode()``.  ``init`` must not: a
-parameter made there could never take a gradient.  The ssm, hybrid, vlm
-and audio families raise (item 12c).
+parameter made there could never take a gradient.  The vlm family's
+``loss`` takes ``batch["patches"]`` beside the tokens.  The audio family
+raises (item 12c).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import vlm as vlmm
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["ModelAPI", "build_model"]
@@ -41,17 +43,23 @@ class ModelAPI:
 
 def build_model(cfg: ModelConfig,
                 device: str | torch.device = "cuda") -> ModelAPI:
-    """The dense or moe family's API on ``device``.  The JAX package's
+    """The dense, moe, ssm, hybrid or vlm family's API on ``device``.  The
+    JAX package's
     ``RuntimeOptions`` (mesh placement, int8 KV cache, bf16 cache math) have
     no counterpart yet (ROADMAP §1 item 12d)."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
 
+    vlm = cfg.family == "vlm"
+
     def init(seed: int = 0, dtype: torch.dtype | None = None) -> tfm.LM:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return tfm.init_lm(gen, cfg, dtype)
+        return (vlmm.init_vlm if vlm else tfm.init_lm)(gen, cfg, dtype)
 
     def loss(params, batch):
+        if vlm:
+            return vlmm.vlm_loss(params, batch["patches"], batch["tokens"],
+                                 batch["labels"], cfg)
         return tfm.lm_loss(params, batch["tokens"], batch["labels"], cfg)
 
     @torch.inference_mode()

@@ -1,6 +1,7 @@
-"""Decoder-only LM assembly for the dense and moe families.
+"""Decoder-only LM assembly for the dense, moe, ssm, hybrid and vlm
+families.
 
-PyTorch port of the dense and moe branches of ``repro.models.transformer``:
+PyTorch port of ``repro.models.transformer``:
 
 * the layers are an ``nn.ModuleList`` walked in a Python loop (the JAX
   package scans a stacked pytree; ``convert.params_from_numpy`` unstacks
@@ -11,7 +12,20 @@ PyTorch port of the dense and moe branches of ``repro.models.transformer``:
   it, and writes it in place;
 * a moe block swaps its SwiGLU for ``moe.MoE``; ``lm_forward``, ``lm_loss``
   and ``lm_decode_step`` take the hot-expert plan ``slot_map``, as the
-  reference's do.
+  reference's do;
+* an ssm block is ``ln1`` and the Mamba-2 mixer (``ssm.SSM``), no MLP; its
+  decode cache is each layer's conv ring and float32 state;
+* the hybrid family (RecurrentGemma) is ``groups`` of three sub-blocks,
+  ``rec1``, ``rec2`` (RG-LRU) and ``attn`` (local attention over
+  ``cfg.hybrid.window`` keys), each with ``ln1``, ``mixer``, ``ln2`` and a
+  SwiGLU ``mlp``, then a ``tail`` of ``n_layers % 3`` recurrent
+  sub-blocks; remat covers a whole group, as the reference checkpoints the
+  group (the tail runs as it is); its decode cache holds each group's two
+  recurrent states and its attention ring of ``min(window, max_len)``
+  slots;
+* ``lm_forward`` and ``lm_loss`` take ``inputs_embeds``, embeddings put
+  before the tokens' (the vlm family's projected patches); the loss is
+  taken over the text positions only.
 
 * with ``cfg.remat`` and grad enabled, each block and each loss chunk runs
   under non-reentrant activation checkpointing
@@ -23,7 +37,7 @@ PyTorch port of the dense and moe branches of ``repro.models.transformer``:
   batched (``aten.bmm``) and recomputed.  Without grad (serving) the
   blocks run as they are.
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item,
+The audio family raises ``NotImplementedError`` naming its ROADMAP item,
 the JAX package's mesh and cache options (``RuntimeOptions``) item 12d.
 """
 from __future__ import annotations
@@ -39,15 +53,21 @@ from . import attention as attn
 from . import embedding as emb
 from . import mlp as mlpm
 from . import moe as moem
+from . import rglru as rg
+from . import ssm as ssmm
 from .common import ModelConfig, rms_norm, unported
 
 __all__ = [
     "Block",
+    "SSMBlock",
+    "HybridSub",
+    "HybridGroup",
     "LM",
     "check_supported",
     "init_lm",
     "lm_forward",
     "lm_loss",
+    "hidden_loss",
     "init_lm_cache",
     "lm_decode_step",
 ]
@@ -55,7 +75,7 @@ __all__ = [
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a family not ported yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
         raise unported(f"the {cfg.family!r} family ({cfg.name})", "12c")
 
 
@@ -68,14 +88,15 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(fn, cfg: ModelConfig):
+def _remat(fn, cfg: ModelConfig, policy: str | None = None):
     """``fn`` under activation checkpointing when ``cfg.remat`` asks for it
-    and autograd is recording; else ``fn`` itself.  The model draws no
-    random numbers, so no RNG state is saved for the recompute."""
+    and autograd is recording; else ``fn`` itself.  ``policy`` (default
+    ``cfg.remat_policy``): "full" or "dots".  The model draws no random
+    numbers, so no RNG state is saved for the recompute."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
     kwargs = {}
-    if cfg.remat_policy == "dots":
+    if (policy or cfg.remat_policy) == "dots":
         kwargs["context_fn"] = partial(create_selective_checkpoint_contexts,
                                        _save_dots)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False,
@@ -110,16 +131,92 @@ class Block(nn.Module):
         return h + self.ffn(rms_norm(h, self.ln2, eps), slot_map)
 
 
+class SSMBlock(nn.Module):
+    """Pre-norm Mamba-2 block: ``ln1`` and the mixer ``ssm``, no FFN."""
+
+    def __init__(self, cfg: ModelConfig, ln1: torch.Tensor, ssm: ssmm.SSM):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = nn.Parameter(ln1)
+        self.ssm = ssm
+
+    def forward(self, x: torch.Tensor,
+                slot_map: tuple[int, ...] | None = None) -> torch.Tensor:
+        return x + self.ssm(rms_norm(x, self.ln1, self.cfg.norm_eps))
+
+
+class HybridSub(nn.Module):
+    """One hybrid sub-block: ``ln1``, the ``mixer`` (an RG-LRU block for
+    kind "rec", windowed attention for "attn"), ``ln2`` and a SwiGLU
+    ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, ln1: torch.Tensor,
+                 mixer: rg.RGLRU | attn.Attention, ln2: torch.Tensor,
+                 mlp: mlpm.SwiGLU):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        self.ln1 = nn.Parameter(ln1)
+        self.mixer = mixer
+        self.ln2 = nn.Parameter(ln2)
+        self.mlp = mlp
+
+    def mix(self, z: torch.Tensor) -> torch.Tensor:
+        if self.kind == "rec":
+            return rg.rglru_block(self.mixer, z, self.cfg)
+        return attn.attention(self.mixer, z, self.cfg,
+                              window=self.cfg.hybrid.window)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        eps = self.cfg.norm_eps
+        h = x + self.mix(rms_norm(x, self.ln1, eps))
+        return h + self.mlp(rms_norm(h, self.ln2, eps))
+
+
+class HybridGroup(nn.Module):
+    """(rec, rec, local attention): sub-blocks ``rec1``, ``rec2``,
+    ``attn``."""
+
+    def __init__(self, rec1: HybridSub, rec2: HybridSub, attn_: HybridSub):
+        super().__init__()
+        self.rec1, self.rec2, self.attn = rec1, rec2, attn_
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.attn(self.rec2(self.rec1(x)))
+
+
 class LM(nn.Module):
-    """Embedding, the blocks, and the final norm."""
+    """Embedding, the layers, and the final norm.  The layers are
+    ``blocks`` (``Block`` or ``SSMBlock``), or for the hybrid family
+    ``groups`` (``HybridGroup``) and ``tail`` (``HybridSub``); the vlm
+    family adds a ``projector`` (``vlm.init_vlm``)."""
 
     def __init__(self, cfg: ModelConfig, embed: emb.Embedding,
-                 blocks: list[Block], ln_f: torch.Tensor):
+                 blocks: list[nn.Module], ln_f: torch.Tensor,
+                 tail: list[HybridSub] | None = None):
         super().__init__()
         self.cfg = cfg
         self.embed = embed
-        self.blocks = nn.ModuleList(blocks)
+        if cfg.family == "hybrid":
+            self.groups = nn.ModuleList(blocks)
+            self.tail = nn.ModuleList(tail or [])
+        else:
+            self.blocks = nn.ModuleList(blocks)
         self.ln_f = nn.Parameter(ln_f)
+
+
+def hybrid_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(full groups of 3, trailing recurrent layers)."""
+    return divmod(cfg.n_layers, 3)
+
+
+def _init_hybrid_sub(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                     dt: torch.dtype) -> HybridSub:
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    mixer = (rg.init_rglru_block(gen, cfg, dt) if kind == "rec" else
+             attn.init_attention(gen, cfg, dtype=dt,
+                                 kv_heads=cfg.n_kv_heads))
+    return HybridSub(cfg, kind, ones(), mixer, ones(),
+                     mlpm.init_swiglu(gen, cfg, dtype=dt))
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig,
@@ -130,12 +227,24 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig,
     check_supported(cfg)
     dt = dtype or cfg.pdtype
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    embed = emb.init_embedding(gen, cfg, dt)
+    if cfg.family == "hybrid":
+        ng, rem = hybrid_counts(cfg)
+        groups = [HybridGroup(*(_init_hybrid_sub(gen, cfg, kind, dt)
+                                for kind in ("rec", "rec", "attn")))
+                  for _ in range(ng)]
+        tail = [_init_hybrid_sub(gen, cfg, "rec", dt) for _ in range(rem)]
+        return LM(cfg, embed, groups, ones(), tail)
+    if cfg.family == "ssm":
+        blocks = [SSMBlock(cfg, ones(), ssmm.init_ssm(gen, cfg, dt))
+                  for _ in range(cfg.n_layers)]
+        return LM(cfg, embed, blocks, ones())
     init_ffn = moem.init_moe if cfg.moe is not None else mlpm.init_swiglu
     blocks = [Block(cfg, ones(), ones(),
                     attn.init_attention(gen, cfg, dtype=dt),
                     init_ffn(gen, cfg, dtype=dt))
               for _ in range(cfg.n_layers)]
-    return LM(cfg, emb.init_embedding(gen, cfg, dt), blocks, ones())
+    return LM(cfg, embed, blocks, ones())
 
 
 def lm_forward(
@@ -143,12 +252,21 @@ def lm_forward(
     tokens: torch.Tensor,  # (B, T) ids
     cfg: ModelConfig,
     slot_map: tuple[int, ...] | None = None,  # moe hot-expert plan
+    inputs_embeds: torch.Tensor | None = None,  # (B, P, D) put first
 ) -> torch.Tensor:
-    """Returns final hidden states (B, T, D) after ln_f."""
+    """Returns final hidden states (B, P + T, D) after ln_f."""
     check_supported(cfg)
     x = emb.embed(params.embed, tokens, cfg)
-    for block in params.blocks:
-        x = _remat(block, cfg)(x, slot_map)
+    if inputs_embeds is not None:
+        x = torch.cat([inputs_embeds.to(x.dtype), x], dim=1)
+    if cfg.family == "hybrid":
+        for group in params.groups:  # the reference checkpoints the group
+            x = _remat(group, cfg, "full")(x)
+        for sub in params.tail:
+            x = sub(x)
+    else:
+        for block in params.blocks:
+            x = _remat(block, cfg)(x, slot_map)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -168,10 +286,22 @@ def lm_loss(
     labels: torch.Tensor,  # (B, T), -1 = masked
     cfg: ModelConfig,
     slot_map: tuple[int, ...] | None = None,
+    inputs_embeds: torch.Tensor | None = None,
     loss_chunk: int = 128,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy over unmasked labels, float32."""
-    h = lm_forward(params, tokens, cfg, slot_map)
+    """Mean next-token cross-entropy over unmasked labels, float32; with
+    ``inputs_embeds``, over the text positions only."""
+    h = lm_forward(params, tokens, cfg, slot_map, inputs_embeds)
+    if inputs_embeds is not None:
+        h = h[:, inputs_embeds.shape[1]:]
+    return hidden_loss(params, h, labels, cfg, loss_chunk)
+
+
+def hidden_loss(params: LM, h: torch.Tensor, labels: torch.Tensor,
+                cfg: ModelConfig, loss_chunk: int = 128) -> torch.Tensor:
+    """``lm_loss`` from the final hidden states (B, T, D) of the labelled
+    positions: the LM head and the cross-entropy, in chunks of
+    ``loss_chunk`` positions."""
     w_out = (params.embed.table.t() if cfg.tie_embeddings
              else params.embed.out).to(h.dtype)
     t = h.shape[1]
@@ -187,14 +317,59 @@ def lm_loss(
 
 
 # ------------------------------------------------------------------- decode
+def _stacked(state: dict, n: int) -> dict:
+    """Each tensor of ``state`` repeated on a new leading axis of n."""
+    return {name: t[None].expand(n, *t.shape).clone()
+            for name, t in state.items()}
+
+
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device: str | torch.device = "cuda") -> dict:
-    """{"kv": {"k", "v"}}, each (n_layers, B, max_len, KV, hd) in the
-    compute dtype, zero."""
+    """Zero decode caches in the reference's structure, stacked over the
+    layers (groups): dense, moe and vlm {"kv": {"k", "v"}}, each (n_layers,
+    B, max_len, KV, hd) in the compute dtype; ssm {"ssm": {"conv",
+    "ssm"}}; hybrid {"rec1", "rec2": RG-LRU states, "attn": rings of
+    min(window, max_len) slots, "tail": a list of RG-LRU states}."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        return {"ssm": _stacked(ssmm.init_ssm_state(cfg, batch, device),
+                                cfg.n_layers)}
+    if cfg.family == "hybrid":
+        ng, rem = hybrid_counts(cfg)
+        rec = rg.init_rglru_state(cfg, batch, device)
+        kv = attn.init_kv_cache(cfg, batch, min(cfg.hybrid.window, max_len),
+                                device=device)
+        return {"rec1": _stacked(rec, ng), "rec2": _stacked(rec, ng),
+                "attn": _stacked(kv, ng),
+                "tail": [rg.init_rglru_state(cfg, batch, device)
+                         for _ in range(rem)]}
     kv = attn.init_kv_cache(cfg, batch, max_len, device=device)
-    return {"kv": {name: t[None].repeat(cfg.n_layers, 1, 1, 1, 1)
-                   for name, t in kv.items()}}
+    return {"kv": _stacked(kv, cfg.n_layers)}
+
+
+def _write(cache: dict, new: dict) -> None:
+    """Copy a step's new state into the cache's tensors, in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
+def _layer(stacked: dict, i: int) -> dict:
+    """Layer (group) i's views of a stacked cache."""
+    return {name: t[i] for name, t in stacked.items()}
+
+
+def _hybrid_sub_decode(sub: HybridSub, x: torch.Tensor, state: dict,
+                       pos: int, cfg: ModelConfig) -> torch.Tensor:
+    """One sub-block's decode step; its state is written in place."""
+    z = rms_norm(x, sub.ln1, cfg.norm_eps)
+    if sub.kind == "rec":
+        y, new = rg.rglru_decode_step(sub.mixer, z, state, cfg)
+        _write(state, new)
+    else:
+        y, _ = attn.decode_attention(sub.mixer, z, state, pos, cfg,
+                                     window=cfg.hybrid.window)
+    h = x + y
+    return h + sub.mlp(rms_norm(h, sub.ln2, cfg.norm_eps))
 
 
 def lm_decode_step(
@@ -209,6 +384,31 @@ def lm_decode_step(
     updated in place."""
     check_supported(cfg)
     x = emb.embed(params.embed, tokens, cfg)
+    if cfg.family == "ssm":
+        for i, block in enumerate(params.blocks):
+            state = _layer(cache["ssm"], i)
+            y, new = ssmm.ssm_decode_step(
+                block.ssm, rms_norm(x, block.ln1, cfg.norm_eps), state, cfg)
+            _write(state, new)
+            x = x + y
+    elif cfg.family == "hybrid":
+        pos = int(pos)
+        for i, group in enumerate(params.groups):
+            for name in ("rec1", "rec2", "attn"):
+                x = _hybrid_sub_decode(getattr(group, name), x,
+                                       _layer(cache[name], i), pos, cfg)
+        for sub, state in zip(params.tail, cache["tail"]):
+            x = _hybrid_sub_decode(sub, x, state, pos, cfg)
+    else:
+        x = _dense_decode(params, cache, x, pos, cfg, slot_map)
+    x = rms_norm(x, params.ln_f, cfg.norm_eps)
+    return emb.lm_head(params.embed, x, cfg), cache
+
+
+def _dense_decode(params: LM, cache: dict, x: torch.Tensor,
+                  pos: int | torch.Tensor, cfg: ModelConfig,
+                  slot_map: tuple[int, ...] | None) -> torch.Tensor:
+    """The dense, moe and vlm layers' decode step over the KV cache."""
     ck, cv = cache["kv"]["k"], cache["kv"]["v"]
     for i, block in enumerate(params.blocks):
         z = rms_norm(x, block.ln1, cfg.norm_eps)
@@ -217,5 +417,4 @@ def lm_decode_step(
         x = x + y
         z2 = rms_norm(x, block.ln2, cfg.norm_eps)
         x = x + block.ffn(z2, slot_map)  # moe: moe_ffn on (B, 1, D)
-    x = rms_norm(x, params.ln_f, cfg.norm_eps)
-    return emb.lm_head(params.embed, x, cfg), cache
+    return x

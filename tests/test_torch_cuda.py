@@ -695,6 +695,74 @@ def test_cuda_flash_attention_is_forward_only(cuda_device):
                         torch.zeros((1, 4, 2, 48), device=cuda_device))
 
 
+# the forward with a window and at hd 256 (recurrentgemma-2b's local
+# attention): (B, T, S, H, KV, hd, causal, q_offset, window)
+WINDOW_CASES = [
+    (1, 300, 300, 10, 1, 256, True, 0, 0),      # hd 256, no window
+    (1, 300, 300, 10, 1, 256, False, 0, 0),
+    (2, 333, 333, 4, 1, 256, True, 0, 100),     # hd 256, window
+    (1, 300, 300, 4, 2, 128, True, 0, 1),       # the diagonal only
+    (1, 300, 300, 4, 2, 64, True, 0, 17),
+    (1, 300, 300, 4, 2, 128, True, 0, 299),     # T - 1
+    (1, 300, 300, 4, 2, 32, True, 0, 300),      # T: hides nothing
+    (1, 100, 400, 4, 1, 256, True, 300, 64),    # q_offset with the window
+    (1, 200, 200, 4, 4, 16, False, 0, 33),      # non-causal window
+    (1, 129, 129, 2, 1, 256, True, 0, 64),      # the 64-key tile's edges
+    (1, 65, 65, 2, 1, 256, True, 0, 65),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WINDOW_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_window_and_hd256_match_plain(cuda_device, case,
+                                                           dtype):
+    """Both forward kernels with a window and at hd 256 against the plain
+    version (and its log-sum-exp); two launches give the same bits, and a
+    window of at least q_offset + T gives the unwindowed launch's bits."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_cuda, flash_attention_plain)
+
+    b, t, s, h, kv, hd, causal, off, w = case
+    g = torch.Generator().manual_seed(t * 3 + w)
+    q, k, v = (torch.randn((b, n, heads, hd), generator=g).to(dtype)
+               .to(cuda_device) for n, heads in ((t, h), (s, kv), (s, kv)))
+    kw = dict(causal=causal, q_offset=off, window=w)
+    got, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want, wlse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert torch.equal(got, flash_attention_cuda(q, k, v, **kw))
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), wlse.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    wide = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                window=off + t)
+    assert torch.equal(wide, flash_attention_cuda(q, k, v, causal=causal,
+                                                  q_offset=off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,window", [(64, 16), (256, 0)])
+def test_cuda_flash_backward_refuses_window_and_hd256(cuda_device, dtype, hd,
+                                                      window):
+    """The backward kernels take no window and no hd 256 yet: a gradient
+    through the card's forward raises rather than return the gradient of
+    another mask."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.randn((1, 32, 2, hd), device=cuda_device, dtype=dtype,
+                    requires_grad=True)
+    k = torch.randn((1, 32, 1, hd), device=cuda_device, dtype=dtype)
+    bwd = LAUNCHES["flash_attention_bwd"]
+    out = flash_attention(q, k, k, window=window)
+    with pytest.raises(NotImplementedError, match="kernel step 7"):
+        out.sum().backward()
+    assert LAUNCHES["flash_attention_bwd"] == bwd and q.grad is None
+
+
 # chip_smoke.py phase 1's backward variants, at widths a test can afford:
 # (B, T, S, H, KV, hd, dtype, causal, q_offset)
 BWD_CASES = [

@@ -1,5 +1,5 @@
-"""The port's LM serving path (dense and moe) against the JAX package, on
-the CPU.
+"""The port's LM serving path (dense, moe, ssm, hybrid and vlm) against the
+JAX package, on the CPU.
 
 Inputs are made from a seed with numpy and fed to both packages; weights
 are made by the JAX package and carried across with
@@ -223,7 +223,8 @@ def test_causal_alignment_is_top_left_like_the_kernel():
 # ------------------------------------- (c) attention and decode_attention
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
                                   "qwen2-moe-a2.7b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b",
+                                  "recurrentgemma-2b", "internvl2-2b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_and_decode_attention_match_jax(arch, dtype):
     jcfg, tcfg = _cfg(arch, dtype)
@@ -255,10 +256,19 @@ def test_attention_and_decode_attention_match_jax(arch, dtype):
 
 
 # ------------------------------------------ (d) lm_forward and model.loss
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
-                                  "qwen2-moe-a2.7b",
-                                  "moonshot-v1-16b-a3b"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# mamba2-130m runs here in float32 only: in bf16 the reference's own
+# 2-layer smoke model lies 0.0723 from its float32 result at T = 150 (the
+# limit is 0.0725), so two independent bf16 roundings of it part by more;
+# tests/test_torch_recurrent.py holds its bf16 layers to the reference
+# given the same input, and its bf16 loss, at this limit.
+_FORWARD_CASES = [(dtype, arch) for dtype in ("float32", "bfloat16")
+                  for arch in ("llama3-8b", "qwen1.5-4b", "qwen2-moe-a2.7b",
+                               "moonshot-v1-16b-a3b", "mamba2-130m",
+                               "recurrentgemma-2b", "internvl2-2b")
+                  if (arch, dtype) != ("mamba2-130m", "bfloat16")]
+
+
+@pytest.mark.parametrize("dtype,arch", _FORWARD_CASES)
 def test_lm_forward_and_loss_match_jax(arch, dtype, monkeypatch):
     from repro.data.tokens import make_batch as jax_make_batch
     from repro_torch.data.tokens import make_batch
@@ -287,12 +297,24 @@ def test_lm_forward_and_loss_match_jax(arch, dtype, monkeypatch):
 
 
 # ---------------------------------------------------- (e) lm_decode_step
+def _cache_leaves(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """{path: array} of a decode cache (nested dicts and lists)."""
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_cache_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: _np(tree)}
+
+
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-4b",
                                   "qwen2-moe-a2.7b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "mamba2-130m",
+                                  "recurrentgemma-2b", "internvl2-2b"])
 def test_decode_steps_match_jax(arch):
-    """Greedy tokens equal and the caches close over a few steps (float32,
-    so that no near-tie of bf16 logits can flip an argmax)."""
+    """Greedy tokens equal and every cache leaf close over a few steps
+    (float32, so that no near-tie of bf16 logits can flip an argmax)."""
     jcfg, tcfg, jm, jp, tm, tp = _models(arch, "float32", seed=5)
     jstep = jax.jit(jax_make_serve_step(jm))
     tstep = make_serve_step(tm)
@@ -304,8 +326,10 @@ def test_decode_steps_match_jax(arch):
         tn, tcache = tstep(tp, tcache, {"tokens": ttok, "pos": pos})
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         jtok, ttok = jn[:, None], tn[:, None]
-    for name in ("k", "v"):
-        _close(tcache["kv"][name], jcache["kv"][name], TOL["float32"])
+    got, want = _cache_leaves(tcache), _cache_leaves(jcache)
+    assert got.keys() == want.keys()
+    for path in want:
+        _close(got[path], want[path], TOL["float32"])
 
 
 # -------------------------------------------------------- (f) serve_loop
@@ -350,7 +374,8 @@ def test_tokens_and_configs_match_jax():
 
     assert set(ARCH_IDS) == {"llama3-8b", "qwen1.5-4b", "yi-9b",
                              "codeqwen1.5-7b", "qwen2-moe-a2.7b",
-                             "moonshot-v1-16b-a3b"}
+                             "moonshot-v1-16b-a3b", "mamba2-130m",
+                             "recurrentgemma-2b", "internvl2-2b"}
     for arch in ARCH_IDS:
         for get, jget in ((get_config, jax_get_config),
                           (get_smoke_config, jax_smoke_config)):
@@ -380,9 +405,9 @@ def test_unported_options_raise():
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, LATER
 
-    # the ssm, hybrid, vlm and audio families (sharded_moe is item 12d)
+    # the audio family (sharded_moe is item 12d)
     assert set(LATER) == set(JAX_ARCH_IDS) - set(ARCH_IDS)
-    assert set(LATER.values()) == {"ssm", "hybrid", "vlm", "audio"}
+    assert LATER == {"whisper-tiny": "audio"}
     for arch, family in LATER.items():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match="item 12c"):
@@ -394,8 +419,12 @@ def test_unported_options_raise():
     model = build_model(cfg, device="cpu")
     params = model.init(0)
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        TA.attention(params.blocks[0].attn, x, cfg, window=2)
+    # windowed attention is ported: it runs, and a window past T changes
+    # nothing
+    with torch.inference_mode():
+        assert torch.equal(TA.attention(params.blocks[0].attn, x, cfg,
+                                        window=4),
+                           TA.attention(params.blocks[0].attn, x, cfg))
     with pytest.raises(NotImplementedError, match="item 12c"):
         TA.cross_attention(params.blocks[0].attn, x, x, cfg)
     with pytest.raises(NotImplementedError, match="item 12d"):

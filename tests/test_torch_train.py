@@ -71,7 +71,8 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      global_norm)
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["llama3-8b", "qwen1.5-4b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"]
+ARCHS = ["llama3-8b", "qwen1.5-4b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
+         "mamba2-130m", "recurrentgemma-2b", "internvl2-2b"]
 
 
 def _f32(arch: str):
@@ -81,10 +82,14 @@ def _f32(arch: str):
 
 
 def _leaves(tree) -> list[tuple[str, np.ndarray]]:
-    """(path, array) of a nested dict's leaves, keys sorted."""
+    """(path, array) of a nested dict's (and list's) leaves, keys sorted;
+    an empty list (a hybrid model's empty tail) has none."""
     if isinstance(tree, dict):
         return [(f"{k}/{p}" if p else k, a) for k in sorted(tree)
                 for p, a in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [(f"{i}/{p}" if p else str(i), a) for i, x in enumerate(tree)
+                for p, a in _leaves(x)]
     return [("", np.asarray(tree))]
 
 
