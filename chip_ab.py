@@ -24,7 +24,9 @@ Groups (all by default):
   flash   the bf16 flash_attention rows below 32k, with
           ``F.scaled_dot_product_attention`` beside them
   flash_bwd  the bf16 rows of phase 1's attention backward
-          (``chip_smoke.FLASH_BWD_SHAPES``, the train phase's shape first):
+          (``chip_smoke.FLASH_BWD_SHAPES``, the train phase's shape first;
+          the audio train step's and the hybrid's windowed hd-256 rows
+          among them):
           ``flash_attention_bwd_cuda`` on the forward kernel's o and
           log-sum-exp, with SDPA's backward beside it; beside each row's
           time, one call's device time by kernel (torch.profiler: the
@@ -45,6 +47,13 @@ Groups (all by default):
           their phases drive them, the same calls and tokens/s as ``lm``
           (a vlm prefill is 256 patches and 3,840 tokens a row; its
           tokens/s count both)
+  audio   whisper-tiny as the audio phase drives it (bf16 weights from
+          seed 0): prefill (``model.loss`` on 16 rows of 1,500 frames and
+          448 tokens, one cold call and three warm; tokens/s of the warm
+          mean, frames and tokens both), ``whisper_encode`` of 8 rows (ms),
+          and decode through ``make_serve_step`` over the encoder states
+          (batch 8, max_len 128, 16 steps, 4 batches; tokens/s by
+          ``launch/serve.py``'s formula)
 
 The last line holds each key's times per tree.  Without a card it exits 1.
 """
@@ -67,7 +76,7 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
 GROUPS = ("dsj", "bucket", "flash", "flash_bwd", "unique", "lubm", "lm",
-          "moe", "ssm", "hybrid", "vlm")
+          "moe", "ssm", "hybrid", "vlm", "audio")
 #: the model groups past ``lm``: group -> arch (``chip_smoke.py``'s)
 FAMILIES = {"moe": "MOE_ARCH", "ssm": "SSM_ARCH", "hybrid": "HYBRID_ARCH",
             "vlm": "VLM_ARCH"}
@@ -165,39 +174,51 @@ def measure(root: str, groups: list[str]) -> dict:
         if group in groups:
             out.update({f"{group} {key}": v for key, v in measure_lm(
                 torch, chip_smoke, getattr(chip_smoke, attr)).items()})
+    if "audio" in groups:
+        out.update(measure_audio(torch, chip_smoke))
     return out
 
 
 def measure_flash_bwd(torch, chip_smoke) -> dict[str, float]:
     """Medians of the bf16 attention backward and of SDPA's backward at
-    phase 1's bf16 backward rows."""
+    phase 1's bf16 backward rows; a tree whose backward takes no window
+    (it names its head dims ``BWD_HEAD_DIMS``) leaves out the rows with a
+    window or another head dim."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_cuda, flash_attention_cuda)
+
+    old_dims = getattr(ops, "BWD_HEAD_DIMS", None)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
-    for name, b, t, s, h, kv, hd, dt, causal, off in \
+    for name, b, t, s, h, kv, hd, dt, causal, off, *rest in \
             chip_smoke.FLASH_BWD_SHAPES:
         if dt != "bfloat16":
             continue
+        w = rest[0] if rest else 0
+        if old_dims is not None and (w > 0 or hd not in old_dims):
+            continue
+        mk = dict(causal=causal, q_offset=off, window=w)
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev
                                          ).to(torch.bfloat16)
         q, k, v, do = rnd(b, t, h, hd), rnd(b, s, kv, hd), \
             rnd(b, s, kv, hd), rnd(b, t, h, hd)
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
-                                      return_lse=True)
-        fn = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                              causal=causal, q_offset=off)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **mk)
+        fn = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, **mk)
         out[f"flash_attention_bwd {name}"] = chip_smoke.time_ms(torch, fn)
         prof = chip_smoke.profile_run(torch, fn)
         out[f"flash_attention_bwd device ms {name}"] = {
             t["kernel"]: t["ms"] for t in prof["top"]}
         mask = None
-        if causal and off:
-            mask = torch.arange(s, device=dev)[None, :] <= \
-                off + torch.arange(t, device=dev)[:, None]
+        if (causal and off) or w > 0:
+            kpos = torch.arange(s, device=dev)[None, :]
+            qpos = off + torch.arange(t, device=dev)[:, None]
+            mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+            if w > 0:
+                mask = mask & (kpos > qpos - w)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         res = F.scaled_dot_product_attention(
@@ -273,6 +294,56 @@ def measure_lm(torch, chip_smoke, arch: str) -> dict:
             "decode batch s": [float(x) for x in times]}
 
 
+def measure_audio(torch, chip_smoke) -> dict:
+    """whisper-tiny's warm prefill tokens/s, encoder ms and steady decode
+    tokens/s, as the audio phase drives them."""
+    import time
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch, zipf_tokens
+    from repro_torch.launch.train import make_serve_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.whisper import whisper_encode
+
+    cfg = get_config(chip_smoke.AUDIO_ARCH)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0, dtype=torch.bfloat16)
+    b, t = chip_smoke.AUDIO
+    batch = make_batch(cfg, b, t, 0, device="cuda")
+    prefill_s = []
+    for _ in range(4):  # one cold call, three warm
+        a = time.perf_counter()
+        with torch.inference_mode():
+            float(model.loss(params, batch))
+        prefill_s.append(time.perf_counter() - a)
+    with torch.inference_mode():
+        rows8 = batch["frames"][:8]
+        encode_ms = chip_smoke.time_ms(
+            torch, lambda: whisper_encode(params, rows8, cfg))
+        enc = whisper_encode(params, rows8, cfg)
+    serve = make_serve_step(model)
+    rng = np.random.default_rng(0)
+    times = []
+    for _ in range(4):
+        cache = model.init_cache(8, 128)
+        tok = torch.from_numpy(zipf_tokens(rng, cfg.vocab_size, (8, 1))
+                               .astype(np.int64)).cuda()
+        a = time.perf_counter()
+        for pos in range(16):
+            nxt, cache = serve(params, cache, {"enc": enc, "tokens": tok,
+                                               "pos": pos})
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - a)
+    positions = b * (cfg.encdec.n_frames + t)
+    return {"audio prefill tokens/s": positions / float(np.mean(
+                prefill_s[1:])),
+            "audio encode 8 rows ms": encode_ms,
+            "audio decode tokens/s": 8 * 16 / float(np.mean(times[1:])),
+            "audio decode batch s": [float(x) for x in times]}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -303,7 +374,7 @@ def main(argv: list[str]) -> int:
         row = json.loads(res.stdout.strip().splitlines()[-1])
         print(json.dumps({"tree": tag, "root": root, **row}), flush=True)
         runs[tag].append(row)
-    print(json.dumps({key: {tag: [r[key] for r in rows]
+    print(json.dumps({key: {tag: [r.get(key) for r in rows]
                             for tag, rows in runs.items()}
                       for key in runs["new"][0]}), flush=True)
     return 0

@@ -18,10 +18,11 @@ two gloo ranks on the card), a 32 M-triple Zipf stream, the dense LM's
 serving path (prefill and decode of llama3-8b) and its training path
 (qwen1.5-4b train steps), the moe family (qwen2-moe-a2.7b served at full
 size, trained at full width), the partitioning baselines of the startup
-claim, and the ssm, hybrid and vlm families (mamba2-130m, recurrentgemma-2b
-and internvl2-2b served at full size; mamba2-130m trained at full size,
-internvl2-2b's train step held to the CPU port) -- checks the answers, and
-prints one JSON line per phase.  Any
+claim, the ssm, hybrid and vlm families (mamba2-130m, recurrentgemma-2b
+and internvl2-2b served at full size; mamba2-130m and recurrentgemma-2b
+trained at full size, internvl2-2b's train step held to the CPU port) and
+the audio family (whisper-tiny served and trained at full size) -- checks
+the answers, and prints one JSON line per phase.  Any
 mismatch or exception exits non-zero; without a card it exits 1 before
 doing anything.
 
@@ -69,6 +70,14 @@ Phases:
             the gradient's largest)); the forward kernel's o within the
             same limits of the plain forward's and its log-sum-exp within
             1e-5 + 1e-5 of the plain one's; two launches bit-identical;
+            then the audio train step's rows (whisper-tiny: cross B=16
+            T=448 S=1500 H=KV=6 hd=64, the encoder's T=S=1500, both
+            non-causal, the decoder's causal T=S=448) and the hybrid
+            train step's (B=1, T=S=4096, H=10, KV=1, hd=256, bf16, causal,
+            window 2048), f32 at hd 256 with and without that window,
+            window 1, window 4096 >= T (which must give the unwindowed
+            launch's bits), T=1024 S=4096 q_offset=3072 and odd T=S=1001
+            with a window;
             the kernel pipeline (forward kernel, then the backward on its
             o and log-sum-exp) and the plain one printed against the
             float32 gradient, and SDPA's backward against it too
@@ -85,7 +94,12 @@ Phases:
             with no window, each within the limits above and bit-identical
             on relaunch; the bound counts the visible pairs; SDPA with the
             window as a boolean mask (KV heads repeated) is the library
-            call, and the row names the backend it took
+            call, and the row names the backend it took; then the same at
+            the audio path's shapes (``FLASH_AUDIO_SHAPES``, bf16 and f32:
+            the encoder B=16 T=S=1500 H=KV=6 hd=64 non-causal, cross B=16
+            T=448 S=1500, decode cross B=8 T=1 S=1500; the decoder's
+            causal T=S=448 in bf16), SDPA with no mask where every key is
+            visible
   2 lubm    lubm_like(100, 20, 30, 12, 2) (~4.74 M triples) on 8 workers:
             startup, store bytes, peak memory, 60 workload queries (all six
             templates), each kernel's launch count on that run and, by
@@ -247,13 +261,40 @@ Phases:
             T=4096 (the window cuts in): hidden states within 1e-4, the
             loss within 1e-5 relative; 16 decode steps at positions 2040
             to 2055 on caches filled from a seed, crossing the ring's wrap
-            (2048 slots), logits and every cache leaf as in ssm-parity
+            (2048 slots), logits and every cache leaf as in ssm-parity;
+            one train step at phase 5's limits on 2,304 tokens (the
+            windowed hd-256 backward kernel on the card; the window cuts
+            in past 2,048)
+    hybrid-train  recurrentgemma-2b at full width and depth, float32
+            parameters, bf16 compute, remat (per group), B=1, T=4096: a
+            warm-up and 3 timed steps, 16 forward / 8 backward flash
+            launches a step, all windowed (2048) at hd 256, finite loss
+            and grad_norm, step seconds, tokens/s, peak memory
     vlm     internvl2-2b at full size, bf16: as ``ssm``, the prefill 256
             patches and 3,840 text tokens a row, 24 flash_attention
             launches a call
     vlm-parity  2 layers at full width in float32, 256 patches and 264
             tokens: hidden states and loss as above, one train step at
             phase 5's limits
+    audio   whisper-tiny at full size (4 encoder and 4 decoder layers, d
+            384, 6 heads of 64, vocab 51,865, 1,500 frames), bf16 weights
+            from seed 0: prefill (``model.loss`` on B=16 rows of 1,500
+            frames and 448 text tokens, Whisper's n_text_ctx) cold and 3x
+            warm, each with 12 flash_attention launches (4 encoder
+            non-causal, 4 decoder causal, 4 cross, by ``attention_spy``);
+            ``whisper_encode`` of 8 rows timed alone; decode through
+            ``make_serve_step`` over those encoder states (batch 8,
+            max_len 128, 16 steps, 4 batches, 4 cross launches a step: the
+            reference's serve loop has no encoder input); a profiled
+            prefill and decode batch, peak memory
+    audio-parity  2 encoder and 2 decoder layers at full width in
+            float32, 1,500 frames, 448 tokens: encoder and decoder states
+            within 1e-4, the loss within 1e-5 relative, 16 decode steps as
+            in ssm-parity, one train step at phase 5's limits
+    audio-train  whisper-tiny at full size, float32 parameters, bf16
+            compute, remat, B=16 x (1,500 frames + 448 tokens): a warm-up
+            and 3 timed steps, 24 forward / 12 backward flash launches a
+            step, tokens/s, peak memory
   7 startup ``benchmarks/bench_startup.py``'s rows at W = 16 on phase
             2's LUBM-100 triples (run right after phase 2b, while they are
             held): hash on subject, random and ``mincut_lite`` seconds
@@ -263,8 +304,9 @@ Phases:
 Each path's kernels must launch on that path's run (the DSJ kernels on
 LUBM, on the directory engines and on the mesh; on a served stream probe and
 ``expand`` always, all four once a staged answer was served;
-flash_attention on the LM, the moe, the hybrid (windowed, hd 256) and the
-vlm prefills; its backward on the train steps, dense and moe).  Each phase
+flash_attention on the LM, the moe, the hybrid (windowed, hd 256), the vlm
+and the audio prefills and the audio decode; its backward on the train
+steps, dense, moe, hybrid (windowed, hd 256) and audio).  Each phase
 prints its wall seconds.  The line before the last holds every kernel's
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1014,6 +1056,26 @@ FLASH_WINDOW_SHAPES = [
      0, 300),
     ("hd=256 no window", 1, 4096, 4096, 10, 1, 256, "bfloat16", True, 0, 0),
 ]
+# phase 1's rows at the audio path's shapes (whisper-tiny: H=KV=6, hd=64;
+# 1,500 encoder frames, 448 text positions, Whisper's n_text_ctx): the
+# encoder's self-attention, the decoder's, its cross-attention to the
+# frames in the prefill (B=16) and in a decode step (B=8, T=1)
+FLASH_AUDIO_SHAPES = [
+    (f"whisper-tiny encoder layer B=16 T=S=1500 H=KV=6 hd=64 {dt} "
+     "non-causal", 16, 1500, 1500, 6, 6, 64, dt, False, 0, 0)
+    for dt in ("bfloat16", "float32")
+] + [
+    (f"whisper-tiny cross layer B=16 T=448 S=1500 {dt}", 16, 448, 1500, 6,
+     6, 64, dt, False, 0, 0)
+    for dt in ("bfloat16", "float32")
+] + [
+    (f"whisper-tiny decode cross B=8 T=1 S=1500 {dt}", 8, 1, 1500, 6, 6, 64,
+     dt, False, 0, 0)
+    for dt in ("bfloat16", "float32")
+] + [
+    ("whisper-tiny decoder self layer B=16 T=S=448 bf16 causal", 16, 448,
+     448, 6, 6, 64, "bfloat16", True, 0, 0),
+]
 
 
 def sdpa_backend(torch, fn) -> dict:
@@ -1038,21 +1100,23 @@ def sdpa_backend(torch, fn) -> dict:
     return {"backend": backend, "top_kernel": top[:80]}
 
 
-def phase_flash_window(torch) -> dict:
-    """The forward kernels with a window and at hd 256 against the plain
-    version, at the hybrid prefill's shape and variants; returns the main
-    row (B=4, T=S=4096, H=10, KV=1, hd=256, bf16, causal, window 2048)."""
+def phase_flash_window(torch, shapes=FLASH_WINDOW_SHAPES,
+                       seed: int = 1) -> dict:
+    """The forward kernels against the plain version at ``shapes`` (T and
+    S apart, q_offset, window): by default with a window and at hd 256, at
+    the hybrid prefill's shape and variants; ``FLASH_AUDIO_SHAPES`` the
+    audio path's.  Returns the first row (by default B=4, T=S=4096, H=10,
+    KV=1, hd=256, bf16, causal, window 2048)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_cuda, flash_attention_plain, flash_engine)
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
     main_row = None
-    for variant, b, t, s, h, kv, hd, dname, causal, off, w in \
-            FLASH_WINDOW_SHAPES:
+    for variant, b, t, s, h, kv, hd, dname, causal, off, w in shapes:
         dt = getattr(torch, dname)
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                          dtype=torch.float32).to(dt)
@@ -1083,11 +1147,13 @@ def phase_flash_window(torch) -> dict:
             plain_ms = time_ms(torch, lambda: flash_attention_plain(
                 q, k, v, **kw), 5)
             # SDPA with the window as a boolean mask, KV heads expanded
+            # (no mask where every key is visible)
             qpos = off + torch.arange(t, device=dev)[:, None]
             kpos = torch.arange(s, device=dev)[None, :]
-            mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+            mask = kpos <= qpos if causal else None
             if w > 0:
-                mask = mask & (kpos > qpos - w)
+                mask = (kpos > qpos - w) if mask is None else \
+                    mask & (kpos > qpos - w)
             qt = q.transpose(1, 2)
             kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
                       for x in (k, v))
@@ -1111,8 +1177,8 @@ def phase_flash_window(torch) -> dict:
                "equals_unwindowed_launch": unwindowed_equal,
                "kernel_ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
-               "library": "F.scaled_dot_product_attention(attn_mask=window "
-                          "mask, KV heads repeated)", **{
+               "library": "F.scaled_dot_product_attention(attn_mask=the "
+                          "mask or none, KV heads repeated)", **{
                               f"library_{k_}": v_
                               for k_, v_ in library.items()},
                "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
@@ -1132,7 +1198,7 @@ def phase_flash_window(torch) -> dict:
 LSE_TOL = 1e-5
 # phase 1's backward rows, the train phase's shape first (``chip_ab.py
 # flash_bwd`` times the bf16 ones): (variant, B, T, S, H, KV, hd, dtype,
-# causal, q_offset)
+# causal, q_offset[, window])
 FLASH_BWD_SHAPES = [
     ("qwen1.5-4b train_4k layer B=1 T=S=4096 H=KV=20 bf16 causal", 1, 4096,
      4096, 20, 20, 128, "bfloat16", True, 0),
@@ -1146,6 +1212,31 @@ FLASH_BWD_SHAPES = [
     ("hd=64", 1, 4096, 4096, 32, 8, 64, "bfloat16", True, 0),
     ("non-causal", 1, 4096, 4096, 20, 20, 128, "bfloat16", False, 0),
     ("odd T=S=1001", 1, 1001, 1001, 20, 20, 128, "bfloat16", True, 0),
+    # the audio train step's (whisper-tiny, B=16, 448 text positions, 1,500
+    # frames): cross-attention, the encoder's and the decoder's own
+    ("whisper-tiny cross B=16 T=448 S=1500 H=KV=6 hd=64 non-causal", 16,
+     448, 1500, 6, 6, 64, "bfloat16", False, 0),
+    ("whisper-tiny encoder B=16 T=S=1500 non-causal", 16, 1500, 1500, 6, 6,
+     64, "bfloat16", False, 0),
+    ("whisper-tiny decoder self B=16 T=S=448 causal", 16, 448, 448, 6, 6, 64,
+     "bfloat16", True, 0),
+    # the hybrid train step's (recurrentgemma-2b: H=10, KV=1, hd=256,
+    # window 2048), then the window's and hd 256's variants
+    ("recurrentgemma-2b train_4k layer B=1 T=S=4096 H=10 KV=1 hd=256 bf16 "
+     "causal window 2048", 1, 4096, 4096, 10, 1, 256, "bfloat16", True, 0,
+     2048),
+    ("f32 hd=256 window 2048", 1, 4096, 4096, 10, 1, 256, "float32", True, 0,
+     2048),
+    ("f32 hd=256 no window", 1, 4096, 4096, 10, 1, 256, "float32", True, 0,
+     0),
+    ("window 1 (the diagonal)", 1, 4096, 4096, 10, 1, 256, "bfloat16", True,
+     0, 1),
+    ("window 4096 >= T (the unwindowed bits)", 1, 4096, 4096, 10, 1, 256,
+     "bfloat16", True, 0, 4096),
+    ("T=1024 S=4096 q_offset=3072 window 2048", 1, 1024, 4096, 10, 1, 256,
+     "bfloat16", True, 3072, 2048),
+    ("odd T=S=1001 window 300", 1, 1001, 1001, 10, 1, 256, "bfloat16", True,
+     0, 300),
 ]
 
 
@@ -1172,7 +1263,10 @@ def phase_flash_bwd(torch) -> dict:
     # 2^-8 of its own magnitude, 2^-7 of its row's largest.
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
     main_row = None
-    for variant, b, t, s, h, kv, hd, dt, causal, off in FLASH_BWD_SHAPES:
+    for variant, b, t, s, h, kv, hd, dt, causal, off, *rest in \
+            FLASH_BWD_SHAPES:
+        w = rest[0] if rest else 0
+        mk = dict(causal=causal, q_offset=off, window=w)
         dt = getattr(torch, dt)
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                          dtype=torch.float32).to(dt)
@@ -1182,21 +1276,25 @@ def phase_flash_bwd(torch) -> dict:
         # did not make: the forward kernel's o and LSE against the plain
         # forward's, and the backward kernel against the plain backward,
         # both fed the plain forward's o and LSE.
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
-                                      return_lse=True)
-        o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
-                                               q_offset=off, return_lse=True)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **mk)
+        o_ref, lse_ref = flash_attention_plain(q, k, v, return_lse=True,
+                                               **mk)
         lse_err = float((lse - lse_ref).abs().max())
         lse_ok = bool(((lse - lse_ref).abs() <=
                        LSE_TOL + LSE_TOL * lse_ref.abs()).all())
         o_err = grad_errors([o], [o_ref])
-        kern = lambda: flash_attention_bwd_cuda(
-            q, k, v, o_ref, do, lse_ref, causal=causal, q_offset=off)
-        plain = lambda: flash_attention_bwd_plain(
-            q, k, v, o_ref, do, lse_ref, causal=causal, q_offset=off)
+        kern = lambda: flash_attention_bwd_cuda(q, k, v, o_ref, do, lse_ref,
+                                                **mk)
+        plain = lambda: flash_attention_bwd_plain(q, k, v, o_ref, do, lse_ref,
+                                                  **mk)
         got, again = kern(), kern()
         torch.cuda.synchronize()
         identical = all(torch.equal(a, c) for a, c in zip(got, again))
+        unwindowed_equal = None
+        if w >= off + t:  # hides nothing: the unwindowed launch's bits
+            unwindowed_equal = all(torch.equal(a, c) for a, c in zip(
+                got, flash_attention_bwd_cuda(q, k, v, o_ref, do, lse_ref,
+                                              causal=causal, q_offset=off)))
         want = plain()
         err, rel = grad_errors(got, want)
         del got, again
@@ -1205,22 +1303,22 @@ def phase_flash_bwd(torch) -> dict:
         # float32 gradient of the same inputs (o not rounded): printed.
         # Both round o to the input dtype before D = rowsum(dO * O), so
         # the two pipelines differ by that rounding, not by a kernel.
-        chain = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                         q_offset=off)
+        chain = flash_attention_bwd_cuda(q, k, v, o, do, lse, **mk)
         f32 = [x.float() for x in (q, k, v)]
-        o32, lse32 = flash_attention_plain(*f32, causal=causal, q_offset=off,
-                                           return_lse=True)
-        exact = flash_attention_bwd_plain(*f32, o32, do.float(), lse32,
-                                          causal=causal, q_offset=off)
+        o32, lse32 = flash_attention_plain(*f32, return_lse=True, **mk)
+        exact = flash_attention_bwd_plain(*f32, o32, do.float(), lse32, **mk)
         pipeline = {"kernels_vs_plain": grad_errors(chain, want),
                     "kernels_vs_f32": grad_errors(chain, exact),
                     "plain_vs_f32": grad_errors(want, exact)}
-        # SDPA's is_causal aligns top-left at q_offset 0; with an offset the
-        # same mask goes in as a (T, S) boolean attn_mask
+        # SDPA's is_causal aligns top-left at q_offset 0; with an offset or
+        # a window the same mask goes in as a (T, S) boolean attn_mask
         mask = None
-        if causal and off:
-            mask = torch.arange(s, device=dev)[None, :] <= \
-                off + torch.arange(t, device=dev)[:, None]
+        if (causal and off) or w > 0:
+            kpos = torch.arange(s, device=dev)[None, :]
+            qpos = off + torch.arange(t, device=dev)[:, None]
+            mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+            if w > 0:
+                mask = mask & (kpos > qpos - w)
         sdpa = lambda *x: F.scaled_dot_product_attention(
             *x, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
@@ -1241,9 +1339,11 @@ def phase_flash_bwd(torch) -> dict:
             raise AssertionError(
                 f"flash_attention {variant}: the forward's o is {o_err} from "
                 f"the plain forward's (limits {tols[dt]})")
-        if not identical:
-            raise AssertionError(f"flash_attention_bwd {variant}: two "
-                                 "launches on the same inputs differ")
+        if not identical or unwindowed_equal is False:
+            raise AssertionError(
+                f"flash_attention_bwd {variant}: relaunch bit-identical "
+                f"{identical}, equal to the unwindowed launch "
+                f"{unwindowed_equal}")
         if not (err <= tols[dt][0] and rel <= tols[dt][1]):
             raise AssertionError(
                 f"flash_attention_bwd {variant}: max err over max(1, max "
@@ -1263,12 +1363,14 @@ def phase_flash_bwd(torch) -> dict:
         # log-sum-exp; outputs dq (B, T, H, hd), dk, dv (B, S, KV, hd)
         bytes_moved = (4 * b * t * h * hd + 4 * b * s * kv * hd) * isz + \
             4 * b * h * t
-        flops = 10 * b * h * hd * visible_pairs(t, s, causal, off)
+        pairs = visible_pairs(t, s, causal, off, w)
+        flops = 10 * b * h * hd * pairs
         b_ms, b_by = bound(bytes_moved, flops,
                            FLOPS_PER_S[str(dt).split(".")[1]])
         row = {"phase": "kernels", "kernel": "flash_attention_bwd",
                "variant": variant, "shape": {"B": b, "T": t, "S": s, "H": h,
-                                             "KV": kv, "hd": hd},
+                                             "KV": kv, "hd": hd,
+                                             "window": w},
                "dtype": str(dt).split(".")[1], "causal": causal,
                "q_offset": off, "engine": flash_engine(dt),
                "max_abs_err": err, "max_row_rel_err": rel,
@@ -1280,12 +1382,14 @@ def phase_flash_bwd(torch) -> dict:
                "lse_tolerance": f"{LSE_TOL} + {LSE_TOL} x |plain LSE|",
                "pipeline_errors": pipeline,
                "bit_identical_relaunch": identical,
+               "equals_unwindowed_launch": unwindowed_equal,
                "kernel_ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)"
                " backward alone (out.backward(dO, retain_graph=True))",
                "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
-               "ops": flops, "tflops": flops / ms / 1e9,
+               "visible_pairs": pairs, "ops": flops,
+               "tflops": flops / ms / 1e9,
                "tc_share": tc_share(dt, flops, ms)}
         emit(row)
         if main_row is None:
@@ -3624,21 +3728,27 @@ def phase_moe_train(torch) -> dict[str, int]:
 SSM_ARCH = "mamba2-130m"  # the train CLI's default arch, as the reference's
 HYBRID_ARCH = "recurrentgemma-2b"
 VLM_ARCH = "internvl2-2b"
+AUDIO_ARCH = "whisper-tiny"
+# the audio prefill and train step: 16 rows of 1,500 encoder frames and 448
+# text positions (Whisper's published n_text_ctx)
+AUDIO = (16, 448)
 # float32 card against CPU port: products summed in another order
 PARITY_TOL = 1e-4
 
 
 @contextmanager
 def attention_spy(torch):
-    """Records (window, head dim) of every prefill attention call that goes
-    to ``flash_attention`` while open."""
+    """Records (window, head dim, causal) of every attention call of the
+    models (prefill, train and cross-attention) that goes to
+    ``flash_attention`` while open."""
     from repro_torch.models import attention as TA
 
-    seen: list[tuple[int, int]] = []
+    seen: list[tuple[int, int, bool]] = []
     inner = TA.flash_attention
 
     def spy(q, k, v, **kw):
-        seen.append((int(kw.get("window", 0)), int(q.shape[-1])))
+        seen.append((int(kw.get("window", 0)), int(q.shape[-1]),
+                     bool(kw.get("causal", True))))
         return inner(q, k, v, **kw)
 
     TA.flash_attention = spy
@@ -3695,11 +3805,12 @@ def family_serving(torch, phase: str, arch: str, text_len: int,
             losses.append(loss)
             launched = LAUNCHES["flash_attention"] - before
             if launched != flash_per_call or any(
-                    w != window or hd != cfg.hd for w, hd in calls[seen:]):
+                    c != (window, cfg.hd, True) for c in calls[seen:]):
                 raise AssertionError(
                     f"{phase} prefill call {i}: {launched} flash_attention "
-                    f"launches with (window, hd) {calls[seen:]}, expected "
-                    f"{flash_per_call} with {(window, cfg.hd)}")
+                    f"launches with (window, hd, causal) {calls[seen:]}, "
+                    f"expected {flash_per_call} with "
+                    f"{(window, cfg.hd, True)}")
             if not math.isfinite(loss):
                 raise AssertionError(f"{phase} prefill call {i}: loss {loss}")
     walls["prefill_s"] = time.perf_counter() - t0
@@ -3845,7 +3956,7 @@ def max_err(torch, got, want, scaled: bool = False) -> tuple[float, bool]:
 
 def family_parity(torch, phase: str, cfg2, text_len: int,
                   decode_at: tuple[int, int] | None, decode_max_len: int,
-                  train: bool) -> None:
+                  train: bool, train_len: int | None = None) -> None:
     """The float32 config ``cfg2`` at seed 0 on the card and a copy on the
     CPU port: hidden states (one forward each) within PARITY_TOL and the
     loss from them within 1e-5 relative; decode steps at positions
@@ -3853,12 +3964,17 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
     step's logits (of their largest magnitude) and every cache leaf within
     PARITY_TOL, from caches of
     ``decode_max_len`` filled from a seed when the range starts past 0;
-    then, with ``train``, one train step at phase 5's limits."""
+    then, with ``train``, one train step at phase 5's limits on
+    ``train_len`` tokens (default ``text_len``).  An audio
+    config's hidden states are the encoder states of the batch's frames
+    and the decoder's, and its decode steps attend to each device's own
+    encoder states."""
     import copy
 
     from repro_torch.data.tokens import make_batch
     from repro_torch.models import transformer as TT
     from repro_torch.models import vlm as TV
+    from repro_torch.models import whisper as TW
     from repro_torch.models.model_zoo import build_model
 
     t0 = time.perf_counter()
@@ -3869,18 +3985,30 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
     bg = make_batch(cfg2, 1, text_len, 0, device="cuda")
     bc = {k: v.cpu() for k, v in bg.items()}
 
-    def forward(p, batch) -> tuple[torch.Tensor, float, float]:
+    def forward(p, batch) -> tuple[torch.Tensor, float, float, dict]:
         a = time.perf_counter()
+        extra = {}
         with torch.inference_mode():
-            emb = (TV._project(p, batch["patches"], cfg2)
-                   if cfg2.vlm is not None else None)
-            h = TT.lm_forward(p, batch["tokens"], cfg2, inputs_embeds=emb)
-            text = h if emb is None else h[:, emb.shape[1]:]
-            loss = float(TT.hidden_loss(p, text, batch["labels"], cfg2))
-        return h, loss, time.perf_counter() - a
+            if cfg2.family == "audio":
+                enc = TW.whisper_encode(p, batch["frames"], cfg2)
+                t = batch["tokens"].shape[1]
+                x = TW._embed(p, batch["tokens"], cfg2) + \
+                    p.dec_pos[None, :t].to(cfg2.cdtype)
+                text = TW._decode_stack(p, x, enc, cfg2)
+                loss = float(TT.chunked_nll(text, batch["labels"],
+                                            p.tok.t().to(text.dtype), cfg2))
+                h, extra = torch.cat([enc, text], dim=1), {"enc": enc}
+            else:
+                emb = (TV._project(p, batch["patches"], cfg2)
+                       if cfg2.vlm is not None else None)
+                h = TT.lm_forward(p, batch["tokens"], cfg2,
+                                  inputs_embeds=emb)
+                text = h if emb is None else h[:, emb.shape[1]:]
+                loss = float(TT.hidden_loss(p, text, batch["labels"], cfg2))
+        return h, loss, time.perf_counter() - a, extra
 
-    h_card, loss_card, card_s = forward(pg, bg)
-    h_host, loss_host, host_s = forward(pc, bc)
+    h_card, loss_card, card_s, extra_card = forward(pg, bg)
+    h_host, loss_host, host_s, extra_host = forward(pc, bc)
     hidden_err, hidden_ok = max_err(torch, h_card, h_host)
     loss_rel = abs(loss_card - loss_host) / abs(loss_host)
     del h_card, h_host
@@ -3901,8 +4029,9 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
             for i, pos in enumerate(range(*decode_at)):
                 tok = bc["tokens"][:, i % text_len:i % text_len + 1]
                 lg, cg = gpu.decode(pg, cg, {"tokens": tok.cuda(),
-                                             "pos": pos})
-                lc, cc = cpu.decode(pc, cc, {"tokens": tok, "pos": pos})
+                                             "pos": pos, **extra_card})
+                lc, cc = cpu.decode(pc, cc, {"tokens": tok, "pos": pos,
+                                             **extra_host})
                 e, good = max_err(torch, lg, lc, scaled=True)
                 logits_err, ok = max(logits_err, e), ok and good
                 for a, b in zip(cache_leaves(cg), cache_leaves(cc)):
@@ -3916,13 +4045,15 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
                   "cache_max_abs_err": cache_err, "ok": ok,
                   "s": time.perf_counter() - t0}
         del cg, cc
+    del extra_card, extra_host
 
     row = None
     models = [gpu, cpu, pg, pc]  # the train step starts from these weights
     del gpu, cpu, pg, pc
     if train:
         t0 = time.perf_counter()
-        row = card_vs_cpu_steps(torch, cfg2, 1, text_len, models)[0]
+        row = card_vs_cpu_steps(torch, cfg2, 1, train_len or text_len,
+                                models)[0]
         row["s"] = time.perf_counter() - t0
     del models
     gc.collect()
@@ -3932,11 +4063,15 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
     emit({"phase": phase, "arch": cfg2.name, "n_layers": cfg2.n_layers,
           "compute_dtype": cfg2.dtype, "batch": 1, "seq": text_len,
           "patches": cfg2.vlm.n_patches if cfg2.vlm is not None else 0,
+          "frames": cfg2.encdec.n_frames if cfg2.encdec is not None else 0,
+          "enc_layers": (cfg2.encdec.n_enc_layers if cfg2.encdec is not None
+                         else 0),
           "hidden_max_abs_err": hidden_err,
           "tolerance": {"hidden": PARITY_TOL, "loss_rel":
                         STEP_TOL["loss_rel"]},
           "loss": [loss_card, loss_host], "loss_rel_err": loss_rel,
           "decode": decode, "train_step": row,
+          "train_seq": (train_len or text_len) if train else None,
           "forward_s": {"card": card_s, "cpu": host_s, "phase": forward_s},
           "ok": ok})
     if not ok:
@@ -3944,16 +4079,250 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
                              "CPU port's (see the line above)")
 
 
+def family_train(torch, phase: str, cfg, batch: int, seq: int,
+                 spy_calls: list, reduced: str) -> dict[str, int]:
+    """``cfg`` through ``make_train_step`` (float32 parameters, bf16
+    compute, remat as the config has it) on ``make_batch(cfg, batch, seq,
+    step)``: a warm-up step and three timed ones, each with finite loss and
+    grad_norm and with the flash launches ``spy_calls`` (the (window, hd,
+    causal) of each attention call of a step, remat's recompute
+    included) gives: that many forward launches, and one backward launch
+    for each call of the forward pass.  Returns the launches of the run."""
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig())
+    batches = [make_batch(cfg, batch, seq, i, device="cuda")
+               for i in range(4)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    want = sorted(spy_calls)
+    n_fwd = len(want)
+    n_bwd = n_fwd // 2 if cfg.remat else n_fwd
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = []
+    with attention_spy(torch) as calls:
+        for i in range(4):  # one warm-up step, three timed
+            fwd = LAUNCHES["flash_attention"]
+            bwd = LAUNCHES["flash_attention_bwd"]
+            seen = len(calls)
+            a = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batches[i])
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            steps.append({"step": i, "s": time.perf_counter() - a,
+                          "loss": loss, "grad_norm": gnorm,
+                          "flash_fwd": LAUNCHES["flash_attention"] - fwd,
+                          "flash_bwd": LAUNCHES["flash_attention_bwd"] - bwd})
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"{phase} step {i}: loss {loss}, "
+                                     f"grad_norm {gnorm}")
+            if steps[-1]["flash_fwd"] != n_fwd or \
+                    steps[-1]["flash_bwd"] != n_bwd or \
+                    sorted(calls[seen:]) != want:
+                raise AssertionError(
+                    f"{phase} step {i}: flash launches {steps[-1]} with "
+                    f"(window, hd, causal) {Counter(calls[seen:])}, expected "
+                    f"{n_fwd} forward ({Counter(want)}) and {n_bwd} "
+                    "backward")
+    steps_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    step_s = float(np.mean([r["s"] for r in steps[1:]]))
+    tokens = batch * seq
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "hd": cfg.hd, "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.dtype, "remat": cfg.remat, "params": n_params,
+          "batch": batch, "seq": seq,
+          "frames": cfg.encdec.n_frames if cfg.encdec is not None else 0,
+          "reduced": reduced, "allocated_before_bytes": allocated_before,
+          "steps": steps, "step_s": step_s, "tokens_per_s": tokens / step_s,
+          "flash_launches_per_step": {
+              "forward": n_fwd, "backward": n_bwd,
+              "calls": {str(k): v for k, v in Counter(want).items()}},
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches,
+          "walls": {"init_s": init_s, "steps_s": steps_s}})
+    del params, opt, model, batches, step_fn, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_audio(torch) -> dict[str, int]:
+    """whisper-tiny at full size, bf16 weights from seed 0, through the
+    port's entry points: prefill (``model.loss`` on AUDIO = 16 rows of 1,500
+    frames and 448 text tokens under ``torch.inference_mode()``, one cold
+    call and three warm, each with 12 flash_attention launches: 4 encoder
+    non-causal, 4 decoder causal, 4 cross), ``whisper_encode`` of 8 rows
+    alone, decode (``make_serve_step`` over ``batch["enc"]``: batch 8,
+    max_len 128, 16 steps, 4 batches, 4 cross launches a step), a profiled
+    prefill and decode batch.  Returns the launches of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch, zipf_tokens
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_serve_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.whisper import whisper_encode
+
+    cfg = get_config(AUDIO_ARCH)
+    walls: dict[str, float] = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0, dtype=torch.bfloat16)
+    batch = make_batch(cfg, *AUDIO, 0, device="cuda")
+    torch.cuda.synchronize()
+    walls["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+    frames = cfg.encdec.n_frames
+    want = sorted([(0, cfg.hd, False)] * (n_enc + n_dec) +
+                  [(0, cfg.hd, True)] * n_dec)
+    per_call = len(want)
+    positions = AUDIO[0] * (frames + AUDIO[1])
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    losses, prefill_s = [], []
+    with attention_spy(torch) as calls:
+        for i in range(4):  # one cold call, three warm
+            before, seen = LAUNCHES["flash_attention"], len(calls)
+            a = time.perf_counter()
+            with torch.inference_mode():  # prefill: no autograd, no remat
+                loss = float(model.loss(params, batch))
+            prefill_s.append(time.perf_counter() - a)
+            losses.append(loss)
+            launched = LAUNCHES["flash_attention"] - before
+            if launched != per_call or sorted(calls[seen:]) != want:
+                raise AssertionError(
+                    f"audio prefill call {i}: {launched} flash_attention "
+                    f"launches with (window, hd, causal) "
+                    f"{Counter(calls[seen:])}, expected {Counter(want)}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"audio prefill call {i}: loss {loss}")
+    walls["prefill_s"] = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    warm_s = float(np.mean(prefill_s[1:]))
+
+    # the encoder alone on the decode batch's 8 rows
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        rows8 = batch["frames"][:8]
+        encode_ms = time_ms(torch, lambda: whisper_encode(params, rows8, cfg),
+                            10)
+        enc = whisper_encode(params, rows8, cfg)
+    walls["encode_s"] = time.perf_counter() - t0
+
+    # decode: the reference's serve loop has no encoder input, so the
+    # decode step is driven as tests/test_archs_smoke.py drives it
+    t0 = time.perf_counter()
+    serve = make_serve_step(model)
+    rng = np.random.default_rng(0)
+    times, tokens_ok = [], True
+
+    def decode_batch(steps: int) -> None:
+        nonlocal tokens_ok
+        cache = model.init_cache(8, 128)
+        tok = torch.from_numpy(zipf_tokens(rng, cfg.vocab_size, (8, 1))
+                               .astype(np.int64)).cuda()
+        for pos in range(steps):
+            nxt, cache = serve(params, cache, {"enc": enc, "tokens": tok,
+                                               "pos": pos})
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        tokens_ok = tokens_ok and bool(((tok >= 0) &
+                                        (tok < cfg.vocab_size)).all())
+
+    before = LAUNCHES["flash_attention"]
+    for _ in range(4):
+        a = time.perf_counter()
+        decode_batch(16)
+        times.append(time.perf_counter() - a)
+    decode_launches = LAUNCHES["flash_attention"] - before
+    walls["decode_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if decode_launches != 4 * 16 * n_dec or not tokens_ok:
+        raise AssertionError(f"audio decode: {decode_launches} flash "
+                             f"launches (expected {4 * 16 * n_dec}: "
+                             f"{n_dec} cross a step), tokens in range "
+                             f"{tokens_ok}")
+    decode_tps = 8 * 16 / float(np.mean(times[1:]))  # serve.py's formula
+
+    t0 = time.perf_counter()
+    prefill_prof = profile_run(torch, torch.inference_mode()(
+        lambda: model.loss(params, batch)))
+    decode_prof = profile_run(torch, lambda: decode_batch(4))
+    busy = {}
+    for what, prof in (("prefill B=%d %d frames + %d tokens" %
+                        (AUDIO[0], frames, AUDIO[1]), prefill_prof),
+                       ("decode batch 8 x 4 steps", decode_prof)):
+        busy[what.split()[0]] = 1 - prof["idle_share"]
+        emit({"phase": "audio-profile", "what": what,
+              **{k: v for k, v in prof.items() if k != "port_kernels_ms"},
+              "busy_share": 1 - prof["idle_share"]})
+    walls["profile_s"] = time.perf_counter() - t0
+    emit({"phase": "audio", "arch": cfg.name, "family": cfg.family,
+          "n_layers": n_dec, "n_enc_layers": n_enc, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+          "vocab": cfg.vocab_size, "weights_dtype": "bfloat16",
+          "params": n_params, "dec_pos_rows": int(params.dec_pos.shape[0]),
+          "prefill": {"batch": AUDIO[0], "frames": frames,
+                      "text": AUDIO[1], "positions": positions,
+                      "cold_s": prefill_s[0], "warm_s": prefill_s[1:],
+                      "warm_positions_per_s": positions / warm_s,
+                      "warm_text_tokens_per_s": AUDIO[0] * AUDIO[1] / warm_s,
+                      "loss": losses, "busy_share": busy["prefill"],
+                      "flash_launches_per_call": per_call,
+                      "calls": {str(k): v for k, v in Counter(want).items()},
+                      "max_memory_allocated": prefill_peak},
+          "encode": {"batch": 8, "frames": frames, "ms": encode_ms,
+                     "frames_per_s": 8 * frames / encode_ms * 1e3},
+          "decode": {"batch": 8, "max_len": 128, "steps": 16, "batches": 4,
+                     "batch_s": times, "steady_tok_per_s": decode_tps,
+                     "busy_share": busy["decode"],
+                     "flash_launches": decode_launches,
+                     "cross_launches_per_step": n_dec},
+          "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "walls": walls})
+    del params, batch, model, enc, rows8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_families(torch) -> dict[str, int]:
-    """The ssm, hybrid and vlm families on the card (phases ssm,
-    ssm-parity, hybrid, hybrid-parity, vlm, vlm-parity); returns the
-    flash_attention launches of the hybrid and vlm prefill paths."""
+    """The ssm, hybrid, vlm and audio families on the card (phases ssm,
+    ssm-parity, hybrid, hybrid-parity, hybrid-train, vlm, vlm-parity,
+    audio, audio-parity, audio-train); returns the flash_attention
+    launches of the hybrid, vlm and audio prefill paths (the audio decode's
+    too) and the flash_attention_bwd launches of the hybrid and audio
+    train steps."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.common import EncDecConfig
 
     walls: dict[str, float] = {}
-    launches = {"flash_attention": 0}
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
     t0 = time.perf_counter()
     family_serving(torch, "ssm", SSM_ARCH, PREFILL[1], 0)
     phase_ssm_train(torch)
@@ -3974,10 +4343,21 @@ def phase_families(torch) -> dict[str, int]:
     # one group at full width; T = 4096 so the window cuts in; decode
     # crosses the ring's wrap (2048 slots) from caches filled from a seed
     w = hybrid.hybrid.window
+    # its train step on window + 256 tokens, where the window still cuts
+    # in (the CPU port's backward at T=4096 takes ~110 s of the card's host)
     family_parity(torch, "hybrid-parity",
                   dataclasses.replace(hybrid, n_layers=3, dtype="float32"),
-                  PREFILL[1], (w - 8, w + 8), 2 * w, train=False)
+                  PREFILL[1], (w - 8, w + 8), 2 * w, train=True,
+                  train_len=w + 256)
     walls["hybrid_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # all 26 layers: remat runs each group's windowed attention twice
+    ng = hybrid.n_layers // 3
+    launches["flash_attention_bwd"] += family_train(
+        torch, "hybrid-train", hybrid, *TRAIN,
+        [(w, hybrid.hd, True)] * (2 * ng),
+        "train_4k global batch 256 -> 1 (one card)")["flash_attention_bwd"]
+    walls["hybrid_train_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vlm = get_config(VLM_ARCH)
     launches["flash_attention"] += family_serving(
@@ -3989,6 +4369,28 @@ def phase_families(torch) -> dict[str, int]:
                   dataclasses.replace(vlm, n_layers=2, dtype="float32"),
                   264, None, 0, train=True)
     walls["vlm_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["flash_attention"] += phase_audio(torch)["flash_attention"]
+    walls["audio_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    audio = get_config(AUDIO_ARCH)
+    # 2 encoder and 2 decoder layers at full width, all 1,500 frames
+    family_parity(torch, "audio-parity",
+                  dataclasses.replace(audio, n_layers=2, dtype="float32",
+                                      encdec=EncDecConfig(n_enc_layers=2,
+                                                          n_frames=1500)),
+                  AUDIO[1], (0, 16), 32, train=True)
+    walls["audio_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hd = audio.hd
+    layer_calls = ([(0, hd, False)] * (audio.encdec.n_enc_layers +
+                                       audio.n_layers) +
+                   [(0, hd, True)] * audio.n_layers)
+    launches["flash_attention_bwd"] += family_train(
+        torch, "audio-train", audio, *AUDIO, 2 * layer_calls,
+        "none: whisper-tiny at full size, B=16 x (1,500 frames + 448 "
+        "tokens)")["flash_attention_bwd"]
+    walls["audio_train_s"] = time.perf_counter() - t0
     emit({"phase": "families-walls", **walls})
     return launches
 
@@ -4085,6 +4487,7 @@ def main() -> int:
     rows = phase_kernels(torch, skew_in)
     rows["flash_attention"] = phase_flash(torch)
     phase_flash_window(torch)
+    phase_flash_window(torch, FLASH_AUDIO_SHAPES, seed=2)
     rows["flash_attention_bwd"] = phase_flash_bwd(torch)
     walls["kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4182,8 +4585,11 @@ def main() -> int:
         phase_moe_train(torch)["flash_attention_bwd"]
     walls["moe_train_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # the hybrid's windowed and the vlm's prefill launches join the others
-    launches["flash_attention"] += phase_families(torch)["flash_attention"]
+    # the hybrid's windowed, the vlm's and the audio prefill launches join
+    # the others, the hybrid and audio train steps' backward launches too
+    family_launches = phase_families(torch)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += family_launches[name]
     walls["families_s"] = time.perf_counter() - t0
     emit({"phase": "walls", **walls})
 

@@ -3,21 +3,20 @@
 The port's own copy of ``repro.configs`` for the dense family
 (``llama3-8b``, ``qwen1.5-4b``, ``yi-9b``, ``codeqwen1.5-7b``), the moe
 family (``qwen2-moe-a2.7b``, ``moonshot-v1-16b-a3b``), the ssm family
-(``mamba2-130m``), the hybrid family (``recurrentgemma-2b``) and the vlm
-family (``internvl2-2b``), which ``repro_torch.models.model_zoo.build_model``
-builds.  The JAX package's audio arch is named here and raises
-``NotImplementedError``: its config comes with the slice that builds it
-(ROADMAP §1 item 12c).
+(``mamba2-130m``), the hybrid family (``recurrentgemma-2b``), the vlm
+family (``internvl2-2b``) and the audio family (``whisper-tiny``), which
+``repro_torch.models.model_zoo.build_model`` builds: every arch of the JAX
+package (``LATER``, the archs still to port, is empty).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.models.common import ModelConfig, unported
+from repro_torch.models.common import ModelConfig
 
 from . import (codeqwen15_7b, internvl2_2b, llama3_8b, mamba2_130m,
                moonshot_v1_16b_a3b, qwen2_moe_a27b, qwen15_4b,
-               recurrentgemma_2b, yi_9b)
+               recurrentgemma_2b, whisper_tiny, yi_9b)
 
 __all__ = ["ARCH_IDS", "LATER", "SHAPES", "ShapeSpec", "get_config",
            "get_smoke_config"]
@@ -32,11 +31,10 @@ _MODULES = {
     "qwen2-moe-a2.7b": qwen2_moe_a27b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "internvl2-2b": internvl2_2b,
+    "whisper-tiny": whisper_tiny,
 }
-#: the JAX package's other archs, by family
-LATER = {
-    "whisper-tiny": "audio",
-}
+#: the JAX package's archs not ported yet, by family: none
+LATER: dict[str, str] = {}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -58,8 +56,6 @@ SHAPES = {
 
 
 def _module(arch: str):
-    if arch in LATER:
-        raise unported(f"the {LATER[arch]!r} family ({arch})", "12c")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return _MODULES[arch]

@@ -3,20 +3,24 @@
 //
 // No TPU kernel to replace: the JAX package differentiates
 // src/repro/models/attention.py:_blocked_attn (:62) by autodiff.  This
-// computes what that autodiff computes for window = 0, from the forward's
-// output O and per-row log-sum-exp L (flash_attn.cu / flash_attn_sm90.cu
-// store it):
+// computes what that autodiff computes, from the forward's output O and
+// per-row log-sum-exp L (flash_attn.cu / flash_attn_sm90.cu store it):
 //
-//   P  = exp(Q K^T * hd^-1/2 - L)   (masked: s < S, and s <= q_offset + t
-//                                    when causal, top-left aligned)
+//   P  = exp(Q K^T * hd^-1/2 - L)   (masked: s < S; s <= q_offset + t
+//                                    when causal, top-left aligned; with a
+//                                    window w > 0 also s > q_offset + t - w)
 //   D  = rowsum(dO o O)
 //   dS = P o (dO V^T - D)
 //   dQ = hd^-1/2 dS K,   dK = hd^-1/2 dS^T Q,   dV = P^T dO
 //
 // with dK and dV summed over the H / KV query heads of each KV head (GQA).
 // q, o, dO, dq: (B, T, H, hd); k, v, dk, dv: (B, S, KV, hd); contiguous,
-// float32; L and D (B, H, T) float32.  Every product and sum is float32.
-// bf16 inputs go to the tensor-core kernel of flash_attn_bwd_sm90.cu.
+// float32; L and D (B, H, T) float32; hd in {16, 32, 64, 128, 256}.  Every
+// product and sum is float32.  A window of at least q_offset + T hides
+// nothing and gives the unwindowed launch's bits; a query row that sees no
+// key (only a window can make one) is outside the contract, as in the
+// forward.  bf16 inputs go to the tensor-core kernel of
+// flash_attn_bwd_sm90.cu.
 //
 // Bound on the card: operations.  With P recomputed in both passes a
 // (query tile, key tile) pair costs 7 products of 64 x 64 x hd (S and dP
@@ -30,25 +34,38 @@
 //  2. ``bwd_dkdv``: one CTA of 256 threads per (b, KV head, tile of 64
 //     keys).  K and V stay in shared memory; the CTA walks the query tiles
 //     of every query head of the group (when causal, only those at or past
-//     the tile's first key), recomputes P^T and dS^T (64 x 64, a 4 x 4
+//     the tile's first key; with a window, only those whose rows' windows
+//     reach its last key), recomputes P^T and dS^T (64 x 64, a 4 x 4
 //     block a thread) and accumulates dV += P^T dO and dK += dS^T Q in
 //     registers (4 keys x hd/16 columns a thread each).
 //  3. ``bwd_dq``: one CTA per (b * H + h, tile of 64 queries), longest
 //     first when causal; Q, dO, L and D stay in shared memory, the CTA
-//     walks the key tiles up to the diagonal and accumulates dQ += dS K.
+//     walks the key tiles from the one its first row's window starts in
+//     (0 without a window) up to the diagonal and accumulates dQ += dS K.
 // Rows past T and keys past S are loaded as zeros and masked out of P, so
 // they add nothing to any sum.  Shared memory at hd = 128: 170 KB (dK dV)
-// and 153 KB (dQ), one CTA per SM.
+// and 153 KB (dQ), one CTA per SM.  At hd 256 four 64-row tiles of 256
+// floats would take 302 KB, over the 227 KB a CTA may have, so the tiles
+// there are 32 rows (a 2 x 2 block of the 32 x 32 P^T a thread; 143 KB and
+// 138 KB), the same code at another tile size.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kB = 64;         // rows of a query tile and of a key tile
 constexpr int kThreads = 256;  // 16 row groups (ty) x 16 column lanes (tx)
-constexpr int kR = 4;          // tile rows per thread: ty * 4 + i
-constexpr int kC = 4;          // tile columns per thread: tx + 16 * j
-constexpr int kPld = kB + 4;   // row stride of the 64 x 64 tiles in smem
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile sizes at head dim HD: B rows of a query tile and of a key tile (64;
+// 32 at hd 256, where 64-row tiles exceed a CTA's shared memory); each
+// thread owns R rows (ty * R + i) and C columns (tx + 16 * j) of the B x B
+// P^T and dS^T tiles, whose smem row stride is PLD.
+template <int HD>
+struct Tiles {
+  static constexpr int B = HD > 128 ? 32 : 64;
+  static constexpr int R = B / 16;
+  static constexpr int C = B / 16;
+  static constexpr int PLD = B + 4;
+};
 
 // Four consecutive floats.
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -65,13 +82,13 @@ struct Cols {
   static constexpr int LD = HD + 4;  // row stride of a 64 x HD smem tile
 };
 
-// Rows [0, 64) of a (rows, HD) matrix with row stride ``ld`` into shared
+// Rows [0, B) of a (rows, HD) matrix with row stride ``ld`` into shared
 // memory as float, row stride HD + 4; rows at or past ``valid`` are zero.
 template <int HD>
 __device__ __forceinline__ void load_tile(float* sm, const float* g,
                                           int64_t ld, int64_t valid) {
   constexpr int kPerRow = HD / 4;
-  for (int i = threadIdx.x; i < kB * kPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < Tiles<HD>::B * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * 4;
     const float4 x =
@@ -80,8 +97,8 @@ __device__ __forceinline__ void load_tile(float* sm, const float* g,
   }
 }
 
-// acc[i][j] = a[ty*4 + i] . b[tx + 16j] over HD (two 64 x HD smem tiles).
-template <int HD>
+// acc[i][j] = a[ty*R + i] . b[tx + 16j] over HD (two B x HD smem tiles).
+template <int HD, int kR = Tiles<HD>::R, int kC = Tiles<HD>::C>
 __device__ __forceinline__ void dot_tile(const float* a, const float* b,
                                          float (&acc)[kR][kC], int ty,
                                          int tx) {
@@ -111,15 +128,16 @@ __device__ __forceinline__ void dot_tile(const float* a, const float* b,
   }
 }
 
-// acc[i][c] += sum_m p[ty*4 + i][m] * x[m][col(c)]: p a 64 x 64 smem tile
-// (row stride kPld), x a 64 x HD smem tile.
-template <int HD>
+// acc[i][c] += sum_m p[ty*R + i][m] * x[m][col(c)]: p a B x B smem tile
+// (row stride PLD), x a B x HD smem tile.
+template <int HD, int kR = Tiles<HD>::R>
 __device__ __forceinline__ void acc_tile(const float* p, const float* x,
                                          float (&acc)[kR][HD / 16], int ty,
                                          int tx) {
   using C = Cols<HD>;
+  constexpr int kPld = Tiles<HD>::PLD;
 #pragma unroll 2
-  for (int m = 0; m < kB; m += 4) {
+  for (int m = 0; m < Tiles<HD>::B; m += 4) {
     float4 pv[kR];
 #pragma unroll
     for (int i = 0; i < kR; ++i) pv[i] = load4(p + (ty * kR + i) * kPld + m);
@@ -153,9 +171,9 @@ __device__ __forceinline__ void acc_tile(const float* p, const float* x,
   }
 }
 
-// Rows ty*4 + i (< valid) of a 64 x HD accumulator, times ``mul``, into
+// Rows ty*R + i (< valid) of a B x HD accumulator, times ``mul``, into
 // global memory with row stride ``ld``.
-template <int HD>
+template <int HD, int kR = Tiles<HD>::R>
 __device__ __forceinline__ void store_acc(float* g, int64_t ld, int64_t valid,
                                           const float (&acc)[kR][HD / 16],
                                           float mul, int ty, int tx) {
@@ -201,14 +219,19 @@ bwd_rowdot(const float* __restrict__ o, const float* __restrict__ dout,
 
 template <int HD>
 constexpr int dkdv_smem_floats() {
-  return 4 * kB * Cols<HD>::LD + 2 * kB * kPld + 2 * kB;
+  using T = Tiles<HD>;
+  return 4 * T::B * Cols<HD>::LD + 2 * T::B * T::PLD + 2 * T::B;
 }
 template <int HD>
 constexpr int dq_smem_floats() {
-  return 4 * kB * Cols<HD>::LD + kB * kPld + 2 * kB;
+  using T = Tiles<HD>;
+  return 4 * T::B * Cols<HD>::LD + T::B * T::PLD + 2 * T::B;
 }
+static_assert(dkdv_smem_floats<256>() * 4 <= 227 * 1024 &&
+                  dkdv_smem_floats<128>() * 4 <= 227 * 1024,
+              "tiles exceed a CTA's shared memory");
 
-// 2. dK and dV of one tile of 64 keys of one KV head.
+// 2. dK and dV of one tile of B keys of one KV head.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
@@ -216,9 +239,11 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ lse, const float* __restrict__ dsum,
          float* __restrict__ dk, float* __restrict__ dv, int64_t t_len,
          int64_t s_len, int n_heads, int n_kv, int causal, int64_t q_offset,
-         float scale) {
+         int64_t window, float scale) {
   constexpr int LD = Cols<HD>::LD;
   constexpr int NC = Cols<HD>::NC;
+  constexpr int kB = Tiles<HD>::B, kR = Tiles<HD>::R, kC = Tiles<HD>::C;
+  constexpr int kPld = Tiles<HD>::PLD;
   extern __shared__ float4 smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
   float* Vs = Ks + kB * LD;
@@ -248,15 +273,20 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  // when causal, query t sees this tile only if q_offset + t >= n0
+  // when causal, query t sees this tile only if q_offset + t >= n0; with a
+  // window only if q_offset + t - window < n0 + kB - 1 (its last key)
   const int64_t m_first =
       causal ? (n0 > q_offset ? (n0 - q_offset) / kB * kB : 0) : 0;
+  const int64_t m_stop =
+      window > 0 ? max((int64_t)0,
+                       min(t_len, n0 + kB + window - 1 - q_offset))
+                 : t_len;
   const float scale_log2 = scale * kLog2e;
   for (int hh = 0; hh < g; ++hh) {
     const int h = kh * g + hh;
     const int64_t q_off = ((int64_t)b * t_len * n_heads + h) * HD;
     const int64_t r_off = ((int64_t)b * n_heads + h) * t_len;
-    for (int64_t m0 = m_first; m0 < t_len; m0 += kB) {
+    for (int64_t m0 = m_first; m0 < m_stop; m0 += kB) {
       __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are read
       load_tile<HD>(Qs, q + q_off + m0 * q_ld, q_ld, t_len - m0);
       load_tile<HD>(Os, dout + q_off + m0 * q_ld, q_ld, t_len - m0);
@@ -277,7 +307,8 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
           const int64_t kpos = n0 + ty * kR + i;
           const int64_t t = m0 + m;
           const bool ok = kpos < s_len && t < t_len &&
-                          (!causal || kpos <= q_offset + t);
+                          (!causal || kpos <= q_offset + t) &&
+                          (window <= 0 || kpos > q_offset + t - window);
           const float p =
               ok ? exp2f(fmaf(s[i][j], scale_log2, -Ls[m])) : 0.f;
           Ps[(ty * kR + i) * kPld + m] = p;
@@ -292,16 +323,18 @@ bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   store_acc<HD>(dv + kv_off, kv_ld, s_len - n0, dv_acc, 1.f, ty, tx);
 }
 
-// 3. dQ of one tile of 64 queries of one query head.
+// 3. dQ of one tile of B queries of one query head.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, const float* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ dsum,
        float* __restrict__ dq, int64_t t_len, int64_t s_len, int n_heads,
-       int n_kv, int causal, int64_t q_offset, float scale) {
+       int n_kv, int causal, int64_t q_offset, int64_t window, float scale) {
   constexpr int LD = Cols<HD>::LD;
   constexpr int NC = Cols<HD>::NC;
+  constexpr int kB = Tiles<HD>::B, kR = Tiles<HD>::R, kC = Tiles<HD>::C;
+  constexpr int kPld = Tiles<HD>::PLD;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Os = Qs + kB * LD;  // dO
@@ -338,13 +371,17 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t last = q_offset + min(m0 + kB, t_len) - 1;
     n_tiles = min(n_tiles, last / kB + 1);
   }
+  // with a window, from the key tile the first row's window starts in
+  int64_t first = 0;
+  if (window > 0 && q_offset + m0 - window + 1 > 0)
+    first = min((q_offset + m0 - window + 1) / kB, n_tiles);
   float dq_acc[kR][NC];
 #pragma unroll
   for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dq_acc[i][c] = 0.f;
   const float scale_log2 = scale * kLog2e;
-  for (int64_t tile = 0; tile < n_tiles; ++tile) {
+  for (int64_t tile = first; tile < n_tiles; ++tile) {
     const int64_t n0 = tile * kB;
     __syncthreads();  // the previous tile's K and dS are read
     load_tile<HD>(Ks, k + kv_off + n0 * kv_ld, kv_ld, s_len - n0);
@@ -361,7 +398,8 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         const int64_t t = m0 + r;
         const int64_t kpos = n0 + tx + 16 * j;
         const bool ok = kpos < s_len && t < t_len &&
-                        (!causal || kpos <= q_offset + t);
+                        (!causal || kpos <= q_offset + t) &&
+                        (window <= 0 || kpos > q_offset + t - window);
         const float p = ok ? exp2f(fmaf(s[i][j], scale_log2, -Ls[r])) : 0.f;
         Ss[r * kPld + tx + 16 * j] = p * (dp[i][j] - Dd[r]);
       }
@@ -375,7 +413,8 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dsum, void* dq, void* dk,
            void* dv, int b, int64_t t, int64_t s, int h, int kv, int causal,
-           int64_t q_offset, cudaStream_t stream) {
+           int64_t q_offset, int64_t window, cudaStream_t stream) {
+  constexpr int kB = Tiles<HD>::B;
   const size_t smem_kv = dkdv_smem_floats<HD>() * sizeof(float);
   const size_t smem_q = dq_smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -397,14 +436,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                  kThreads, smem_kv, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)dsum, (float*)dk, (float*)dv, t, s, h,
-      kv, causal, q_offset, scale);
+      kv, causal, q_offset, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd_dq<HD><<<dim3((unsigned)((t + kB - 1) / kB), (unsigned)(b * h)),
                kThreads, smem_q, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)dsum, (float*)dq, t, s, h, kv, causal,
-      q_offset, scale);
+      q_offset, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -412,28 +451,32 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 // q, o, dout, dq: (b, t, h, hd); k, v, dk, dv: (b, s, kv, hd); float32,
 // contiguous, 16-byte aligned; lse (b, h, t) float32; dsum: scratch for D,
-// at least b * h * t float32; h a multiple of kv; hd in {16, 32, 64, 128};
-// t, s < 2^31.
+// at least b * h * t float32; h a multiple of kv; hd in {16, 32, 64, 128,
+// 256}; t, s < 2^31; window 0 (none) or the number of keys a query sees,
+// itself included.
 extern "C" int adhash_flash_attn_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, int b, int64_t t, int64_t s, int h, int kv, int hd, int causal,
-    int64_t q_offset, void* stream) {
+    int64_t q_offset, int64_t window, void* stream) {
   if (b == 0 || t == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
-                        kv, causal, q_offset, st);
+                        kv, causal, q_offset, window, st);
     case 32:
       return launch<32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
-                        kv, causal, q_offset, st);
+                        kv, causal, q_offset, window, st);
     case 64:
       return launch<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
-                        kv, causal, q_offset, st);
+                        kv, causal, q_offset, window, st);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
-                         kv, causal, q_offset, st);
+                         kv, causal, q_offset, window, st);
+    case 256:
+      return launch<256>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, t, s, h,
+                         kv, causal, q_offset, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

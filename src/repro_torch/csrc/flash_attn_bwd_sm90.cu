@@ -2,30 +2,39 @@
 //
 // No TPU kernel to replace: the JAX package differentiates
 // src/repro/models/attention.py:_blocked_attn (:62) by autodiff.  This
-// computes what that autodiff computes for window = 0, from the forward's
-// output O and per-row log-sum-exp L (flash_attn_sm90.cu stores it):
+// computes what that autodiff computes, from the forward's output O and
+// per-row log-sum-exp L (flash_attn_sm90.cu stores it):
 //
-//   P  = exp(Q K^T * hd^-1/2 - L)   (masked: s < S, and s <= q_offset + t
-//                                    when causal, top-left aligned)
+//   P  = exp(Q K^T * hd^-1/2 - L)   (masked: s < S; s <= q_offset + t
+//                                    when causal, top-left aligned; with a
+//                                    window w > 0 also s > q_offset + t - w)
 //   D  = rowsum(dO o O)
 //   dS = P o (dO V^T - D)
 //   dQ = hd^-1/2 dS K,   dK = hd^-1/2 dS^T Q,   dV = P^T dO
 //
 // with dK and dV summed over the H / KV query heads of each KV head (GQA).
 // q, o, dO, dq: (B, T, H, hd); k, v, dk, dv: (B, S, KV, hd); bf16,
-// contiguous; L (B, H, T) float32; hd in {16, 32, 64, 128}; any T and S
-// below 2^31, any q_offset >= 0.  Every product is bf16 x bf16 summed in
-// f32; P and dS are rounded to bf16 only as the A operands of the dV, dK
-// and dQ products (as the forward rounds P); the outputs are rounded to
-// bf16 once, at the store.  float32 inputs go to the CUDA-core kernel of
-// flash_attn_bwd.cu.
+// contiguous; L (B, H, T) float32; hd in {16, 32, 64, 128, 256}; any T and
+// S below 2^31, any q_offset >= 0, window 0 (none) or the keys a query
+// sees, itself included.  A window of at least q_offset + T hides nothing
+// and gives the unwindowed launch's bits; a query row that sees no key
+// (only a window can make one) is outside the contract, as in the forward.
+// Every product is bf16 x bf16 summed in f32.  P and dS enter the dV, dK
+// and dQ products as two bf16 A operands each, hi = bf16(x) and lo =
+// bf16(x - hi), one product each: with P as one bf16 operand, the
+// rounding of one large P among 1,500 keys moves a dV entry by up to a
+// bf16 ulp of its row before the store's rounding, two ulps in all, past
+// what the outputs' one rounding allows.  So the outputs are the f32
+// gradient rounded to bf16 once, at the store.  float32 inputs go to the
+// CUDA-core kernel of flash_attn_bwd.cu.
 //
 // Bound on the card: operations.  The five products (S, dP, dV, dK, dQ)
 // are 2.5x the forward's work on the same bytes, far above the ~295 bf16
 // flops per byte at which the tensor cores (989 TFLOP/s dense) bind.  With
-// P and dP recomputed in the dQ pass the kernels issue 7 products of
-// 64 x 64 x hd per (64-query, 64-key) pair, so the design keeps all of
-// them on wgmma and everything else off the tensor cores' path:
+// P and dP recomputed in the dQ pass and the split operands, the kernels
+// run 10 products of 64 x 64 x hd per (64-query, 64-key) pair, so the
+// design keeps all of them on wgmma and everything else off the tensor
+// cores' path:
 //
 //  1. ``bwd_prep``: one warp per (b * H + h, t) of rows padded to a
 //     multiple of 128 computes D and stores L * log2(e); padded rows get
@@ -41,9 +50,10 @@
 //       S^T = K Q^T and dP^T = V dO^T   (wgmma m64n64k16, SS, K-major),
 //       P^T, dS^T in registers on the accumulator's layout,
 //       dV += P^T dO and dK += dS^T Q   (wgmma m64n{hd}k16, RS: P^T and
-//                                        dS^T as bf16 A fragments, dO and
-//                                        Q read MN-major from the tiles
-//                                        the SS products read K-major).
+//                                        dS^T as bf16 A fragments, hi and
+//                                        lo, dO and Q read MN-major from
+//                                        the tiles the SS products read
+//                                        K-major).
 //     dK and dV stay in registers (64 + 64 f32 a thread at hd = 128) and
 //     are stored once.
 //  3. ``bwd_dq``: one CTA per (b * H + h, tile of 128 queries), the last
@@ -58,12 +68,33 @@
 // give the same bits.  Swizzles, descriptors and the mbarrier ring are the
 // forward's (sm90.cuh).  A stuck mbarrier wait traps instead of hanging.
 //
+// Window: the dK/dV pass walks only the query tiles whose rows' windows
+// reach its key tile (up to the last row t with q_offset + t < n0 + tile +
+// w - 1), the dQ pass only the key tiles from the one its first row's
+// window starts in; tiles that cross a window's left edge are masked like
+// the diagonal's.  Ring slots count the tiles walked, so a window changes
+// the trip counts and nothing else.  Each pass is compiled with and
+// without the window's tests (kWindow), and a launch without a window runs
+// the kernels that have none.
+//
+// hd 256: 128 rows of two resident tensors and a two-stage ring of two
+// 64-row tiles would take 257 KB, over the 227 KB a CTA may have, so both
+// passes take 64-row CTA tiles (193 KB), and the two consumer warpgroups
+// split hd instead of the rows: each owns 128 columns of dK and dV (or of
+// dQ) for the same 64 rows -- 64 + 64 f32 a thread, as at hd = 128, where
+// one warpgroup holding all 256 columns of dK and dV would need 256.  Both
+// warpgroups compute the same S^T and dP^T (the full hd contraction):
+// 1.5x the dK/dV pass's tensor work (4/3x the dQ pass's) for no exchange
+// through shared memory and no barrier between them; the same instructions
+// on the same tiles give both the same bits.
+//
 // Shared memory at hd = 128: dK/dV 2 x 32 KB (K, V) + 2 stages x (16 KB Q
 // + 16 KB dO + 512 B L, D) = 129 KB; dQ 2 x 32 KB (Q, dO) + 2 stages x
 // (16 KB K + 16 KB V) = 128 KB; one CTA per SM.  The build log
 // (`-Xptxas -v`) prints registers and any spill.
 // Not in these kernels yet: overlap of one tile's softmax with the next
-// tile's products, a persistent scheduler.
+// tile's products, a persistent scheduler, S^T and dP^T shared between the
+// warpgroups at hd 256.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -76,7 +107,6 @@ namespace {
 using namespace adhash::sm90;
 
 constexpr int kBM = 64;        // queries of a dK/dV step; keys of a dQ step
-constexpr int kBN = 128;       // keys of a dK/dV CTA; queries of a dQ CTA
 constexpr int kStages = 2;     // ring depth
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
@@ -84,16 +114,29 @@ constexpr int kPad = 128;  // T padded in the L and D rows (build.BWD_T_PAD)
 constexpr int kPrepThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Rows of a CTA's resident tiles (keys of a dK/dV CTA, queries of a dQ
+// CTA): 128, split over the two consumer warpgroups; 64 at hd 256, where
+// the warpgroups split hd instead (kSplitHd).
+template <int HD>
+constexpr bool kSplitHd = HD > 128;
+template <int HD>
+constexpr int kRows = kSplitHd<HD> ? 64 : 128;
+// Columns of dK, dV or dQ a consumer warpgroup owns.
+template <int HD>
+constexpr int kOwn = kSplitHd<HD> ? HD / 2 : HD;
+
 // Bytes of shared memory of each pass (+ barriers, + 1024 for alignment).
 template <int HD>
-constexpr size_t kDkdvSmem = 2 * (size_t)Tile<HD, kBN>::kBytes +
+constexpr size_t kDkdvSmem = 2 * (size_t)Tile<HD, kRows<HD>>::kBytes +
                              kStages * (2 * (size_t)Tile<HD, kBM>::kBytes +
                                         2 * kBM * sizeof(float)) +
                              64 + 1024;
 template <int HD>
-constexpr size_t kDqSmem = 2 * (size_t)Tile<HD, kBN>::kBytes +
+constexpr size_t kDqSmem = 2 * (size_t)Tile<HD, kRows<HD>>::kBytes +
                            kStages * 2 * (size_t)Tile<HD, kBM>::kBytes + 64 +
                            1024;
+static_assert(kDkdvSmem<256> <= 227 * 1024 && kDqSmem<256> <= 227 * 1024,
+              "hd 256 tiles exceed a CTA's shared memory");
 
 // Shared memory aligned to 1024 bytes, where the swizzle patterns repeat.
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
@@ -188,58 +231,82 @@ __device__ __forceinline__ void ss_pair(float (&acc0)[32], float (&acc1)[32],
   fence_regs<32>(acc1);
 }
 
-// acc (64 x HD) += A . B over 64 rows of B: A as bf16 fragments (4 k-steps
-// of 16), B read MN-major from a 64-row tile at ``b``.  Not waited for.
-template <int HD>
-__device__ __forceinline__ void rs_acc(float (&acc)[HD / 2],
-                                       const uint32_t (&a)[4][4], uint32_t b) {
+// acc (64 x N) += A . B over 64 rows of B: A as bf16 fragments (4 k-steps
+// of 16), B read MN-major from N columns of a 64-row tile of hd HD, from
+// column ``col0`` (a multiple of the tile's chunk width) of the tile at
+// ``b``.  Not waited for.
+template <int HD, int N>
+__device__ __forceinline__ void rs_acc(float (&acc)[N / 2],
+                                       const uint32_t (&a)[4][4], uint32_t b,
+                                       int col0) {
   using LB = Tile<HD, kBM>;
+  b += col0 / LB::kCols * LB::kChunkBytes;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<HD>(acc, a[kk],
-                 make_desc(b + kk * 16 * LB::kRowBytes, LB::kChunkBytes,
-                           8 * LB::kRowBytes, LB::kLayout));
+    wgmma_rs<N>(acc, a[kk],
+                make_desc(b + kk * 16 * LB::kRowBytes, LB::kChunkBytes,
+                          8 * LB::kRowBytes, LB::kLayout));
 }
 
 // Columns 16 kk .. 16 kk + 15 of a 64 x 64 accumulator as the bf16 A
-// fragments of k-step kk.
+// fragments of k-step kk, split in two: hi = bf16(x) and lo = bf16(x -
+// hi), so hi + lo holds x to ~2^-17 of itself.
 __device__ __forceinline__ void to_frags(const float (&acc)[32],
-                                         uint32_t (&a)[4][4]) {
+                                         uint32_t (&hi)[4][4],
+                                         uint32_t (&lo)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
-      a[kk][x] = pack_bf16(acc[8 * kk + 2 * x], acc[8 * kk + 2 * x + 1]);
+    for (int x = 0; x < 4; ++x) {
+      const float a = acc[8 * kk + 2 * x], b = acc[8 * kk + 2 * x + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][x] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][x] = pack_bf16(a - hf.x, b - hf.y);
+    }
 }
 
-// Two rows r0, r0 + 8 of a 64 x HD accumulator, times ``mul``, as bf16
+// Two rows r0, r0 + 8 of a 64 x N accumulator, times ``mul``, as bf16
 // into rows whose starts ``rows[r]`` gives (null: not stored).
-template <int HD>
+template <int N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* (&rows)[2],
-                                           const float (&acc)[HD / 2],
+                                           const float (&acc)[N / 2],
                                            float mul, int cq) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] == nullptr) continue;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(rows[r] + 8 * j + cq) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul,
                                 acc[4 * j + 2 * r + 1] * mul);
   }
 }
 
-// 2. dK and dV of one tile of 128 keys of one KV head.
-template <int HD>
+// The first of ``n_tiles`` key tiles of 64 that a row at absolute position
+// ``qpos`` sees through a window (0 without one): keys s <= qpos - window
+// are hidden.
+__device__ __forceinline__ int first_tile(int64_t qpos, int64_t window,
+                                          int n_tiles) {
+  if (window <= 0 || qpos - window + 1 <= 0) return 0;
+  return (int)min((int64_t)n_tiles, (qpos - window + 1) / kBM);
+}
+
+// 2. dK and dV of one tile of kRows keys of one KV head.  kWindow: the
+// launch has a window (without one, no window test is compiled in).
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
          const __grid_constant__ CUtensorMap tm_do,  // box of 64 rows
-         const __grid_constant__ CUtensorMap tm_k,   // box of 128 rows
-         const __grid_constant__ CUtensorMap tm_v,   // box of 128 rows
+         const __grid_constant__ CUtensorMap tm_k,   // box of kRows rows
+         const __grid_constant__ CUtensorMap tm_v,   // box of kRows rows
          const float* __restrict__ lp, const float* __restrict__ dp,
          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
          int t_len, int s_len, int n_heads, int n_kv, int64_t t_pad,
-         int causal, int64_t q_offset, float scale_log2, float scale) {
+         int causal, int64_t q_offset, int64_t window, float scale_log2,
+         float scale) {
+  constexpr int kBN = kRows<HD>;
+  constexpr int NC = kOwn<HD>;
   using LQ = Tile<HD, kBM>;
   using LK = Tile<HD, kBN>;
   extern __shared__ uint8_t smem_raw[];
@@ -263,12 +330,19 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
   const int kh = bkv % n_kv;
   const int group = n_heads / n_kv;
   const int n0 = kt * kBN;
-  // query tiles of each head: when causal, from the first that sees key n0
+  // query tiles of each head: when causal, from the first that sees key n0;
+  // with a window, up to the last whose rows' windows reach the tile's last
+  // key (rows t with q_offset + t - window < n0 + kBN - 1)
   const int n_qt = (t_len + kBM - 1) / kBM;
   const int m_first =
       causal && n0 > q_offset ? (int)min((n0 - q_offset) / kBM, (int64_t)n_qt)
                               : 0;
-  const int per_head = n_qt - m_first;
+  int m_end = n_qt;
+  if (kWindow) {
+    const int64_t t_end = n0 + kBN + window - 1 - q_offset;  // rows < t_end
+    m_end = (int)max((int64_t)0, min((int64_t)n_qt, (t_end + kBM - 1) / kBM));
+  }
+  const int per_head = max(0, m_end - m_first);
   const int n_steps = group * per_head;
 
   if (threadIdx.x == 0) {
@@ -317,22 +391,26 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
 
   // ------------------------------------------------------------ consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  const int g = wg - 1;                  // keys [64g, 64g + 64) of the tile
+  // warpgroup g: keys [64g, 64g + 64) of the tile, every column of hd; at
+  // hd 256 all 64 keys, columns [128g, 128g + 128)
+  const int g = wg - 1;
   const int tid = threadIdx.x - 128 * wg;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int r0 = 16 * warp + (lane >> 2);  // this thread's keys: r0, r0 + 8
   const int cq = 2 * (lane & 3);           // its columns in each block of 8
-  const int key0 = n0 + 64 * g;            // the warpgroup's first key
+  const int rows_g = kSplitHd<HD> ? 0 : 64 * g;
+  const int col0 = kSplitHd<HD> ? NC * g : 0;
+  const int key0 = n0 + rows_g;            // the warpgroup's first key
   const bool active = key0 < s_len;
   const int64_t kpos[2] = {key0 + r0, key0 + r0 + 8};
 
-  float dv_acc[HD / 2], dk_acc[HD / 2];
+  float dv_acc[NC / 2], dk_acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
 
-  const uint32_t k_addr = smem_u32(sk) + 64 * g * LK::kRowBytes;
-  const uint32_t v_addr = smem_u32(sv) + 64 * g * LK::kRowBytes;
+  const uint32_t k_addr = smem_u32(sk) + rows_g * LK::kRowBytes;
+  const uint32_t v_addr = smem_u32(sv) + rows_g * LK::kRowBytes;
   mbar_wait(kv_full, 0);
 
   for (int i = 0; i < n_steps; ++i) {
@@ -340,7 +418,9 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
     const int s = i % kStages;
     mbar_wait(&full[s], (i / kStages) & 1);
     // skip a tile none of whose queries sees the warpgroup's first key
-    if (active && (!causal || key0 <= q_offset + min(m0 + kBM, t_len) - 1)) {
+    // (causal) or its last (window)
+    if (active && (!causal || key0 <= q_offset + min(m0 + kBM, t_len) - 1) &&
+        (!kWindow || q_offset + m0 - window < key0 + 63)) {
       const uint32_t q_addr = smem_u32(sq + s * LQ::kBytes);
       const uint32_t do_addr = smem_u32(sdo + s * LQ::kBytes);
       // ---- S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, f32)
@@ -348,9 +428,11 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
       ss_pair<HD, kBN>(st, dpt, k_addr, q_addr, v_addr, do_addr);
 
       // ---- P^T and dS^T; masked: keys past S, queries past T, and
-      // (key, query) pairs right of the diagonal
-      const bool edge = key0 + 64 > s_len || m0 + kBM > t_len ||
-                        (causal && key0 + 63 > q_offset + m0);
+      // (key, query) pairs right of the diagonal or left of the window
+      const bool edge =
+          key0 + 64 > s_len || m0 + kBM > t_len ||
+          (causal && key0 + 63 > q_offset + m0) ||
+          (kWindow && key0 <= q_offset + m0 + kBM - 1 - window);
       const float* ls = sl + s * kBM;
       const float* ds = sd + s * kBM;
 #pragma unroll
@@ -364,7 +446,8 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
           if (edge) {
             const int64_t t = m0 + 8 * j + cq + (e & 1);
             const int64_t kp = kpos[e >> 1];
-            if (!(kp < s_len && t < t_len && (!causal || kp <= q_offset + t)))
+            if (!(kp < s_len && t < t_len && (!causal || kp <= q_offset + t) &&
+                  (!kWindow || kp > q_offset + t - window)))
               p = 0.f;
           }
           st[4 * j + e] = p;
@@ -372,20 +455,23 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
         }
       }
 
-      // ---- dV += P^T dO, dK += dS^T Q: bf16 A fragments, dO and Q
-      // MN-major from the tiles the S^T and dP^T products read K-major
-      uint32_t pa[4][4], da[4][4];
-      to_frags(st, pa);
-      to_frags(dpt, da);
-      fence_regs<HD / 2>(dv_acc);
-      fence_regs<HD / 2>(dk_acc);
+      // ---- dV += P^T dO, dK += dS^T Q: bf16 A fragments (hi and lo
+      // parts), dO and Q MN-major from the tiles the S^T and dP^T
+      // products read K-major
+      uint32_t pa[4][4], pl[4][4], da[4][4], dl[4][4];
+      to_frags(st, pa, pl);
+      to_frags(dpt, da, dl);
+      fence_regs<NC / 2>(dv_acc);
+      fence_regs<NC / 2>(dk_acc);
       wgmma_fence();
-      rs_acc<HD>(dv_acc, pa, do_addr);
-      rs_acc<HD>(dk_acc, da, q_addr);
+      rs_acc<HD, NC>(dv_acc, pa, do_addr, col0);
+      rs_acc<HD, NC>(dv_acc, pl, do_addr, col0);
+      rs_acc<HD, NC>(dk_acc, da, q_addr, col0);
+      rs_acc<HD, NC>(dk_acc, dl, q_addr, col0);
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<HD / 2>(dv_acc);
-      fence_regs<HD / 2>(dk_acc);
+      fence_regs<NC / 2>(dv_acc);
+      fence_regs<NC / 2>(dk_acc);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -396,26 +482,29 @@ bwd_dkdv(const __grid_constant__ CUtensorMap tm_q,   // box of 64 rows
   __nv_bfloat16* dv_rows[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int64_t off = (((int64_t)b * s_len + kpos[r]) * n_kv + kh) * HD;
+    const int64_t off =
+        (((int64_t)b * s_len + kpos[r]) * n_kv + kh) * HD + col0;
     const bool ok = kpos[r] < s_len;
     dk_rows[r] = ok ? dk + off : nullptr;
     dv_rows[r] = ok ? dv + off : nullptr;
   }
-  store_rows<HD>(dk_rows, dk_acc, scale, cq);
-  store_rows<HD>(dv_rows, dv_acc, 1.f, cq);
+  store_rows<NC>(dk_rows, dk_acc, scale, cq);
+  store_rows<NC>(dv_rows, dv_acc, 1.f, cq);
 }
 
-// 3. dQ of one tile of 128 queries of one query head.
-template <int HD>
+// 3. dQ of one tile of kRows queries of one query head.
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
-bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
-       const __grid_constant__ CUtensorMap tm_do,  // box of 128 rows
+bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of kRows rows
+       const __grid_constant__ CUtensorMap tm_do,  // box of kRows rows
        const __grid_constant__ CUtensorMap tm_k,   // box of 64 rows
        const __grid_constant__ CUtensorMap tm_v,   // box of 64 rows
        const float* __restrict__ lp, const float* __restrict__ dp,
        __nv_bfloat16* __restrict__ dq, int t_len, int s_len, int n_heads,
-       int n_kv, int64_t t_pad, int causal, int64_t q_offset,
+       int n_kv, int64_t t_pad, int causal, int64_t q_offset, int64_t window,
        float scale_log2, float scale) {
+  constexpr int kBN = kRows<HD>;
+  constexpr int NC = kOwn<HD>;
   using LQ = Tile<HD, kBN>;
   using LK = Tile<HD, kBM>;
   extern __shared__ uint8_t smem_raw[];
@@ -442,6 +531,9 @@ bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
     const int64_t last = q_offset + min(m0 + kBN, t_len) - 1;
     n_tiles = (int)min((int64_t)n_tiles, last / kBM + 1);
   }
+  // with a window, from the key tile the first row's window starts in
+  const int i_first =
+      kWindow ? first_tile(q_offset + m0, window, n_tiles) : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -467,9 +559,9 @@ bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
       tma_load(sdo + c * LQ::kChunkBytes, &tm_do, q_full, c * LQ::kCols, h,
                m0, b);
     }
-    for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
-      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+    for (int i = i_first; i < n_tiles; ++i) {
+      const int s = (i - i_first) % kStages;
+      mbar_wait(&empty[s], (((i - i_first) / kStages) & 1) ^ 1);
       mbar_expect_tx(&full[s], 2 * LK::kBytes);
 #pragma unroll
       for (int c = 0; c < LK::kChunks; ++c) {
@@ -484,37 +576,44 @@ bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
 
   // ------------------------------------------------------------ consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  const int g = wg - 1;                  // rows [64g, 64g + 64) of the tile
+  // warpgroup g: rows [64g, 64g + 64) of the tile, every column of hd; at
+  // hd 256 all 64 rows, columns [128g, 128g + 128)
+  const int g = wg - 1;
   const int tid = threadIdx.x - 128 * wg;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int r0 = 16 * warp + (lane >> 2);  // this thread's rows: r0, r0 + 8
   const int cq = 2 * (lane & 3);           // its columns in each block of 8
-  const int row0 = m0 + 64 * g;            // the warpgroup's first row
-  // tiles this warpgroup reads: none past T, none right of its diagonal
+  const int rows_g = kSplitHd<HD> ? 0 : 64 * g;
+  const int col0 = kSplitHd<HD> ? NC * g : 0;
+  const int row0 = m0 + rows_g;            // the warpgroup's first row
+  // tiles this warpgroup reads: none past T, none right of its diagonal,
+  // none left of its first row's window
   int wg_tiles = row0 < t_len ? n_tiles : 0;
   if (causal && wg_tiles > 0) {
     const int64_t last = q_offset + min(row0 + 64, t_len) - 1;
     wg_tiles = (int)min((int64_t)wg_tiles, last / kBM + 1);
   }
+  const int wg_first =
+      kWindow ? first_tile(q_offset + row0, window, n_tiles) : 0;
   const int t[2] = {row0 + r0, row0 + r0 + 8};
   // rows up to m0 + 128 <= t_pad are in the padded L and D rows
   const int64_t lrow = (int64_t)bh * t_pad;
   const float l_row[2] = {lp[lrow + t[0]], lp[lrow + t[1]]};
   const float d_row[2] = {dp[lrow + t[0]], dp[lrow + t[1]]};
 
-  float dq_acc[HD / 2];
+  float dq_acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dq_acc[i] = 0.f;
 
-  const uint32_t q_addr = smem_u32(sq) + 64 * g * LQ::kRowBytes;
-  const uint32_t do_addr = smem_u32(sdo) + 64 * g * LQ::kRowBytes;
+  const uint32_t q_addr = smem_u32(sq) + rows_g * LQ::kRowBytes;
+  const uint32_t do_addr = smem_u32(sdo) + rows_g * LQ::kRowBytes;
   mbar_wait(q_full, 0);
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages;
-    mbar_wait(&full[s], (i / kStages) & 1);
-    if (i < wg_tiles) {
+  for (int i = i_first; i < n_tiles; ++i) {
+    const int s = (i - i_first) % kStages;
+    mbar_wait(&full[s], ((i - i_first) / kStages) & 1);
+    if (i >= wg_first && i < wg_tiles) {
       const int n0 = i * kBM;
       const uint32_t k_addr = smem_u32(sk + s * LK::kBytes);
       const uint32_t v_addr = smem_u32(sv + s * LK::kBytes);
@@ -523,9 +622,10 @@ bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
       ss_pair<HD, kBN>(sc, dpv, q_addr, k_addr, do_addr, v_addr);
 
       // ---- P and dS; masked: keys past S, rows past T, and keys right
-      // of the diagonal
+      // of the diagonal or left of the window
       const bool edge = n0 + kBM > s_len || row0 + 64 > t_len ||
-                        (causal && n0 + kBM - 1 > q_offset + row0);
+                        (causal && n0 + kBM - 1 > q_offset + row0) ||
+                        (kWindow && n0 <= q_offset + row0 + 63 - window);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
@@ -535,21 +635,24 @@ bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
           if (edge) {
             const int64_t kp = n0 + 8 * jj + cq + (e & 1);
             if (!(kp < s_len && t[r] < t_len &&
-                  (!causal || kp <= q_offset + t[r])))
+                  (!causal || kp <= q_offset + t[r]) &&
+                  (!kWindow || kp > q_offset + t[r] - window)))
               p = 0.f;
           }
           dpv[4 * jj + e] = p * (dpv[4 * jj + e] - d_row[r]);
         }
 
-      // ---- dQ += dS K: dS as bf16 A fragments, K MN-major
-      uint32_t da[4][4];
-      to_frags(dpv, da);
-      fence_regs<HD / 2>(dq_acc);
+      // ---- dQ += dS K: dS as bf16 A fragments (hi and lo parts), K
+      // MN-major
+      uint32_t da[4][4], dl[4][4];
+      to_frags(dpv, da, dl);
+      fence_regs<NC / 2>(dq_acc);
       wgmma_fence();
-      rs_acc<HD>(dq_acc, da, k_addr);
+      rs_acc<HD, NC>(dq_acc, da, k_addr, col0);
+      rs_acc<HD, NC>(dq_acc, dl, k_addr, col0);
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs<HD / 2>(dq_acc);
+      fence_regs<NC / 2>(dq_acc);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -560,35 +663,41 @@ bwd_dq(const __grid_constant__ CUtensorMap tm_q,   // box of 128 rows
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     rows[r] = t[r] < t_len
-                  ? dq + (((int64_t)b * t_len + t[r]) * n_heads + h) * HD
+                  ? dq + (((int64_t)b * t_len + t[r]) * n_heads + h) * HD +
+                        col0
                   : nullptr;
-  store_rows<HD>(rows, dq_acc, scale, cq);
+  store_rows<NC>(rows, dq_acc, scale, cq);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* scratch, void* dq,
            void* dk, void* dv, int b, int64_t t, int64_t s, int h, int kv,
-           int causal, int64_t q_offset, cudaStream_t stream) {
+           int causal, int64_t q_offset, int64_t window,
+           cudaStream_t stream) {
+  constexpr int kBN = kRows<HD>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  // dK/dV reads Q and dO in tiles of 64 rows, K and V in tiles of 128;
+  // dK/dV reads Q and dO in tiles of 64 rows, K and V in tiles of kRows;
   // dQ the other way round
-  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  CUtensorMap q64, do64, k_cta, v_cta, q_cta, do_cta, k64, v64;
   if (!make_map<HD, kBM>(&q64, encode, q, b, t, h) ||
       !make_map<HD, kBM>(&do64, encode, dout, b, t, h) ||
-      !make_map<HD, kBN>(&k128, encode, k, b, s, kv) ||
-      !make_map<HD, kBN>(&v128, encode, v, b, s, kv) ||
-      !make_map<HD, kBN>(&q128, encode, q, b, t, h) ||
-      !make_map<HD, kBN>(&do128, encode, dout, b, t, h) ||
+      !make_map<HD, kBN>(&k_cta, encode, k, b, s, kv) ||
+      !make_map<HD, kBN>(&v_cta, encode, v, b, s, kv) ||
+      !make_map<HD, kBN>(&q_cta, encode, q, b, t, h) ||
+      !make_map<HD, kBN>(&do_cta, encode, dout, b, t, h) ||
       !make_map<HD, kBM>(&k64, encode, k, b, s, kv) ||
       !make_map<HD, kBM>(&v64, encode, v, b, s, kv))
     return (int)cudaErrorInvalidValue;
+  const auto dkdv_kernel =
+      window > 0 ? bwd_dkdv<HD, true> : bwd_dkdv<HD, false>;
+  const auto dq_kernel = window > 0 ? bwd_dq<HD, true> : bwd_dq<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kDkdvSmem<HD>);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq<HD>,
+  err = cudaFuncSetAttribute(dq_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kDqSmem<HD>);
   if (err != cudaSuccess) return (int)err;
@@ -609,16 +718,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       (const float*)lse, lp, dp, rows, t, t_pad, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkdv<HD><<<(unsigned)(n_kt * b * kv), kThreads, kDkdvSmem<HD>,
-                 stream>>>(q64, do64, k128, v128, lp, dp,
-                           (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (int)t,
-                           (int)s, h, kv, t_pad, causal, q_offset,
-                           scale_log2, scale);
+  dkdv_kernel<<<(unsigned)(n_kt * b * kv), kThreads, kDkdvSmem<HD>,
+                stream>>>(q64, do64, k_cta, v_cta, lp, dp, (__nv_bfloat16*)dk,
+                          (__nv_bfloat16*)dv, (int)t, (int)s, h, kv, t_pad,
+                          causal, q_offset, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dq<HD><<<(unsigned)(n_qt * b * h), kThreads, kDqSmem<HD>, stream>>>(
-      q128, do128, k64, v64, lp, dp, (__nv_bfloat16*)dq, (int)t, (int)s, h,
-      kv, t_pad, causal, q_offset, scale_log2, scale);
+  dq_kernel<<<(unsigned)(n_qt * b * h), kThreads, kDqSmem<HD>, stream>>>(
+      q_cta, do_cta, k64, v64, lp, dp, (__nv_bfloat16*)dq, (int)t, (int)s, h,
+      kv, t_pad, causal, q_offset, window, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -627,28 +735,32 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // q, o, dout, dq: (b, t, h, hd); k, v, dk, dv: (b, s, kv, hd); bf16,
 // contiguous with 16-byte aligned storage; lse (b, h, t) float32; scratch:
 // at least 2 * b * h * roundup(t, 128) float32, 16-byte aligned (L and D
-// in padded rows); h a multiple of kv; hd in {16, 32, 64, 128}; t, s <
-// 2^31.
+// in padded rows); h a multiple of kv; hd in {16, 32, 64, 128, 256}; t, s <
+// 2^31; window 0 (none) or the number of keys a query sees, itself
+// included.
 extern "C" int adhash_flash_attn_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int b, int64_t t, int64_t s, int h, int kv, int hd, int causal,
-    int64_t q_offset, void* stream) {
+    int64_t q_offset, int64_t window, void* stream) {
   if (b == 0 || t == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
       return launch<16>(q, k, v, o, dout, lse, scratch, dq, dk, dv, b, t, s,
-                        h, kv, causal, q_offset, st);
+                        h, kv, causal, q_offset, window, st);
     case 32:
       return launch<32>(q, k, v, o, dout, lse, scratch, dq, dk, dv, b, t, s,
-                        h, kv, causal, q_offset, st);
+                        h, kv, causal, q_offset, window, st);
     case 64:
       return launch<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, b, t, s,
-                        h, kv, causal, q_offset, st);
+                        h, kv, causal, q_offset, window, st);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, b, t, s,
-                         h, kv, causal, q_offset, st);
+                         h, kv, causal, q_offset, window, st);
+    case 256:
+      return launch<256>(q, k, v, o, dout, lse, scratch, dq, dk, dv, b, t, s,
+                         h, kv, causal, q_offset, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

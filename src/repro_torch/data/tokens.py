@@ -5,8 +5,8 @@ distribution drawn with numpy exactly as the JAX package draws them (same
 seed, same ids); the batches then land on ``device`` as int64 tensors.  A
 vlm batch also holds ``patches`` (B, n_patches, d_vision) float32, drawn
 after the tokens from the same generator, so they equal the reference's bit
-for bit.  The audio family's ``frames`` come with that family (ROADMAP §1
-item 12c).
+for bit.  An audio batch likewise holds ``frames`` (B, n_frames, d_model)
+float32, the stub frame embeddings, drawn after the tokens.
 """
 from __future__ import annotations
 
@@ -47,6 +47,10 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, step: int,
         patches = rng.normal(size=(batch, cfg.vlm.n_patches,
                                    cfg.vlm.d_vision)).astype(np.float32)
         out["patches"] = torch.from_numpy(patches).to(dev)
+    if cfg.family == "audio":
+        frames = rng.normal(size=(batch, cfg.encdec.n_frames,
+                                  cfg.d_model)).astype(np.float32)
+        out["frames"] = torch.from_numpy(frames).to(dev)
     return out
 
 

@@ -114,9 +114,9 @@ _SIGNATURES = {
     "adhash_flash_attn_bf16": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
                                _I, _L, _L, _P],
     "adhash_flash_attn_bwd_f32": [_P] * 10 + [_I, _L, _L, _I, _I, _I, _I,
-                                              _L, _P],
+                                              _L, _L, _P],
     "adhash_flash_attn_bwd_bf16": [_P] * 10 + [_I, _L, _L, _I, _I, _I, _I,
-                                               _L, _P],
+                                               _L, _L, _P],
 }
 
 

@@ -33,10 +33,11 @@ that sees no key at all (only a window can do that, with ``q_offset + t >=
 S + w - 1``) is outside the contract: the kernels give it zeros, the plain
 version the mean of v, ``_blocked_attn`` the mean over its padded keys.
 
-The forward kernels take head dims 16 to 256 (``HEAD_DIMS``); the backward
-kernels take neither a window nor hd 256 yet (``BWD_HEAD_DIMS``; ROADMAP §2
-kernel step 7): on a CUDA tensor they raise, on a CPU tensor the plain
-backward serves both.
+Both the forward and the backward kernels take head dims 16 to 256
+(``HEAD_DIMS``) and a window: the backward computes the autodiff of
+``_blocked_attn`` with its local window, so the hybrid family trains on the
+card.  A window of at least ``q_offset + T`` hides nothing and gives the
+unwindowed launch's bits, in either direction.
 
 The layout is the model's: q (B, T, H, hd), k and v (B, S, KV, hd).  The
 TPU wrapper's artefacts are not carried over: KV heads are not repeated,
@@ -47,17 +48,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import LAUNCHES, check_cuda, stream_ptr
-from repro_torch.models.common import unported
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_bwd_plain", "flash_attention_bwd_cuda",
-           "FlashAttentionFn", "flash_engine", "HEAD_DIMS", "BWD_HEAD_DIMS"]
+           "FlashAttentionFn", "flash_engine", "HEAD_DIMS"]
 
 NEG_INF = -1e30
-#: head dims the forward kernels are compiled for
+#: head dims the forward and backward kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: head dims the backward kernels are compiled for (no window either)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
 #: dtype -> (engine, exported symbol) of the kernel that serves it
 _ENGINES = {torch.bfloat16: ("wgmma", "adhash_flash_attn_bf16"),
             torch.float32: ("cuda-core", "adhash_flash_attn_f32")}
@@ -228,16 +226,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """Launch the hand-written backward that ``q``'s dtype selects
     (``flash_engine``): dq, dk and dv in the inputs' dtype, from the
-    forward's output ``o`` and log-sum-exp ``lse`` (B, H, T) float32.
-    Raises for a window or hd 256, which the backward kernels do not take
-    yet: it never returns a gradient of another mask."""
+    forward's output ``o`` and log-sum-exp ``lse`` (B, H, T) float32,
+    for the mask the forward had (``causal``, ``q_offset``, ``window``)."""
     from repro_torch.kernels.build import BWD_T_PAD, check, library
 
-    if window > 0 or q.shape[-1] not in BWD_HEAD_DIMS:
-        raise unported(f"the attention backward kernel with window {window} "
-                       f"at head dim {q.shape[-1]} (it takes no window and "
-                       f"head dims {BWD_HEAD_DIMS})", "7",
-                       where="§2 kernel step")
     _check_launch("flash_attention_bwd", q, k, v, q_offset, window)
     check_cuda("flash_attention_bwd", q, o, do, lse)
     b, t, h, hd = q.shape
@@ -266,7 +258,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, t, s, h, kvh, hd, int(causal),
-             int(q_offset), stream_ptr(q)),
+             int(q_offset), int(window), stream_ptr(q)),
           "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -8,8 +8,11 @@ the plan is computed and reported but not placed (ROADMAP §1 item 12d).
 
 Run:  python -m repro_torch.launch.serve --arch llama3-8b [--device cuda]
       python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
-(any arch of ``repro_torch.configs``: dense, moe, ssm, hybrid or vlm; a vlm
-decodes text only, as the reference's does)
+(any decoder-only arch of ``repro_torch.configs``: dense, moe, ssm, hybrid
+or vlm; a vlm decodes text only, as the reference's does).  The audio
+family's decode needs encoder states, which the reference's loop does not
+make either: drive it through ``launch.train.make_serve_step`` with
+``batch["enc"]`` from ``models.whisper.whisper_encode``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,10 @@ def serve_loop(model, params, *, batch_size: int, max_len: int,
 
     Returns per-batch decode times (ended by a device synchronize) and the
     final replication plan."""
+    if model.cfg.family == "audio":
+        raise ValueError("serve_loop decodes decoder-only archs; the audio "
+                         "family's decode takes batch['enc'] (drive it "
+                         "through launch.train.make_serve_step)")
     serve = make_serve_step(model)
     rng = rng or np.random.default_rng(0)
     dev = model.device

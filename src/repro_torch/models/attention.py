@@ -1,12 +1,14 @@
 """GQA attention: prefill through the flash_attention kernel (global or
-windowed), and single-token decode against a KV cache (a ring buffer for
-windowed layers).
+windowed, causal or not, with or without RoPE), cross-attention from
+decoder states to encoder states, and single-token decode against a KV
+cache (a ring buffer for windowed layers).
 
-PyTorch port of ``repro.models.attention``.  Prefill calls
-``repro_torch.kernels.flash_attention.ops.flash_attention``, which launches
-the hand-written Hopper kernel on a CUDA tensor and runs its plain version
-on a CPU tensor; it computes what ``_blocked_attn`` computes, the hybrid
-family's local window included.  Decode is plain PyTorch with float32
+PyTorch port of ``repro.models.attention``.  Prefill and cross-attention
+call ``repro_torch.kernels.flash_attention.ops.flash_attention``, which
+launches the hand-written Hopper kernel on a CUDA tensor and runs its plain
+version on a CPU tensor; it computes what ``_blocked_attn`` computes, the
+hybrid family's local window included, and the audio family's
+non-causal encoder and cross-attention (T queries against S != T keys).  Decode is plain PyTorch with float32
 cache math, as the JAX package's decode is plain jnp; a windowed layer's
 cache holds ``min(window, max_len)`` slots, written at ``pos % L`` and
 masked by the reference's age rule (floor modulo, as ``jnp`` computes it).
@@ -28,6 +30,7 @@ __all__ = [
     "Attention",
     "init_attention",
     "attention",
+    "cross_attention",
     "decode_attention",
     "init_kv_cache",
 ]
@@ -92,22 +95,43 @@ def attention(
     x: torch.Tensor,  # (B, T, D)
     cfg: ModelConfig,
     *,
+    causal: bool = True,
     window: int = 0,
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Causal self-attention over positions 0..T-1, for prefill; with
-    ``window > 0`` query t sees keys (t - window, t]."""
+    """Self-attention over positions 0..T-1, for train and prefill: causal
+    by default (the audio encoder's is not); with ``window > 0`` query t
+    sees keys (t - window, t]; RoPE on q and k unless ``use_rope`` is
+    False (whisper's learned positions)."""
     b, t, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
-    cos, sin = rope_tables(torch.arange(t, device=x.device), cfg.hd,
-                           cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    if use_rope:
+        cos, sin = rope_tables(torch.arange(t, device=x.device), cfg.hd,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     return o.reshape(b, t, -1) @ p.wo.to(x.dtype)
 
 
-def cross_attention(*args, **kwargs):
-    raise unported("cross_attention (the audio family's decoder)", "12c")
+def cross_attention(
+    p: Attention,
+    x: torch.Tensor,  # (B, T, D) decoder states
+    kv: torch.Tensor,  # (B, S, D) encoder states
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Attention of T decoder positions over S encoder states: q from
+    ``x``, k and v from ``kv`` (no bias, no RoPE, as the reference's), every
+    key visible (non-causal)."""
+    b, t, _ = x.shape
+    s = kv.shape[1]
+    hd = cfg.hd
+    nkv = p.wk.shape[1] // hd
+    q = (x @ p.wq.to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
+    k = (kv @ p.wk.to(x.dtype)).reshape(b, s, nkv, hd)
+    v = (kv @ p.wv.to(x.dtype)).reshape(b, s, nkv, hd)
+    o = flash_attention(q, k, v, causal=False)
+    return o.reshape(b, t, -1) @ p.wo.to(x.dtype)
 
 
 # ------------------------------------------------------------------- decode
@@ -132,6 +156,7 @@ def decode_attention(
     cfg: ModelConfig,
     *,
     window: int = 0,
+    use_rope: bool = True,
     f32_cache_math: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step: write K/V at ``pos``, attend to the cache.
@@ -150,10 +175,11 @@ def decode_attention(
     pos = int(pos)
     q, k, v = _project_qkv(p, x, cfg)  # (B, 1, H/KV, hd)
     nkv = k.shape[2]
-    cos, sin = rope_tables(torch.full((1,), pos, device=x.device), hd,
-                           cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        cos, sin = rope_tables(torch.full((1,), pos, device=x.device), hd,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
     slot = pos % L if window > 0 else pos  # ring buffer for local attention

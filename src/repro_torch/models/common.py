@@ -1,9 +1,8 @@
 """Shared model components: config schema, norms, RoPE, initializers.
 
-PyTorch port of ``repro.models.common`` for the dense, moe, ssm, hybrid
-and vlm families.  The config dataclasses are plain data; the audio
-family's sub-config comes with the slice that builds it (ROADMAP §1 item
-12c).
+PyTorch port of ``repro.models.common`` for every family of the JAX
+package: dense, moe, ssm, hybrid, vlm and audio.  The config dataclasses
+are plain data.
 The layers are tensor functions with the JAX package's cast semantics: the
 compute dtype is pinned per config (bf16 by default), norms and RoPE angles
 are taken in float32, and every weight is cast to the compute dtype where it
@@ -21,6 +20,7 @@ __all__ = [
     "MoEConfig",
     "SSMConfig",
     "HybridConfig",
+    "EncDecConfig",
     "VLMConfig",
     "ModelConfig",
     "torch_dtype",
@@ -69,6 +69,12 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    n_enc_layers: int = 4
+    n_frames: int = 1500  # audio frames after the (stubbed) conv frontend
+
+
+@dataclass(frozen=True)
 class VLMConfig:
     n_patches: int = 256  # visual tokens from the (stubbed) ViT frontend
     d_vision: int = 1024
@@ -111,6 +117,7 @@ class ModelConfig:
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     hybrid: HybridConfig | None = None
+    encdec: EncDecConfig | None = None
     vlm: VLMConfig | None = None
     adaptive: AdaptiveConfig | None = None
     dtype: str = "bfloat16"

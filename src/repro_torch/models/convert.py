@@ -2,9 +2,11 @@
 port, both ways.
 
 ``params_from_numpy`` takes the parameter pytree of ``repro.models.
-transformer.init_lm`` (or ``repro.models.vlm.init_vlm``) as numpy
+transformer.init_lm`` (or ``repro.models.vlm.init_vlm``, or
+``repro.models.whisper.init_whisper``) as numpy
 (``jax.tree.map(np.asarray, params)``), whose blocks (the hybrid family's
-groups) are stacked on axis 0 by ``vmap``, and builds the port's ``LM``.
+groups, whisper's ``enc`` and ``dec`` layers) are stacked on axis 0 by
+``vmap``, and builds the port's ``LM`` (``whisper.Whisper``).
 The port stores weights in the JAX package's (in, out) layout, so nothing
 is transposed; each array is copied and cast to ``dtype``.
 
@@ -13,7 +15,9 @@ its parameter names to tensors, such as its gradients) becomes the
 reference's tree, blocks stacked on axis 0.  ``ref_path`` is the one place
 that names a port parameter in that tree: ``"blocks.3.attn.wq"`` is leaf
 ``("blocks", "attn", "wq")``, layer 3; ``"groups.1.rec2.mixer.w_y"`` is
-``("groups", "rec2", "mixer", "w_y")``, group 1; the hybrid ``tail`` is a
+``("groups", "rec2", "mixer", "w_y")``, group 1;
+``"dec.2.cross.wk"`` is ``("dec", "cross", "wk")``, decoder layer 2; the
+hybrid ``tail`` is a
 list in both trees, so ``"tail.0.mlp.w1"`` is ``("tail", "0", "mlp",
 "w1")`` with no layer.  ``opt_state_to_numpy`` /
 ``opt_state_from_numpy`` carry an ``OptState``, whose ``m`` and ``v`` are
@@ -37,6 +41,7 @@ from . import rglru as rg
 from . import ssm as ssmm
 from . import transformer as tfm
 from . import vlm as vlmm
+from . import whisper as whm
 from .common import ModelConfig
 
 __all__ = ["params_from_numpy", "params_to_numpy", "ref_path", "ref_shapes",
@@ -44,7 +49,7 @@ __all__ = ["params_from_numpy", "params_to_numpy", "ref_path", "ref_shapes",
 
 
 #: the port's layer lists the reference stacks on axis 0
-_STACKED = ("blocks", "groups")
+_STACKED = ("blocks", "groups", "enc", "dec")
 
 
 def ref_path(name: str) -> tuple[tuple[str, ...], int | None]:
@@ -139,16 +144,21 @@ def opt_state_from_numpy(step, m: dict, v: dict,
 
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: str | torch.device = "cuda",
-                      dtype: torch.dtype | None = None) -> tfm.LM:
+                      dtype: torch.dtype | None = None
+                      ) -> "tfm.LM | whm.Whisper":
     """The port's ``LM`` holding the weights of ``tree`` (a dense, moe,
-    ssm, hybrid or vlm model's numpy pytree), on ``device``, stored as
-    ``dtype`` (default the config's param dtype)."""
+    ssm, hybrid or vlm model's numpy pytree; a ``Whisper`` for the audio
+    family's), on ``device``, stored as ``dtype`` (default the config's
+    param dtype)."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.pdtype
 
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
+
+    if cfg.family == "audio":
+        return _whisper(cfg, tree, t)
 
     embed = emb.Embedding({k: t(v) for k, v in tree["embed"].items()})
     if cfg.family == "hybrid":
@@ -195,3 +205,31 @@ def _hybrid_sub(cfg: ModelConfig, kind: str, d: dict, t,
              attn.Attention(cfg, leaves(d["mixer"])))
     return tfm.HybridSub(cfg, kind, row(d["ln1"]), mixer, row(d["ln2"]),
                          mlpm.SwiGLU(leaves(d["mlp"])))
+
+
+def _whisper(cfg: ModelConfig, tree: dict, t) -> whm.Whisper:
+    """A ``Whisper`` from the reference's tree: ``enc`` and ``dec`` rows
+    unstacked, one layer each."""
+    def layer(d: dict, i: int):
+        ln = lambda name: whm.LayerNorm(t(d[name]["g"][i]),
+                                        t(d[name]["b"][i]))
+        leaves = lambda name: {k: t(v[i]) for k, v in d[name].items()}
+        return ln, leaves
+
+    enc = []
+    for i in range(cfg.encdec.n_enc_layers):
+        ln, leaves = layer(tree["enc"], i)
+        enc.append(whm.EncLayer(cfg, ln("ln1"),
+                                attn.Attention(cfg, leaves("attn")),
+                                ln("ln2"), mlpm.GeLUMLP(leaves("mlp"))))
+    dec = []
+    for i in range(cfg.n_layers):
+        ln, leaves = layer(tree["dec"], i)
+        dec.append(whm.DecLayer(
+            cfg, ln("ln1"), attn.Attention(cfg, leaves("self")), ln("ln2"),
+            attn.Attention(cfg, leaves("cross")), ln("ln3"),
+            mlpm.GeLUMLP(leaves("mlp"))))
+    norm = lambda d: whm.LayerNorm(t(d["g"]), t(d["b"]))
+    return whm.Whisper(cfg, t(tree["enc_pos"]), t(tree["dec_pos"]),
+                       t(tree["tok"]), enc, dec, norm(tree["ln_enc"]),
+                       norm(tree["ln_dec"]))

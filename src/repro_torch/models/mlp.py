@@ -1,7 +1,8 @@
-"""Gated MLP (SwiGLU), the dense family's feed-forward layer.
+"""Gated MLP (SwiGLU), the dense family's feed-forward layer, and the
+plain GeLU MLP of the audio family (whisper).
 
-PyTorch port of ``repro.models.mlp`` (the whisper GeLU MLP waits for the
-audio family, ROADMAP §1 item 12c).
+PyTorch port of ``repro.models.mlp``.  The GeLU is the tanh approximation,
+``jax.nn.gelu``'s default (``F.gelu``'s default is the exact form).
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from torch import nn
 
 from .common import ModelConfig, dense_init
 
-__all__ = ["SwiGLU", "init_swiglu", "swiglu"]
+__all__ = ["SwiGLU", "init_swiglu", "swiglu", "GeLUMLP", "init_gelu_mlp",
+           "gelu_mlp"]
 
 
 class SwiGLU(nn.Module):
@@ -42,3 +44,31 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p.w1.to(x.dtype))
     u = x @ p.w3.to(x.dtype)
     return (g * u) @ p.w2.to(x.dtype)
+
+
+class GeLUMLP(nn.Module):
+    """w1 (D, F), b1 (F,), w2 (F, D), b2 (D,)."""
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        super().__init__()
+        for name in ("w1", "b1", "w2", "b2"):
+            setattr(self, name, nn.Parameter(params[name]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu_mlp(self, x)
+
+
+def init_gelu_mlp(gen: torch.Generator, cfg: ModelConfig,
+                  d_ff: int | None = None,
+                  dtype: torch.dtype | None = None) -> GeLUMLP:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    dt = dtype or cfg.pdtype
+    zeros = lambda n: torch.zeros((n,), dtype=dt, device=gen.device)
+    return GeLUMLP({"w1": dense_init(gen, (d, f), dt), "b1": zeros(f),
+                    "w2": dense_init(gen, (f, d), dt), "b2": zeros(d)})
+
+
+def gelu_mlp(p: GeLUMLP, x: torch.Tensor) -> torch.Tensor:
+    h = F.gelu(x @ p.w1.to(x.dtype) + p.b1.to(x.dtype), approximate="tanh")
+    return h @ p.w2.to(x.dtype) + p.b2.to(x.dtype)

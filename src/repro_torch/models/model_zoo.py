@@ -1,8 +1,7 @@
 """Uniform model API over the ported architectures.
 
-PyTorch port of the decoder-only and vlm branches of
-``repro.models.model_zoo`` (the dense, moe, ssm, hybrid and vlm families).
-Each arch exposes:
+PyTorch port of ``repro.models.model_zoo``: every family of the JAX
+package (dense, moe, ssm, hybrid, vlm and audio).  Each arch exposes:
   init(seed, dtype)              -> params (an ``nn.Module`` on the device)
   loss(params, batch)            -> scalar CE loss (the prefill lowering)
   init_cache(batch, max_len)     -> decode cache (zeros)
@@ -13,8 +12,13 @@ serves both prefill and training: ``launch.train`` differentiates it,
 serving callers wrap it in ``torch.inference_mode()``.  ``init_cache`` and
 ``decode`` run under ``torch.inference_mode()``.  ``init`` must not: a
 parameter made there could never take a gradient.  The vlm family's
-``loss`` takes ``batch["patches"]`` beside the tokens.  The audio family
-raises (item 12c).
+``loss`` takes ``batch["patches"]`` beside the tokens.  The audio family's
+(whisper) ``loss`` takes ``batch["frames"]`` (B, n_frames, D) stub frame
+embeddings with the tokens and labels, and its ``decode`` takes
+``batch["enc"]``, the encoder states ``models.whisper.whisper_encode``
+makes of the frames, with the token and position; its params are a
+``whisper.Whisper`` whose ``dec_pos`` holds 65,536 positions, as the
+reference builds it.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import vlm as vlmm
+from repro_torch.models import whisper as whm
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["ModelAPI", "build_model"]
@@ -43,12 +48,13 @@ class ModelAPI:
 
 def build_model(cfg: ModelConfig,
                 device: str | torch.device = "cuda") -> ModelAPI:
-    """The dense, moe, ssm, hybrid or vlm family's API on ``device``.  The
-    JAX package's
+    """The model family's API on ``device``.  The JAX package's
     ``RuntimeOptions`` (mesh placement, int8 KV cache, bf16 cache math) have
     no counterpart yet (ROADMAP §1 item 12d)."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        return _audio(cfg, dev)
 
     vlm = cfg.family == "vlm"
 
@@ -70,5 +76,28 @@ def build_model(cfg: ModelConfig,
     def decode(params, cache, batch):
         return tfm.lm_decode_step(params, cache, batch["tokens"],
                                   batch["pos"], cfg)
+
+    return ModelAPI(cfg, dev, init, loss, init_cache, decode)
+
+
+def _audio(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
+    """whisper's API: encoder-decoder loss and decode over ``batch["enc"]``."""
+
+    def init(seed: int = 0, dtype: torch.dtype | None = None) -> whm.Whisper:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return whm.init_whisper(gen, cfg, dtype, max_dec_len=65536)
+
+    def loss(params, batch):
+        return whm.whisper_loss(params, batch["frames"], batch["tokens"],
+                                batch["labels"], cfg)
+
+    @torch.inference_mode()
+    def init_cache(b, max_len):
+        return whm.init_whisper_cache(cfg, b, max_len, device=dev)
+
+    @torch.inference_mode()
+    def decode(params, cache, batch):
+        return whm.whisper_decode_step(params, cache, batch["enc"],
+                                       batch["tokens"], batch["pos"], cfg)
 
     return ModelAPI(cfg, dev, init, loss, init_cache, decode)

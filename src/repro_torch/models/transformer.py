@@ -37,8 +37,10 @@ PyTorch port of ``repro.models.transformer``:
   batched (``aten.bmm``) and recomputed.  Without grad (serving) the
   blocks run as they are.
 
-The audio family raises ``NotImplementedError`` naming its ROADMAP item,
-the JAX package's mesh and cache options (``RuntimeOptions``) item 12d.
+The audio family (whisper) is an encoder-decoder of its own
+(``models.whisper``), which uses this module's remat and chunked loss; the
+JAX package's mesh and cache options (``RuntimeOptions``) raise
+``NotImplementedError`` naming ROADMAP item 12d.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from . import mlp as mlpm
 from . import moe as moem
 from . import rglru as rg
 from . import ssm as ssmm
-from .common import ModelConfig, rms_norm, unported
+from .common import ModelConfig, rms_norm
 
 __all__ = [
     "Block",
@@ -68,15 +70,21 @@ __all__ = [
     "lm_forward",
     "lm_loss",
     "hidden_loss",
+    "chunked_nll",
     "init_lm_cache",
     "lm_decode_step",
 ]
 
 
+#: the JAX package's model families, all ported
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a family not ported yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        raise unported(f"the {cfg.family!r} family ({cfg.name})", "12c")
+    """Raise ValueError for a family the JAX package does not have."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
+                         f"known: {FAMILIES}")
 
 
 # ------------------------------------------------------- remat (checkpoint)
@@ -304,6 +312,14 @@ def hidden_loss(params: LM, h: torch.Tensor, labels: torch.Tensor,
     ``loss_chunk`` positions."""
     w_out = (params.embed.table.t() if cfg.tie_embeddings
              else params.embed.out).to(h.dtype)
+    return chunked_nll(h, labels, w_out, cfg, loss_chunk)
+
+
+def chunked_nll(h: torch.Tensor, labels: torch.Tensor, w_out: torch.Tensor,
+                cfg: ModelConfig, loss_chunk: int = 128) -> torch.Tensor:
+    """Mean masked cross-entropy of the logits ``h @ w_out`` (taken in
+    float32), in chunks of ``loss_chunk`` positions, each under remat when
+    ``cfg.remat`` asks for it."""
     t = h.shape[1]
     c = min(loss_chunk, t)
     chunk = _remat(_chunk_nll, cfg)

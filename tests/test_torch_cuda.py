@@ -746,25 +746,34 @@ def test_cuda_flash_attention_window_and_hd256_match_plain(cuda_device, case,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,window", [(64, 16), (256, 0)])
-def test_cuda_flash_backward_refuses_window_and_hd256(cuda_device, dtype, hd,
-                                                      window):
-    """The backward kernels take no window and no hd 256 yet: a gradient
-    through the card's forward raises rather than return the gradient of
-    another mask."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+def test_cuda_flash_backward_takes_window_and_hd256(cuda_device, dtype, hd,
+                                                    window):
+    """A gradient through the card's forward with a window or at hd 256
+    launches the backward kernel once and equals the plain backward's
+    (``flash_attention_bwd_plain`` on the CPU from the same o and
+    log-sum-exp) within the backward's limits."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_cuda)
 
-    q = torch.randn((1, 32, 2, hd), device=cuda_device, dtype=dtype,
-                    requires_grad=True)
-    k = torch.randn((1, 32, 1, hd), device=cuda_device, dtype=dtype)
+    g = torch.Generator().manual_seed(hd + window)
+    q, do = (torch.randn((1, 96, 2, hd), generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((1, 96, 1, hd), generator=g).to(dtype)
+            for _ in range(2))
+    leaves = [x.to(cuda_device).requires_grad_() for x in (q, k, v)]
     bwd = LAUNCHES["flash_attention_bwd"]
-    out = flash_attention(q, k, k, window=window)
-    with pytest.raises(NotImplementedError, match="kernel step 7"):
-        out.sum().backward()
-    assert LAUNCHES["flash_attention_bwd"] == bwd and q.grad is None
+    (flash_attention(*leaves, window=window) *
+     do.to(cuda_device)).sum().backward()
+    assert LAUNCHES["flash_attention_bwd"] == bwd + 1
+    o, lse = flash_attention_cuda(*(x.detach() for x in leaves),
+                                  window=window, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o.cpu(), do, lse.cpu(),
+                                     window=window)
+    _check_grads([x.grad.cpu() for x in leaves], want, dtype)
 
 
 # chip_smoke.py phase 1's backward variants, at widths a test can afford:
-# (B, T, S, H, KV, hd, dtype, causal, q_offset)
+# (B, T, S, H, KV, hd, dtype, causal, q_offset[, window])
 BWD_CASES = [
     (1, 1024, 1024, 20, 20, 128, torch.bfloat16, True, 0),  # qwen1.5-4b
     (1, 1024, 1024, 32, 8, 128, torch.bfloat16, True, 0),   # llama3-8b GQA
@@ -793,6 +802,38 @@ BWD_CASES = [
     (1, 250, 250, 32, 4, 128, torch.bfloat16, False, 0),
     (3, 130, 130, 4, 2, 128, torch.bfloat16, True, 0),      # B = 3
     (3, 65, 200, 8, 8, 32, torch.bfloat16, True, 135),
+] + [
+    # the hybrid train step's layer (recurrentgemma-2b: H=10, KV=1, hd=256,
+    # window 2048) at a tenth of its length, then the window's and hd 256's
+    # edges: 64-row CTA tiles at hd 256, the split of hd over warpgroups
+    (1, 1024, 1024, 10, 1, 256, dt, True, 0, 205)
+    for dt in (torch.bfloat16, torch.float32)
+] + [
+    (1, 300, 300, 10, 1, 256, torch.bfloat16, True, 0, 0),   # hd 256
+    (1, 300, 300, 10, 1, 256, torch.float32, False, 0, 0),
+    (1, 300, 300, 4, 2, 128, torch.bfloat16, True, 0, 1),    # the diagonal
+    # (at window 1 dq and dk are exactly 0: in f32 both sides hold only the
+    # rounding of dP - D, so f32 takes the diagonal and one key more)
+    (1, 300, 300, 4, 2, 128, torch.float32, True, 0, 2),
+    (1, 300, 300, 4, 2, 64, torch.bfloat16, True, 0, 17),
+    (1, 300, 300, 4, 2, 128, torch.bfloat16, True, 0, 299),  # T - 1
+    (1, 300, 300, 4, 2, 32, torch.bfloat16, True, 0, 300),   # hides nothing
+    (1, 100, 400, 4, 1, 256, torch.bfloat16, True, 300, 64),  # q_offset
+    (1, 100, 400, 4, 1, 256, torch.float32, True, 300, 64),
+    (1, 200, 200, 4, 4, 16, torch.bfloat16, False, 0, 33),   # non-causal
+    (1, 129, 129, 2, 1, 256, torch.bfloat16, True, 0, 64),   # tile edges
+    (1, 65, 65, 2, 1, 256, torch.bfloat16, True, 0, 65),
+    (1, 1001, 1001, 4, 1, 256, torch.bfloat16, True, 0, 300),  # odd T
+    (1, 1001, 1001, 4, 1, 256, torch.float32, True, 0, 300),
+    (2, 257, 257, 6, 3, 128, torch.bfloat16, True, 0, 100),  # GQA 2, B = 2
+] + [
+    # whisper-tiny's attention (H=KV=6, hd=64): the encoder's non-causal
+    # self-attention over 1,500 frames, cross-attention from 448 text
+    # positions to them, the decoder's causal self-attention
+    (2, 1500, 1500, 6, 6, 64, torch.bfloat16, False, 0),
+    (2, 448, 1500, 6, 6, 64, torch.bfloat16, False, 0),
+    (2, 448, 448, 6, 6, 64, torch.bfloat16, True, 0),
+    (2, 448, 1500, 6, 6, 64, torch.float32, False, 0),
 ]
 
 
@@ -825,30 +866,31 @@ def test_cuda_flash_attention_backward_matches_plain(cuda_device, case):
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_attention_plain, flash_engine)
 
-    b, t, s, h, kv, hd, dtype, causal, off = case
+    b, t, s, h, kv, hd, dtype, causal, off, *rest = case
+    window = rest[0] if rest else 0
     assert flash_engine(dtype) == {torch.bfloat16: "wgmma",
                                    torch.float32: "cuda-core"}[dtype]
-    g = torch.Generator().manual_seed(t * 3 + s + hd)
+    g = torch.Generator().manual_seed(t * 3 + s + hd + window)
     q, do = (torch.randn((b, t, h, hd), generator=g).to(dtype).to(cuda_device)
              for _ in range(2))
     k, v = (torch.randn((b, s, kv, hd), generator=g).to(dtype).to(cuda_device)
             for _ in range(2))
-    o, lse = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
-                                  return_lse=True)
-    _, want_lse = flash_attention_plain(q, k, v, causal=causal, q_offset=off,
-                                        return_lse=True)
+    kw = dict(causal=causal, q_offset=off, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
     before = LAUNCHES["flash_attention_bwd"]
-    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                   q_offset=off)
-    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                     q_offset=off)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_bwd"] == before + 2
     assert all(torch.equal(a, c) for a, c in zip(got, again))
-    _check_grads(got, flash_attention_bwd_plain(q, k, v, o, do, lse,
-                                                causal=causal, q_offset=off),
+    _check_grads(got, flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
                  dtype)
+    if window >= off + t:  # hides nothing: the unwindowed launch's bits
+        plain_kw = dict(causal=causal, q_offset=off)
+        assert all(torch.equal(a, c) for a, c in zip(
+            got, flash_attention_bwd_cuda(q, k, v, o, do, lse, **plain_kw)))
 
 
 @pytest.mark.cuda

@@ -375,7 +375,8 @@ def test_tokens_and_configs_match_jax():
     assert set(ARCH_IDS) == {"llama3-8b", "qwen1.5-4b", "yi-9b",
                              "codeqwen1.5-7b", "qwen2-moe-a2.7b",
                              "moonshot-v1-16b-a3b", "mamba2-130m",
-                             "recurrentgemma-2b", "internvl2-2b"}
+                             "recurrentgemma-2b", "internvl2-2b",
+                             "whisper-tiny"}
     for arch in ARCH_IDS:
         for get, jget in ((get_config, jax_get_config),
                           (get_smoke_config, jax_smoke_config)):
@@ -405,16 +406,16 @@ def test_unported_options_raise():
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, LATER
 
-    # the audio family (sharded_moe is item 12d)
-    assert set(LATER) == set(JAX_ARCH_IDS) - set(ARCH_IDS)
-    assert LATER == {"whisper-tiny": "audio"}
-    for arch, family in LATER.items():
-        for get in (get_config, get_smoke_config):
-            with pytest.raises(NotImplementedError, match="item 12c"):
-                get(arch)
-        with pytest.raises(NotImplementedError, match="item 12c"):
-            build_model(dataclasses.replace(get_smoke_config("llama3-8b"),
-                                            family=family), device="cpu")
+    # every family is ported, the audio family last (12c); the options of
+    # item 12d (sharded_moe among them) still raise
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
+    assert LATER == {}
+    audio = get_smoke_config("whisper-tiny")
+    assert get_config("whisper-tiny").family == audio.family == "audio"
+    assert build_model(audio, device="cpu").cfg is audio
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(audio, family="speech"),
+                    device="cpu")
     cfg = get_smoke_config("llama3-8b")
     model = build_model(cfg, device="cpu")
     params = model.init(0)
@@ -425,8 +426,12 @@ def test_unported_options_raise():
         assert torch.equal(TA.attention(params.blocks[0].attn, x, cfg,
                                         window=4),
                            TA.attention(params.blocks[0].attn, x, cfg))
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        TA.cross_attention(params.blocks[0].attn, x, x, cfg)
+    # cross-attention is ported: decoder states against encoder states of
+    # another length, every key visible
+    with torch.inference_mode():
+        enc = torch.randn((1, 7, cfg.d_model))
+        assert TA.cross_attention(params.blocks[0].attn, x, enc,
+                                  cfg).shape == x.shape
     with pytest.raises(NotImplementedError, match="item 12d"):
         TA.init_kv_cache(cfg, 1, 4, int8=True, device="cpu")
     cache = TA.init_kv_cache(cfg, 1, 4, device="cpu")

@@ -351,20 +351,28 @@ def test_windowed_backward_matches_jax_grad(causal, t, s, q_offset, window):
 
 
 @pytest.mark.parametrize("hd,window", [(32, 8), (256, 0), (256, 8)])
-def test_cuda_backward_wrapper_refuses_window_and_hd256(hd, window):
-    """The backward kernels take no window and no hd 256 yet: their wrapper
-    raises before it looks at the device, so the card never returns the
-    gradient of another mask (the CPU path runs the plain backward)."""
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd_cuda)
-
-    q = torch.zeros((1, 4, 2, hd))
-    lse = torch.zeros((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="kernel step 7"):
-        flash_attention_bwd_cuda(q, q, q, q, q, lse, window=window)
-    q.requires_grad_()
-    flash_attention(q, q.detach(), q.detach(), window=window).sum().backward()
-    assert q.grad is not None
+def test_backward_with_window_and_hd256_matches_jax_grad(hd, window):
+    """The shapes the backward kernels now take (a window, hd 256): the
+    plain backward and ``FlashAttentionFn`` on CPU tensors against
+    ``jax.grad`` of ``_blocked_attn`` (GQA 2, T = 40 past the window); the
+    card's kernels are held to the plain backward at these shapes in
+    ``tests/test_torch_cuda.py``."""
+    rng = np.random.default_rng(hd + window)
+    mk = lambda heads: rng.normal(size=(1, 40, heads, hd)).astype(np.float32)
+    q, k, v, do = mk(4), mk(2), mk(2), mk(4)
+    f = lambda q_, k_, v_: JA._blocked_attn(q_, k_, v_, True, window, 16, 32)
+    want = jax.grad(lambda *a: jnp.sum(f(*a) * do), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attention_plain(tq, tk, tv, window=window,
+                                   return_lse=True)
+    plain = flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse, window=window)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    (flash_attention(*leaves, window=window) * tdo).sum().backward()
+    for got in (plain, [x.grad for x in leaves]):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=1e-5)
 
 
 @pytest.mark.parametrize("max_len", [10, 40])  # below and above window 16

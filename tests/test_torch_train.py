@@ -72,7 +72,7 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3-8b", "qwen1.5-4b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
-         "mamba2-130m", "recurrentgemma-2b", "internvl2-2b"]
+         "mamba2-130m", "recurrentgemma-2b", "internvl2-2b", "whisper-tiny"]
 
 
 def _f32(arch: str):
