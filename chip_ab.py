@@ -41,6 +41,14 @@ Groups (all by default):
           (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches with
           the adaptive controller; tokens/s by ``launch/serve.py``'s
           formula, and each batch's seconds)
+  lm-cache  llama3-8b decode in the three cache modes of ``chip_smoke.py``'s
+          ``lm-int8`` phase (``CACHE_MODES``: float32 cache math, bf16
+          cache math, the int8 cache with bf16 math) on one set of bf16
+          weights from seed 0, ``serve_loop`` at batch 8, max_len 4096, 16
+          steps, 4 batches, in turns (default, bf16, int8, int8, bf16,
+          default): each mode's tokens/s twice.  The modes are compared
+          inside one process; a tree before the options has none, so
+          run it with the same root twice: ``chip_ab.py . . lm-cache``
   moe     qwen2-moe-a2.7b as the moe phase drives it, the same calls and
           tokens/s as ``lm`` (the controller's budget from its config)
   ssm, hybrid, vlm  mamba2-130m, recurrentgemma-2b and internvl2-2b as
@@ -76,7 +84,7 @@ FLASH = [("main B=4", 4, 4096, 32, 8, 128, True),
 UNIQUE = [(1 << 10, 800, 256, "int32"), (1 << 18, 1 << 17, 1 << 16, "int32"),
           (1 << 18, 1 << 17, 1 << 16, "int64")]
 GROUPS = ("dsj", "bucket", "flash", "flash_bwd", "unique", "lubm", "lm",
-          "moe", "ssm", "hybrid", "vlm", "audio")
+          "lm-cache", "moe", "ssm", "hybrid", "vlm", "audio")
 #: the model groups past ``lm``: group -> arch (``chip_smoke.py``'s)
 FAMILIES = {"moe": "MOE_ARCH", "ssm": "SSM_ARCH", "hybrid": "HYBRID_ARCH",
             "vlm": "VLM_ARCH"}
@@ -170,6 +178,8 @@ def measure(root: str, groups: list[str]) -> dict:
         out.update(measure_lubm(torch, chip_smoke))
     if "lm" in groups:
         out.update(measure_lm(torch, chip_smoke, "llama3-8b"))
+    if "lm-cache" in groups:
+        out.update(measure_lm_cache(torch, chip_smoke))
     for group, attr in FAMILIES.items():
         if group in groups:
             out.update({f"{group} {key}": v for key, v in measure_lm(
@@ -292,6 +302,30 @@ def measure_lm(torch, chip_smoke, arch: str) -> dict:
     return {"prefill tokens/s": b * t / float(np.mean(prefill_s[1:])),
             "decode tokens/s": 8 * 16 / float(np.mean(times[1:])),
             "decode batch s": [float(x) for x in times]}
+
+
+def measure_lm_cache(torch, chip_smoke) -> dict:
+    """llama3-8b's steady decode tokens/s in each cache mode, in turns."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import RuntimeOptions
+
+    cfg = get_config("llama3-8b")
+    models = {mode: build_model(cfg, opts=RuntimeOptions(**kw),
+                                device="cuda")
+              for mode, kw in chip_smoke.CACHE_MODES.items()}
+    params = models["default"].init(0, dtype=torch.bfloat16)
+    b, max_len, steps, n = chip_smoke.CACHE_DECODE
+    order = list(models) + list(reversed(models))
+    out: dict = {f"lm-cache {mode} decode tokens/s": [] for mode in models}
+    for mode in order:
+        times, _ = serve_loop(models[mode], params, batch_size=b,
+                              max_len=max_len, steps=steps, n_batches=n)
+        out[f"lm-cache {mode} decode tokens/s"].append(
+            b * steps / float(np.mean(times[1:])))
+    return out
 
 
 def measure_audio(torch, chip_smoke) -> dict:

@@ -15,9 +15,11 @@ LUBM, the online serving front end (``repro_torch.serving``) over the
 adaptive engine, master recovery from a checkpoint, the multi-device
 substrate (W split over ``torch.distributed`` ranks: NCCL at world size 1,
 two gloo ranks on the card), a 32 M-triple Zipf stream, the dense LM's
-serving path (prefill and decode of llama3-8b) and its training path
-(qwen1.5-4b train steps), the moe family (qwen2-moe-a2.7b served at full
-size, trained at full width), the partitioning baselines of the startup
+serving path (prefill and decode of llama3-8b, the decode also in the
+int8 and bf16 cache modes) and its training path (qwen1.5-4b train
+steps), the moe family (qwen2-moe-a2.7b served at full size, also under
+the mesh options on a world-size-1 NCCL mesh, trained at full width), the
+partitioning baselines of the startup
 claim, the ssm, hybrid and vlm families (mamba2-130m, recurrentgemma-2b
 and internvl2-2b served at full size; mamba2-130m and recurrentgemma-2b
 trained at full size, internvl2-2b's train step held to the CPU port) and
@@ -206,6 +208,21 @@ Phases:
             (``serve_loop``: batch 8, max_len 128, 16 steps, 4 batches)
             with the adaptive controller; prefill runs under
             ``torch.inference_mode()``
+    lm-int8  phase 4's weights decoding (``serve_loop``: batch 8, max_len
+            4096, 16 steps, 4 batches) in the reference's three cache
+            modes (``CACHE_MODES``: float32 cache math, bf16 cache math,
+            the int8 cache with bf16 math as ``--int8-kv`` sets them):
+            tokens/s, cache bytes (int8 at most 0.52 of bf16), peak
+            memory, a profiled batch's idle share; then the reference
+            test's property at full size (5 steps of int8 against the
+            default: logits within 5% of the largest, greedy tokens
+            agreeing on half the rows)
+    lm-int8-parity  2 layers at full width in float32, 8 int8-cache
+            decode steps on the card against the CPU port: logits 1e-4 of
+            the largest, payloads within one step (the entries differing
+            counted), scales 1e-6 relative; bf16 cache math's card route
+            (``torch.bmm(out_dtype=float32)``) against the CPU's at
+            decode's full shape, 1e-2 of the largest
   5 train   qwen1.5-4b at full width and depth (float32 parameters, bf16
             compute, remat): ``make_train_step`` on ``make_batch(cfg, 1,
             4096, step)``, one warm-up and three timed steps, each with
@@ -230,12 +247,22 @@ Phases:
             dropped and max/mean slot load with no plan and with the 8
             hottest experts replicated (``slot_map_for_plan``), its ms,
             and two calls bit-identical
+    lm-mesh  the same weights on ``make_local_mesh()`` (a world-size-1
+            NCCL group), params placed by ``param_specs``: the prefill on
+            Zipf tokens under the config's options (the controller's hot
+            rows, the cold capacity from its coverage, the sharded moe
+            with that 8-replica plan) beside the same prefill without
+            them: tokens/s, loss difference, overflow 0, 24 flash
+            launches a call, collectives a prefill, peak memory
     moe-parity  2 layers at full width in float32 (B=1, T=256), the card
             against the CPU port: hidden states and layer 0's ``moe_ffn``
             within 1e-4, its diagnostics bit-exact, the loss 1e-5
             relative (a token the two devices route differently must be a
-            near-tie and is left out with the tokens it reached), then one
-            train step with phase 5's limits
+            near-tie and is left out with the tokens it reached), then
+            ``lm-mesh-parity`` (the card's forward under all options on a
+            world-size-1 NCCL mesh against the CPU port's plain forward
+            with the same plan, 1e-4) and one train step with phase 5's
+            limits
     moe-train  full width, 4 layers (all 24 need 229 GB of float32
             state), B=1, T=4096: one warm-up and two timed steps, 8
             forward / 4 backward flash launches a step, finite loss and
@@ -1422,7 +1449,8 @@ def profile_run(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == cuda]
     self_us = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0)
     busy = sum(self_us(e) for e in kernels) / 1e6
@@ -1430,10 +1458,16 @@ def profile_run(torch, fn) -> dict:
     port = {name: sum(self_us(e) for e in kernels
                       if any(part in e.key for part in parts)) / 1e3
             for name, parts in PORT_KERNELS.items()}
+    host = sorted((e for e in averages
+                   if e.device_type != cuda and e.key.startswith("aten::")),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1 - busy / wall, "kernel_kinds": len(kernels),
             "top": [{"kernel": e.key[:60], "ms": self_us(e) / 1e3,
                      "calls": e.count} for e in top],
+            "host_top": [{"op": e.key, "self_cpu_ms":
+                          e.self_cpu_time_total / 1e3, "calls": e.count}
+                         for e in host],
             "port_kernels_ms": port}
 
 
@@ -3039,9 +3073,16 @@ def phase_lm(torch) -> dict[str, int]:
                      "n_hot": plan.n_hot, "coverage": plan.coverage},
           "launches": launches, "max_memory_allocated":
           torch.cuda.max_memory_allocated()})
-    del params, batch
+    del batch
+    t0 = time.perf_counter()
+    phase_lm_int8(torch, cfg, params)  # phase 4's weights, no second init
+    walls["int8_s"] = time.perf_counter() - t0
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_lm_int8_parity(torch, cfg)
+    walls["int8_parity_s"] = time.perf_counter() - t0
 
     # two layers at full width, B=1, T=520: the card against the CPU port
     t0 = time.perf_counter()
@@ -3081,6 +3122,226 @@ def phase_lm(torch) -> dict[str, int]:
                              f"{loss_gpu} vs {loss_cpu}")
     emit({"phase": "lm-walls", **walls})
     return launches
+
+
+# the reference's decode cache modes: float32 cache math (the default),
+# bf16 cache math, and the int8 cache with bf16 math (``--int8-kv``)
+CACHE_MODES = {"default": {}, "bf16_cache_math": {"bf16_cache_math": True},
+               "int8": {"kv_cache_int8": True, "bf16_cache_math": True}}
+CACHE_DECODE = (8, 4096, 16, 4)  # batch, max_len, steps, batches
+
+
+def tree_bytes(tree: dict) -> int:
+    """Bytes of a decode cache's tensors."""
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def phase_lm_int8(torch, cfg, params) -> None:
+    """llama3-8b decode (``serve_loop``: batch 8, max_len 4096, 16 steps, 4
+    batches) in each cache mode on phase 4's weights: tokens/s, cache
+    bytes, peak memory and a profiled 4-step batch's idle share and host
+    ops; then the
+    reference test's property (``tests/test_optimizations.py::
+    test_int8_kv_cache_decode_close_to_bf16``) at full size: 5 steps of
+    the int8 mode against the default from the same greedy tokens, logits
+    within 5% of the largest, greedy tokens agreeing on half the rows."""
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import RuntimeOptions
+
+    b, max_len, steps, n = CACHE_DECODE
+    models = {mode: build_model(cfg, opts=RuntimeOptions(**kw),
+                                device="cuda")
+              for mode, kw in CACHE_MODES.items()}
+    rows = {}
+    for mode, model in models.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = model.init_cache(b, max_len)["kv"]
+        dtypes = sorted({str(t.dtype) for t in cache.values()})
+        nbytes = tree_bytes(cache)
+        del cache
+        times, _ = serve_loop(model, params, batch_size=b, max_len=max_len,
+                              steps=steps, n_batches=n)
+        peak = torch.cuda.max_memory_allocated()
+        # 4 steps: a 16-step trace takes the profiler ~30 s to fold
+        prof = profile_run(torch, lambda: serve_loop(
+            model, params, batch_size=b, max_len=max_len, steps=4,
+            n_batches=1))
+        rows[mode] = {"cache_bytes": nbytes, "cache_dtypes": dtypes,
+                      "batch_s": times,
+                      "steady_tok_per_s": b * steps / float(np.mean(
+                          times[1:])),
+                      "max_memory_allocated": peak,
+                      "profiled_batch": {"wall_s": prof["wall_s"],
+                                         "device_busy_s":
+                                             prof["device_busy_s"],
+                                         "idle_share": prof["idle_share"],
+                                         "top": prof["top"][:3],
+                                         "host_top": prof["host_top"]}}
+    ratio = rows["int8"]["cache_bytes"] / rows["default"]["cache_bytes"]
+
+    # the reference test's property, at full size
+    base, int8 = models["default"], models["int8"]
+    c0, c1 = base.init_cache(b, max_len), int8.init_cache(b, max_len)
+    tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    for pos in range(5):
+        l0, c0 = base.decode(params, c0, {"tokens": tok, "pos": pos})
+        l1, c1 = int8.decode(params, c1, {"tokens": tok, "pos": pos})
+        tok = torch.argmax(l0[:, -1], -1)[:, None]
+    l0, l1 = l0.float(), l1.float()
+    rel = float((l0 - l1).abs().max() / l0.abs().max())
+    agree = float((torch.argmax(l0[:, -1], -1) ==
+                   torch.argmax(l1[:, -1], -1)).float().mean())
+    del c0, c1, l0, l1
+    ok = ratio <= 0.52 and rel < 0.05 and agree >= 0.5
+    emit({"phase": "lm-int8", "arch": cfg.name, "batch": b,
+          "max_len": max_len, "steps": steps, "batches": n,
+          "modes": rows, "int8_over_default_bytes": ratio,
+          "int8_vs_default_5_steps": {"rel": rel, "agree": agree,
+                                      "limits": "rel < 0.05, agree >= 0.5"},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"lm-int8: cache ratio {ratio}, rel {rel}, "
+                             f"agreement {agree}")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextmanager
+def card_payloads(TA, card_kv: dict):
+    """Has ``attention._quantize_kv`` return the card's written payload and
+    scale (``card_kv``: each cache leaf's (layers, B, KV[, hd]) entries at
+    the step's position) layer by layer, K then V, as ``decode_attention``
+    calls it, and records what it computes itself, in call order."""
+    inner = TA._quantize_kv
+    own: list[tuple] = []
+
+    def spy(x):
+        layer, which = divmod(len(own), 2)
+        own.append(inner(x))
+        n = "kv"[which]
+        return (card_kv[n][layer][:, None].to(x.device),
+                card_kv[n + "_scale"][layer][:, None].to(x.device))
+
+    TA._quantize_kv = spy
+    try:
+        yield own
+    finally:
+        TA._quantize_kv = inner
+
+
+def phase_lm_int8_parity(torch, cfg) -> None:
+    """The int8 cache and bf16 cache math, the card against the CPU port.
+    (a) ``_quantize_kv`` at decode's full shape (batch 8, 8 KV heads, hd
+    128), float32 and bf16 inputs: payload and scales bit for bit (the
+    card must not divide through a reciprocal).  (b) llama3-8b with 2
+    layers at full width in float32, 8 int8-cache decode steps (batch 2,
+    64 slots, seeded tokens), the CPU's cache set to the card's before
+    each step so that each step starts equal.  A payload written from K/V
+    that differ by rounding may land one step apart (the entries are
+    counted, the step must be at most 1); on such a step the CPU's step is
+    run again with every layer's written payload and scale the card's
+    (``card_payloads``), so that both compute from what the card wrote.
+    The step's logits within 1e-4 of their largest magnitude, and each
+    layer's written scales within 1e-6 relative of the CPU's, on every
+    step (float32 products summed in another order).  (c) bf16 cache
+    math's two routes on the same inputs at decode's full shape (batch 8,
+    4096 slots, 32 heads over 8 KV heads): the card's ``torch.bmm(
+    out_dtype=float32)`` against the CPU's float32 casts, within 1e-2 of
+    the largest output (the softmax weights are rounded to bf16 on each
+    side)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import attention as TA
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import RuntimeOptions
+
+    b, L, _, _ = CACHE_DECODE
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    quant_equal = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((b, 1, kv, hd), generator=gen, device="cuda") *
+             torch.rand((b, 1, kv, 1), generator=gen, device="cuda") * 10
+             ).to(dt)
+        qg, sg = TA._quantize_kv(x)
+        qc, sc = TA._quantize_kv(x.cpu())
+        quant_equal[str(dt)] = bool(torch.equal(qg.cpu(), qc) and
+                                    torch.equal(sg.cpu(), sc))
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    opts = RuntimeOptions(**CACHE_MODES["int8"])
+    gpu = build_model(cfg2, opts=opts, device="cuda")
+    cpu = build_model(cfg2, opts=opts, device="cpu")
+    pg = gpu.init(2)
+    pc = copy.deepcopy(pg).to("cpu")
+    cg = gpu.init_cache(2, 64)
+    toks = np.random.default_rng(2).integers(0, cfg2.vocab_size, (8, 2, 1))
+    steps = []
+    for pos in range(8):
+        before = {name: c.cpu() for name, c in cg["kv"].items()}
+        cc = {"kv": {name: c.clone() for name, c in before.items()}}
+        t = torch.from_numpy(toks[pos])
+        lg, cg = gpu.decode(pg, cg, {"tokens": t.cuda(), "pos": pos})
+        card_kv = {name: c[:, :, pos].cpu() for name, c in cg["kv"].items()}
+        lc, cc = cpu.decode(pc, cc, {"tokens": t, "pos": pos})
+        written = {n: card_kv[n].int() - cc["kv"][n][:, :, pos].int()
+                   for n in ("k", "v")}
+        differ = sum(int((w != 0).sum()) for w in written.values())
+        step = max(int(w.abs().max()) for w in written.values())
+        ref = {n: cc["kv"][n][:, :, pos] for n in ("k_scale", "v_scale")}
+        if differ:
+            again = {"kv": {name: c.clone() for name, c in before.items()}}
+            with card_payloads(TA, card_kv) as own:
+                lc, _ = cpu.decode(pc, again, {"tokens": t, "pos": pos})
+            ref = {n: torch.stack([sc[:, 0] for _, sc in own[i::2]])
+                   for i, n in enumerate(("k_scale", "v_scale"))}
+        scale_err = [max(float(((card_kv[n][layer] - ref[n][layer]).abs() /
+                                ref[n][layer].abs()).max()) for n in ref)
+                     for layer in range(2)]
+        err = float((lg.cpu() - lc).abs().max() / lc.abs().max())
+        steps.append({"logits_err_over_max": err,
+                      "payloads_differing": differ, "payload_step": step,
+                      "cpu_given_card_payloads": bool(differ),
+                      "scale_rel_err": scale_err,
+                      "ok": bool(step <= 1 and max(scale_err) <= 1e-6 and
+                                 err <= 1e-4)})
+    del gpu, cpu, pg, pc, cg, cc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 cache math: the card's route against the CPU's
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").bfloat16()
+    ck = torch.randn((b, L, kv, hd), generator=gen, device="cuda").bfloat16()
+    cv = torch.randn((b, L, kv, hd), generator=gen, device="cuda").bfloat16()
+    visible = torch.arange(L, device="cuda") <= L - 100
+    og = TA._bf16_cache_attend(q, ck, cv, visible, hd).cpu()
+    oc = TA._bf16_cache_attend(q.cpu(), ck.cpu(), cv.cpu(), visible.cpu(),
+                               hd)
+    bf16_err = float((og - oc).abs().max() / oc.abs().max())
+    del q, ck, cv
+    ok = (all(quant_equal.values()) and all(r["ok"] for r in steps) and
+          bf16_err <= 1e-2)
+    emit({"phase": "lm-int8-parity", "arch": cfg.name,
+          "quantize_kv_bit_exact": quant_equal, "n_layers": 2,
+          "compute_dtype": "float32", "batch": 2, "max_len": 64,
+          "decode_steps": steps,
+          "bf16_cache_math_card_vs_cpu": {
+              "card": "torch.bmm(out_dtype=float32)",
+              "cpu": "float32 casts", "err_over_max": bf16_err,
+              "shape": [b, L, h, kv, hd]},
+          "limits": "quantize bit for bit; payload step <= 1; logits 1e-4 "
+                    "of max and scales 1e-6 relative on every step (the "
+                    "CPU given the card's payloads on a step where one "
+                    "differs); bf16 routes 1e-2 of max",
+          "ok": ok})
+    if not ok:
+        raise AssertionError("lm-int8-parity: the card's int8 decode or bf16 "
+                             "cache math disagrees with the CPU port's")
 
 
 # limits of a float32 train step, card against CPU port: float32 products
@@ -3498,33 +3759,167 @@ def phase_moe(torch) -> dict[str, int]:
     if not (identical and finite):
         raise AssertionError(f"moe_ffn: two calls identical {identical}, "
                              f"finite {finite}")
+    del x, h, z, out0, out1, again
+    t0 = time.perf_counter()
+    # lm-mesh's prefill launches join the moe path's
+    launches["flash_attention"] += phase_lm_mesh(torch, cfg, params,
+                                                 slot_map)
+    walls["mesh_s"] = time.perf_counter() - t0
     emit({"phase": "moe-walls", **walls})
-    del params, batch, model, x, h, z, out0, out1, again
+    del params, batch, model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
 @contextmanager
-def router_spy(torch):
-    """Records each ``moe_ffn`` call's input and router gates (float32), on
-    the host, in call order."""
+def collective_spy(torch):
+    """Counts the ``torch.distributed`` collectives called while open, by
+    kind."""
+    import torch.distributed as dist
+
+    calls: Counter = Counter()
+    inner = {name: getattr(dist, name) for name in ("all_reduce",
+                                                    "all_gather")}
+
+    def spy(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return inner[name](*args, **kw)
+        return call
+
+    for name in inner:
+        setattr(dist, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in inner.items():
+            setattr(dist, name, fn)
+
+
+def mesh_options(torch, cfg, tokens: np.ndarray, slot_map, mesh):
+    """The ``RuntimeOptions`` of the moe config's own ``AdaptiveConfig``
+    on ``mesh``: the controller's plan of the tokens (its hot budget), the
+    cold fraction its ``cold_capacity`` gives them, the sharded moe with
+    ``slot_map``."""
+    from repro_torch.core.adaptive import AdaptiveShardingController
+    from repro_torch.models.transformer import RuntimeOptions
+
+    ctrl = AdaptiveShardingController(
+        cfg.vocab_size, budget=cfg.adaptive.embedding_hot_budget)
+    ctrl.observe(tokens)
+    plan = ctrl.replan()
+    n = int(tokens.size)
+    return RuntimeOptions(mesh=mesh, sharded_moe=True,
+                          adaptive_embedding=True, hot_ids=plan.hot_ids,
+                          cold_frac=ctrl.cold_capacity(n) / n,
+                          slot_map=slot_map), plan
+
+
+def phase_lm_mesh(torch, cfg, params, slot_map) -> int:
+    """qwen2-moe-a2.7b's prefill (B=4, T=4096, Zipf tokens, as the
+    reference's ``serve_loop`` draws them) on ``make_local_mesh()`` (a
+    world-size-1 NCCL group) under the options of its ``AdaptiveConfig``
+    (hot embedding rows, the cold capacity from the plan's coverage, the
+    sharded moe with the moe-load phase's 8-replica plan), with the params
+    placed by ``param_specs``, beside the same prefill without options
+    (``lm_loss`` with the same plan, params unplaced): tokens/s of each
+    (one cold call, three warm), the loss difference, 24 flash launches a
+    call, the collectives of a prefill, peak memory, and the overflow of
+    ``adaptive_embed`` at ``lm_forward``'s capacity, which must be 0.
+    Returns the flash launches of its eight prefills."""
+    from repro_torch.data.tokens import zipf_tokens
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shardings import param_specs, place
+    from repro_torch.models import embedding as emb
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.model_zoo import build_model
+
+    b, t = PREFILL
+    ids = zipf_tokens(np.random.default_rng(0), cfg.vocab_size,
+                      (b, t + 1)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(ids[:, :-1]).cuda(),
+             "labels": torch.from_numpy(ids[:, 1:]).cuda()}
+    mesh = make_local_mesh("cuda")
+    opts, plan = mesh_options(torch, cfg, ids[:, :-1], slot_map, mesh)
+    model = build_model(cfg, opts=opts, device="cuda")
+    start = LAUNCHES["flash_attention"]
+
+    def run(loss_fn) -> dict:
+        losses, secs, flash = [], [], []
+        for _ in range(4):  # one cold call, three warm
+            before = LAUNCHES["flash_attention"]
+            a = time.perf_counter()
+            with torch.inference_mode():
+                losses.append(float(loss_fn()))
+            secs.append(time.perf_counter() - a)
+            flash.append(LAUNCHES["flash_attention"] - before)
+        return {"loss": losses, "cold_s": secs[0], "warm_s": secs[1:],
+                "warm_tokens_per_s": b * t / float(np.mean(secs[1:])),
+                "flash_launches_per_call": flash}
+
+    base = run(lambda: TT.lm_loss(params, batch["tokens"], batch["labels"],
+                                  cfg, slot_map=slot_map))
+    place(params, mesh, param_specs(params, mesh))
+    torch.cuda.reset_peak_memory_stats()
+    opt = run(lambda: model.loss(params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    with collective_spy(torch) as calls, torch.inference_mode():
+        model.loss(params, batch)
+        torch.cuda.synchronize()
+    with torch.inference_mode():
+        _, over = emb.adaptive_embed(
+            params.embed, batch["tokens"], cfg, opts.hot_ids,
+            TT.cold_capacity(opts, batch["tokens"]), mesh)
+    over = int(over)
+    launches = LAUNCHES["flash_attention"] - start
+    multihost.shutdown()
+    diff = abs(opt["loss"][-1] - base["loss"][-1])
+    ok = (over == 0 and all(f == cfg.n_layers for f in
+                            base["flash_launches_per_call"] +
+                            opt["flash_launches_per_call"]) and
+          diff <= 1e-3 * abs(base["loss"][-1]) and
+          all(math.isfinite(x) for x in opt["loss"]))
+    emit({"phase": "lm-mesh", "arch": cfg.name, "mesh": list(mesh.shape),
+          "backend": "nccl", "batch": b, "seq": t, "tokens": "zipf",
+          "hot_rows": plan.n_hot, "coverage": plan.coverage,
+          "cold_frac": opts.cold_frac,
+          "cold_cap": TT.cold_capacity(opts, batch["tokens"]),
+          "slot_map": list(slot_map), "without_options": base,
+          "options": opt, "loss_diff": diff, "overflow": over,
+          "collectives_per_prefill": dict(calls),
+          "max_memory_allocated": peak, "ok": ok})
+    if not ok:
+        raise AssertionError(f"lm-mesh: overflow {over}, loss diff {diff}, "
+                             f"flash {opt['flash_launches_per_call']}")
+    return launches
+
+
+@contextmanager
+def route_spy(torch, batch: int):
+    """Records each moe router call's input and gates (float32, (B, T,
+    E)), on the host, in call order, for ``moe_ffn`` and
+    ``moe_ffn_sharded`` alike."""
     from repro_torch.models import moe as TM
+    from repro_torch.models import moe_sharded as TMS
 
     seen: list[tuple] = []
-    inner = TM.moe_ffn
+    inner = TM.route
 
-    def spy(p, x, cfg, slot_map=None):
+    def spy(p, xf, k):
         with torch.no_grad():
-            g = torch.softmax((x @ p.router.to(x.dtype)).float(), dim=-1)
-        seen.append((x.detach().cpu(), g.cpu()))
-        return inner(p, x, cfg, slot_map)
+            g = torch.softmax((xf @ p.router.to(xf.dtype)).float(), dim=-1)
+        seen.append((xf.detach().cpu(), g.reshape(batch, -1, g.shape[-1])
+                     .cpu()))
+        return inner(p, xf, k)
 
-    TM.moe_ffn = spy
+    TM.route = TMS.route = spy
     try:
         yield seen
     finally:
-        TM.moe_ffn = inner
+        TM.route = TMS.route = inner
 
 
 def near_tie_clear(card: list, host: list, k: int) -> tuple[np.ndarray, list]:
@@ -3575,17 +3970,19 @@ def phase_moe_parity(torch) -> None:
     pc = copy.deepcopy(pg).to("cpu")
     bg = make_batch(cfg2, 1, 256, 0, device="cuda")
     bc = {name: v.cpu() for name, v in bg.items()}
+    bsz = int(bg["tokens"].shape[0])
     with torch.inference_mode():
-        with router_spy(torch) as card:
+        with route_spy(torch, bsz) as card:
             h_card = TT.lm_forward(pg, bg["tokens"], cfg2).cpu()
-        with router_spy(torch) as host:
+        with route_spy(torch, bsz) as host:
             h_host = TT.lm_forward(pc, bc["tokens"], cfg2)
         loss_card = float(gpu.loss(pg, bg))
         loss_host = float(cpu.loss(pc, bc))
-        x0 = host[0][0]  # layer 0's input on the CPU, given to both
-        with router_spy(torch) as ffn_card:
+        # layer 0's input on the CPU, given to both
+        x0 = host[0][0].reshape(bsz, -1, cfg2.d_model)
+        with route_spy(torch, bsz) as ffn_card:
             out_c, d_c = TM.moe_ffn(pg.blocks[0].moe, x0.cuda(), cfg2)
-        with router_spy(torch) as ffn_host:
+        with route_spy(torch, bsz) as ffn_host:
             out_h, d_h = TM.moe_ffn(pc.blocks[0].moe, x0, cfg2)
     tol = 1e-4  # TOL float32: products summed in another order
     keep, reroutes = near_tie_clear(card, host, k)
@@ -3602,6 +3999,11 @@ def phase_moe_parity(torch) -> None:
     loss_rel = abs(loss_card - loss_host) / abs(loss_host)
     del card, host, ffn_card, ffn_host, out_c, out_h, h_card, h_host
     forward_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    hot = tuple(int(e) for e in torch.argsort(
+        d_h["route_counts"], descending=True, stable=True)[:MOE_HOT])
+    phase_lm_mesh_parity(torch, cfg2, pg, pc, bg, bc, hot)
+    mesh_parity_s = time.perf_counter() - t1
 
     # the train step starts from the same two models (inference mode left
     # their weights as they were)
@@ -3627,10 +4029,52 @@ def phase_moe_parity(torch) -> None:
                              "reroutes": ffn_reroutes,
                              "load": load_stats(d_h)},
           "train_step": row, "forward_s": forward_s,
+          "lm_mesh_parity_s": mesh_parity_s,
           "train_step_s": time.perf_counter() - t0, "ok": ok})
     if not ok:
         raise AssertionError("moe-parity: the card's moe model disagrees "
                              "with the CPU port's (see the line above)")
+
+
+def phase_lm_mesh_parity(torch, cfg2, pg, pc, bg, bc, hot) -> None:
+    """moe-parity's 2-layer float32 models: the card's ``lm_forward``
+    under all options (``make_local_mesh()``, world-size-1 NCCL: the
+    adaptive embedding with the controller's plan of the batch, the
+    sharded moe with ``hot`` replicated) against the CPU port's plain
+    forward with the same plan -- the function the options compute --
+    within 1e-4, on the tokens no near-tie rerouting reached."""
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.moe import slot_map_for_plan
+
+    slot_map = slot_map_for_plan(cfg2.moe.n_experts, hot)
+    mesh = make_local_mesh("cuda")
+    opts, plan = mesh_options(torch, cfg2, bc["tokens"].numpy(), slot_map,
+                              mesh)
+    bsz = int(bg["tokens"].shape[0])
+    with torch.inference_mode():
+        with route_spy(torch, bsz) as card:
+            h_card = TT.lm_forward(pg, bg["tokens"], cfg2, opts=opts).cpu()
+        with route_spy(torch, bsz) as host:
+            h_host = TT.lm_forward(pc, bc["tokens"], cfg2, slot_map=slot_map)
+    multihost.shutdown()
+    tol = 1e-4  # TOL float32: products summed in another order
+    keep, reroutes = near_tie_clear(card, host, cfg2.moe.top_k)
+    err = float((h_card[keep] - h_host[keep]).abs().max())
+    ok = (bool(torch.allclose(h_card[keep], h_host[keep], atol=tol,
+                              rtol=tol)) and keep.any() and
+          all(r[-1] for r in reroutes) and len(card) == len(host))
+    emit({"phase": "lm-mesh-parity", "arch": MOE_ARCH, "n_layers": 2,
+          "compute_dtype": "float32", "batch": bsz,
+          "seq": int(bg["tokens"].shape[1]), "mesh": list(mesh.shape),
+          "hot_rows": plan.n_hot, "cold_frac": opts.cold_frac,
+          "slot_map": list(slot_map), "hidden_max_abs_err": err,
+          "tolerance": tol, "tokens_compared": int(keep.sum()),
+          "reroutes": reroutes, "ok": ok})
+    if not ok:
+        raise AssertionError("lm-mesh-parity: the card's forward under the "
+                             "options disagrees with the CPU port's")
 
 
 def phase_moe_train(torch) -> dict[str, int]:

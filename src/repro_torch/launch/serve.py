@@ -3,11 +3,15 @@ controller in the loop.
 
 The port's counterpart of ``repro.launch.serve``: a fixed decode budget per
 request batch, with the AdHash-style controller replanning hot embedding
-rows from the observed tokens between batches.  The port has no mesh, so
-the plan is computed and reported but not placed (ROADMAP §1 item 12d).
+rows from the observed tokens between batches.  ``main`` serves on the
+local mesh (``launch.mesh.make_local_mesh``: every rank of the process
+group, a world-size-1 group when none is configured), with the params
+placed by ``launch.shardings.param_specs``; ``--int8-kv`` turns on the
+int8 KV cache and bf16 cache math, as the reference's flag does.
 
 Run:  python -m repro_torch.launch.serve --arch llama3-8b [--device cuda]
       python -m repro_torch.launch.serve --arch qwen1.5-4b --smoke --device cpu
+      python -m repro_torch.launch.serve --arch llama3-8b --int8-kv
 (any decoder-only arch of ``repro_torch.configs``: dense, moe, ssm, hybrid
 or vlm; a vlm decodes text only, as the reference's does).  The audio
 family's decode needs encoder states, which the reference's loop does not
@@ -21,13 +25,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.adaptive import AdaptiveShardingController
 from repro_torch.data.tokens import zipf_tokens
+from repro_torch.launch import multihost
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.shardings import param_specs, place
 from repro_torch.launch.train import make_serve_step
-from repro_torch.models.common import unported
 from repro_torch.models.model_zoo import build_model
+from repro_torch.models.transformer import RuntimeOptions
 
 __all__ = ["serve_loop", "main"]
 
@@ -77,13 +85,24 @@ def main(argv=None) -> None:
     ap.add_argument("--int8-kv", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.int8_kv:
-        raise unported("--int8-kv (the int8 KV cache)", "12d")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device=args.device)
+    started = not dist.is_initialized()
+    mesh = make_local_mesh(args.device)
+    try:
+        _serve(cfg, args, mesh)
+    finally:
+        if started:  # a group this call started ends with it
+            multihost.shutdown()
+
+
+def _serve(cfg, args, mesh) -> None:
+    opts = RuntimeOptions(mesh=mesh, kv_cache_int8=args.int8_kv,
+                          bf16_cache_math=args.int8_kv)
+    model = build_model(cfg, opts=opts, device=args.device)
     # serving weights are stored in the compute dtype once, at load
     params = model.init(0, dtype=cfg.cdtype)
+    params = place(params, mesh, param_specs(params, mesh))
     ctrl = AdaptiveShardingController(
         cfg.vocab_size,
         budget=(cfg.adaptive.embedding_hot_budget if cfg.adaptive else 1024),
@@ -93,7 +112,8 @@ def main(argv=None) -> None:
         steps=args.steps, n_batches=args.batches, controller=ctrl,
     )
     tps = args.batch * args.steps / np.mean(times[1:]) if len(times) > 1 else 0
-    print(f"arch={cfg.name} device={model.device} int8_kv={args.int8_kv} "
+    print(f"arch={cfg.name} device={model.device} "
+          f"mesh={tuple(mesh.shape)} int8_kv={args.int8_kv} "
           f"batches={len(times)} steady tok/s={tps:.1f}")
     if plan:
         print(f"controller: hot={plan.n_hot} coverage={plan.coverage:.2f}")

@@ -8,8 +8,8 @@ the gradients are dropped before it returns.  ``make_serve_step`` is the
 decode step that ``serve_loop`` drives.
 
 The CLI runs real steps with the synthetic data pipeline and optional
-checkpointing, on one device (the port has no mesh yet, ROADMAP §1 item
-12d):
+checkpointing, on one device (data-parallel training over a mesh is
+ROADMAP §1 item 12d.2):
 
   python -m repro_torch.launch.train [--arch mamba2-130m] [--device cuda]
   python -m repro_torch.launch.train --arch qwen1.5-4b --smoke --device cpu

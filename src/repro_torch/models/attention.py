@@ -8,23 +8,27 @@ call ``repro_torch.kernels.flash_attention.ops.flash_attention``, which
 launches the hand-written Hopper kernel on a CUDA tensor and runs its plain
 version on a CPU tensor; it computes what ``_blocked_attn`` computes, the
 hybrid family's local window included, and the audio family's
-non-causal encoder and cross-attention (T queries against S != T keys).  Decode is plain PyTorch with float32
-cache math, as the JAX package's decode is plain jnp; a windowed layer's
-cache holds ``min(window, max_len)`` slots, written at ``pos % L`` and
-masked by the reference's age rule (floor modulo, as ``jnp`` computes it).
+non-causal encoder and cross-attention (T queries against S != T keys).
+Decode is plain PyTorch, as the JAX package's decode is plain jnp, in the
+reference's three cache modes: float32 cache math (the default), bf16
+cache math (the cache in its dtype, float32 results) and the int8 cache
+(a payload and per-(position, head) scales, dequantized on read); a
+windowed layer's cache holds ``min(window, max_len)`` slots, written at
+``pos % L`` and masked by the reference's age rule (floor modulo, as
+``jnp`` computes it).
 Weights are stored as the JAX package stores them, (in, out), and cast to
 the activations' dtype where used.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.kernels.flash_attention.ops import NEG_INF, flash_attention
 
-from .common import (ModelConfig, apply_rope, dense_init, rope_tables,
-                     unported)
+from .common import ModelConfig, apply_rope, dense_init, rope_tables
 
 __all__ = [
     "Attention",
@@ -138,20 +142,97 @@ def cross_attention(
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   int8: bool = False,
                   device: str | torch.device = "cuda") -> dict:
-    """{"k", "v"}: (B, max_len, KV, hd) in the compute dtype, zero.  A
+    """{"k", "v"}: (B, max_len, KV, hd) in the compute dtype, zero.  With
+    ``int8`` the quantized cache: int8 ``k`` and ``v`` and float32
+    per-(position, head) ``k_scale`` and ``v_scale`` (B, max_len, KV).  A
     windowed layer's caller passes ``min(window, max_len)`` slots."""
-    if int8:
-        raise unported("the int8 KV cache", "12d")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     dev = resolve_device(device)
+    if int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:3], device=dev),
+                "v_scale": torch.zeros(shape[:3], device=dev)}
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
+
+
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 1, KV, hd) -> (int8 payload, float32 per-head scale (B, 1, KV)):
+    the scale is max|x| / 127 floored at 1e-8, the payload x / scale
+    rounded half to even and clipped to +-127.  The reference's compiled
+    quotient by the constant 127 is max|x| times float32(1 / 127) (its
+    scales are bit for bit that product, not the correctly rounded
+    quotient), so the port multiplies by that float32 on both devices (a
+    Python float that is exactly it: a product by a scalar rounds once on
+    either device, and no tensor is copied to the card)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) * _INV127
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b of bf16 operands with float32 results: on the card
+    ``torch.bmm(out_dtype=float32)`` (cuBLAS accumulates in float32; no
+    float32 copy of an operand is made); on the CPU, which has no such
+    bmm, the products of the float32 casts (bf16 products are exact in
+    float32, so only the order of the sums differs)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _bf16_cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                       visible: torch.Tensor, hd: int) -> torch.Tensor:
+    """The reference's ``f32_cache_math=False`` decode attention: both
+    products take the cache in its own dtype with float32 results
+    (``preferred_element_type``), the softmax weights are cast to the
+    cache's dtype first.  q (B, H, hd); ck, cv (B, L, KV, hd); returns
+    (B, H, hd) float32.
+
+    The cache's batch of (b, kv-head) matrices has no single stride, so
+    each product runs over all KV heads at once, batched over b: the
+    scores as block-diagonal q (one head's hd columns a row, zeros
+    elsewhere) against the cache viewed (L, KV * hd); the output as the
+    weights against all KV heads' values, keeping each head's own block.
+    The extra products are zeros (KV x the products, a few MFLOP a layer);
+    the cache is read once, in place."""
+    b, h, _ = q.shape
+    L, nkv = ck.shape[1], ck.shape[2]
+    g = h // nkv
+    eye = torch.eye(nkv, dtype=q.dtype, device=q.device)
+    q_blk = (q.reshape(b, nkv, g, 1, hd) * eye.reshape(1, nkv, 1, nkv, 1)
+             ).reshape(b, h, nkv * hd)
+    logits = _dot_f32(q_blk, ck.reshape(b, L, nkv * hd).transpose(1, 2))
+    logits = logits * (hd ** -0.5)  # (B, H, L)
+    logits = logits.masked_fill(~visible, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(cv.dtype)
+    o_all = _dot_f32(w, cv.reshape(b, L, nkv * hd))  # (B, H, KV * hd)
+    o = torch.diagonal(o_all.reshape(b, nkv, g, nkv, hd), dim1=1, dim2=3)
+    return o.permute(0, 3, 1, 2).reshape(b, h, hd)
+
+
+def _visible(L: int, pos: int, slot: int, window: int,
+             device: torch.device) -> torch.Tensor:
+    """(L,) mask of the cache slots the step at ``pos`` attends to."""
+    idx = torch.arange(L, device=device)
+    if window > 0:
+        # the reference's distance in ring layout; floor modulo, as jnp's %
+        age = pos - (torch.remainder(idx - slot - 1, L) + 1)
+        visible = (age >= 0) & (age < window) & (age < pos + 1)
+        return visible | (idx == slot)
+    return idx <= pos
 
 
 def decode_attention(
     p: Attention,
     x: torch.Tensor,  # (B, 1, D) current-token hidden state
-    cache: dict,  # {"k","v"}: (B, L, KV, hd)
+    cache: dict,  # {"k","v"}: (B, L, KV, hd) [+ "k_scale","v_scale"]
     pos: int | torch.Tensor,  # index of the current token
     cfg: ModelConfig,
     *,
@@ -167,9 +248,13 @@ def decode_attention(
     (``src/repro/models/attention.py:303-306``) lets through.  Unlike the
     JAX package (which returns a new cache), the port writes the new K/V
     into ``cache`` in place and returns it, so a decode step allocates no
-    second cache."""
-    if not f32_cache_math:
-        raise unported("bf16 cache math (bf16_cache_math)", "12d")
+    second cache.
+
+    Cache math, as the reference's: an int8 cache (``k_scale`` in it) is
+    dequantized on read, its scales factored out of the hd contraction and
+    the payload cast to float32; else float32 math casts the cache to
+    float32, and ``f32_cache_math=False`` keeps it in its dtype with
+    float32 results (``_bf16_cache_attend``)."""
     b = x.shape[0]
     hd = cfg.hd
     pos = int(pos)
@@ -183,22 +268,35 @@ def decode_attention(
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
     slot = pos % L if window > 0 else pos  # ring buffer for local attention
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
-
+    visible = _visible(L, pos, slot, window, x.device)
     g = cfg.n_heads // nkv
-    qg = q.reshape(b, nkv, g, hd).float()
-    logits = torch.einsum("bkgd,blkd->bkgl", qg, ck.float()) * (hd ** -0.5)
-    idx = torch.arange(L, device=x.device)
-    if window > 0:
-        # the reference's distance in ring layout; floor modulo, as jnp's %
-        age = pos - (torch.remainder(idx - slot - 1, L) + 1)
-        visible = (age >= 0) & (age < window) & (age < pos + 1)
-        visible = visible | (idx == slot)
+    if "k_scale" in cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        ck[:, slot], cv[:, slot] = kq[:, 0], vq[:, 0]
+        cks, cvs = cache["k_scale"], cache["v_scale"]
+        cks[:, slot], cvs[:, slot] = ks[:, 0], vs[:, 0]
+        qg = q.reshape(b, nkv, g, hd).float()
+        # dequantize-on-read: scales factor out of the hd contraction
+        raw = torch.einsum("bkgd,blkd->bkgl", qg, ck.float())
+        logits = raw * cks.transpose(1, 2)[:, :, None, :] * (hd ** -0.5)
+        logits = logits.masked_fill(~visible, NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        wv = w * cvs.transpose(1, 2)[:, :, None, :]
+        o = torch.einsum("bkgl,blkd->bkgd", wv, cv.float())
+    elif f32_cache_math:
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        qg = q.reshape(b, nkv, g, hd).float()
+        logits = torch.einsum("bkgd,blkd->bkgl", qg, ck.float()) * \
+            (hd ** -0.5)
+        logits = logits.masked_fill(~visible, NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bkgl,blkd->bkgd", w, cv.float())
     else:
-        visible = idx <= pos
-    logits = logits.masked_fill(~visible, NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkgl,blkd->bkgd", w, cv.float())
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        o = _bf16_cache_attend(q.reshape(b, cfg.n_heads, hd).to(ck.dtype),
+                               ck, cv, visible, hd)
     o = o.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
     return o @ p.wo.to(x.dtype), cache

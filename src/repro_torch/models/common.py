@@ -28,16 +28,7 @@ __all__ = [
     "rope_tables",
     "apply_rope",
     "dense_init",
-    "unported",
 ]
-
-
-def unported(what: str, item: str, where: str = "§1 item"
-             ) -> NotImplementedError:
-    """The error every option the port does not have yet raises, naming
-    the ROADMAP entry that brings it (``where`` and ``item``)."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {where} {item})")
 
 
 @dataclass(frozen=True)

@@ -22,6 +22,12 @@ list in both trees, so ``"tail.0.mlp.w1"`` is ``("tail", "0", "mlp",
 "w1")`` with no layer.  ``opt_state_to_numpy`` /
 ``opt_state_from_numpy`` carry an ``OptState``, whose ``m`` and ``v`` are
 already trees of the reference's structure.
+
+``cache_from_numpy`` / ``cache_to_numpy`` carry a decode cache (nested
+dicts and lists of arrays, the same structure in both packages) across,
+each leaf in its own dtype: an int8 cache's payloads ``k`` and ``v`` stay
+int8 beside their float32 ``k_scale`` and ``v_scale``, a bf16 leaf stays
+bf16, so both packages' decode can step from the same cache.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ from . import whisper as whm
 from .common import ModelConfig
 
 __all__ = ["params_from_numpy", "params_to_numpy", "ref_path", "ref_shapes",
-           "tree_leaf", "opt_state_to_numpy", "opt_state_from_numpy"]
+           "tree_leaf", "opt_state_to_numpy", "opt_state_from_numpy",
+           "cache_from_numpy", "cache_to_numpy"]
 
 
 #: the port's layer lists the reference stacks on axis 0
@@ -140,6 +147,42 @@ def opt_state_from_numpy(step, m: dict, v: dict,
     return OptState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                                  device=dev),
                     tree_map(t, m), tree_map(t, v))
+
+
+def _cache_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _cache_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cache_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def cache_from_numpy(tree, device: str | torch.device = "cuda"):
+    """The port's decode cache holding a reference cache's numpy leaves
+    (``jax.tree.map(np.asarray, cache)``) on ``device``: int8 and float32
+    leaves keep their dtype, bfloat16 ones (``ml_dtypes``) become
+    ``torch.bfloat16``."""
+    dev = resolve_device(device)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return _cache_map(tree, leaf)
+
+
+def cache_to_numpy(cache):
+    """The reference's numpy tree of a port decode cache: int8 leaves stay
+    int8, float leaves become float32 (exact for bf16)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.numpy() if t.dtype in (torch.int8, torch.float32)
+                else t.float().numpy())
+
+    return _cache_map(cache, leaf)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig,

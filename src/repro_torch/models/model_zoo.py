@@ -19,6 +19,12 @@ embeddings with the tokens and labels, and its ``decode`` takes
 makes of the frames, with the token and position; its params are a
 ``whisper.Whisper`` whose ``dec_pos`` holds 65,536 positions, as the
 reference builds it.
+
+``build_model(cfg, opts)`` takes ``transformer.RuntimeOptions``, the
+reference's mesh and cache options, and passes them to the decoder-only
+families' ``loss``, ``init_cache`` and ``decode``, as the reference's
+``build_model`` does (the vlm and audio families take none); ``None`` is
+the program without them.
 """
 from __future__ import annotations
 
@@ -46,11 +52,9 @@ class ModelAPI:
     decode: Callable[[Any, Any, dict], tuple[torch.Tensor, Any]]
 
 
-def build_model(cfg: ModelConfig,
+def build_model(cfg: ModelConfig, opts: "tfm.RuntimeOptions | None" = None,
                 device: str | torch.device = "cuda") -> ModelAPI:
-    """The model family's API on ``device``.  The JAX package's
-    ``RuntimeOptions`` (mesh placement, int8 KV cache, bf16 cache math) have
-    no counterpart yet (ROADMAP §1 item 12d)."""
+    """The model family's API on ``device``."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
     if cfg.family == "audio":
@@ -66,16 +70,19 @@ def build_model(cfg: ModelConfig,
         if vlm:
             return vlmm.vlm_loss(params, batch["patches"], batch["tokens"],
                                  batch["labels"], cfg)
-        return tfm.lm_loss(params, batch["tokens"], batch["labels"], cfg)
+        return tfm.lm_loss(params, batch["tokens"], batch["labels"], cfg,
+                           opts=opts)
 
     @torch.inference_mode()
     def init_cache(b, max_len):
-        return tfm.init_lm_cache(cfg, b, max_len, device=dev)
+        return tfm.init_lm_cache(cfg, b, max_len, device=dev,
+                                 opts=None if vlm else opts)
 
     @torch.inference_mode()
     def decode(params, cache, batch):
         return tfm.lm_decode_step(params, cache, batch["tokens"],
-                                  batch["pos"], cfg)
+                                  batch["pos"], cfg,
+                                  opts=None if vlm else opts)
 
     return ModelAPI(cfg, dev, init, loss, init_cache, decode)
 

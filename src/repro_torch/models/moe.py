@@ -2,7 +2,7 @@
 sort dispatch, and AdHash-style hot-expert replication (DESIGN §2b).
 
 PyTorch port of ``repro.models.moe`` (its expert-parallel dispatch over a
-mesh, ``moe_sharded.py``, is ROADMAP §1 item 12d).  Dispatch is the
+mesh is ``moe_sharded.py``).  Dispatch is the
 static-shape sort/compaction pattern: assignments are sorted by expert slot
 (a stable sort), each slot takes a contiguous chunk up to its capacity, and
 surplus tokens are dropped and counted.  The hot-expert plan maps E logical
@@ -43,7 +43,8 @@ from torch import nn
 from .common import ModelConfig, dense_init
 from .mlp import SwiGLU, init_swiglu, swiglu
 
-__all__ = ["MoE", "init_moe", "moe_ffn", "slot_map_for_plan"]
+__all__ = ["MoE", "init_moe", "moe_ffn", "route", "combine",
+           "slot_map_for_plan"]
 
 
 class MoE(nn.Module):
@@ -99,6 +100,43 @@ def _plan_tables(slots: tuple[int, ...], e: int, dev: torch.device
                 torch.tensor(slots, dtype=torch.long, device=dev))
 
 
+def route(p: MoE, xf: torch.Tensor, k: int
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(weights, experts) (N, k) of each token's top k gates, renormalised;
+    the lower expert first among equal gates (``jax.lax.top_k``)."""
+    logits = (xf @ p.router.to(xf.dtype)).float()
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), top_e
+
+
+def combine(ye: torch.Tensor, wgt: torch.Tensor, flat_slot: torch.Tensor,
+            order: torch.Tensor, starts: torch.Tensor, cap: int, n: int,
+            k: int) -> torch.Tensor:
+    """(N, D): each token's weighted expert outputs added in ascending slot
+    position (the reference's scatter-add order), in ye's dtype.  ye (S,
+    cap, D) and wgt (S, cap) by slot row; ``flat_slot`` (N * k) each
+    assignment's slot, S for one this call does not compute; ``order`` the
+    stable sort of ``flat_slot``, ``starts`` each slot's first place in it.
+    An assignment in sorted place j of slot sl sits at position sl * cap +
+    (j - starts[sl]) when that is below the slot's capacity."""
+    s, _, d = ye.shape
+    contrib = (ye * wgt[..., None].to(ye.dtype)).reshape(s * cap, d)
+    contrib = torch.cat([contrib, contrib.new_zeros((1, d))])  # row s*cap: 0
+    place = torch.empty_like(order)
+    place[order] = torch.arange(n * k, device=ye.device)
+    sl = flat_slot.long()
+    in_slot = place - torch.cat([starts.long(), starts.new_zeros(1)])[sl]
+    pos = torch.where((sl < s) & (in_slot < cap), sl * cap + in_slot,
+                      s * cap)
+    pos, _ = torch.sort(pos.reshape(n, k), dim=1)
+    out = torch.zeros((n, d), dtype=ye.dtype, device=ye.device)
+    for r in range(k):
+        out = out + contrib[pos[:, r]]
+    return out
+
+
 def moe_ffn(
     p: MoE,
     x: torch.Tensor,  # (B, T, D)
@@ -118,12 +156,7 @@ def moe_ffn(
     s = len(slots)
 
     xf = x.reshape(n, d)
-    logits = (xf @ p.router.to(x.dtype)).float()
-    gates = torch.softmax(logits, dim=-1)
-    # top k with the lower expert first among equal gates (jax.lax.top_k)
-    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[:, :k], top_e[:, :k]  # (N, k)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    top_w, top_e = route(p, xf, k)  # (N, k)
 
     # ------- map logical experts to slots; replicas split load by parity
     flat_e = top_e.reshape(-1).to(torch.int32)  # (N*k,)
@@ -166,21 +199,7 @@ def moe_ffn(
     h = F.silu(torch.bmm(xe, w1.to(x.dtype))) * torch.bmm(xe, w3.to(x.dtype))
     ye = torch.bmm(h, w2.to(x.dtype))  # (S, cap, D)
 
-    # ------- combine: each token's contributions added in ascending slot
-    # position (the reference's scatter-add order), in x.dtype.  An
-    # assignment in sorted place j of slot sl sits at position
-    # sl * cap + (j - starts[sl]) when that is below the slot's capacity.
-    contrib = (ye * wgt[..., None].to(ye.dtype)).reshape(s * cap, d)
-    contrib = torch.cat([contrib, contrib.new_zeros((1, d))])  # row s*cap: 0
-    place = torch.empty_like(order)
-    place[order] = torch.arange(n * k, device=dev)
-    in_slot = place - starts.long()[flat_slot.long()]
-    pos = torch.where(in_slot < cap, flat_slot.long() * cap + in_slot,
-                      s * cap)
-    pos, _ = torch.sort(pos.reshape(n, k), dim=1)
-    out = torch.zeros((n, d), dtype=x.dtype, device=dev)
-    for r in range(k):
-        out = out + contrib[pos[:, r]]
+    out = combine(ye, wgt, flat_slot, order, starts, cap, n, k)
 
     if p.shared is not None:
         out = out + swiglu(p.shared, xf)

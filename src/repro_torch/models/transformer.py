@@ -37,13 +37,26 @@ PyTorch port of ``repro.models.transformer``:
   batched (``aten.bmm``) and recomputed.  Without grad (serving) the
   blocks run as they are.
 
+* ``RuntimeOptions`` are the reference's mesh and cache options, threaded
+  as the reference threads them: ``lm_forward`` embeds through
+  ``embedding.adaptive_embed`` (``adaptive_embedding``, on ``mesh``, with
+  ``hot_ids`` and a capacity from ``cold_frac``) and a moe block runs
+  ``moe_sharded.moe_ffn_sharded`` (``sharded_moe``, with ``opts.slot_map
+  or slot_map``); ``init_lm_cache`` makes the int8 cache
+  (``kv_cache_int8``, dense and moe only) and ``lm_decode_step`` keeps the
+  cache math in bf16 (``bf16_cache_math``).  Decode embeds and runs the
+  moe blocks without them, as the reference's does.  ``opts=None`` is the
+  program without options.  As in the reference, ``lm_forward`` drops
+  ``adaptive_embed``'s overflow (ROADMAP §3): a caller that must know
+  calls ``adaptive_embed`` itself with the same capacity
+  (``cold_capacity``).
+
 The audio family (whisper) is an encoder-decoder of its own
-(``models.whisper``), which uses this module's remat and chunked loss; the
-JAX package's mesh and cache options (``RuntimeOptions``) raise
-``NotImplementedError`` naming ROADMAP item 12d.
+(``models.whisper``), which uses this module's remat and chunked loss.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import partial
 
 import torch
@@ -55,11 +68,15 @@ from . import attention as attn
 from . import embedding as emb
 from . import mlp as mlpm
 from . import moe as moem
+from . import moe_sharded as moesh
 from . import rglru as rg
 from . import ssm as ssmm
+from .collectives import axis_size
 from .common import ModelConfig, rms_norm
 
 __all__ = [
+    "RuntimeOptions",
+    "cold_capacity",
     "Block",
     "SSMBlock",
     "HybridSub",
@@ -85,6 +102,30 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
                          f"known: {FAMILIES}")
+
+
+@dataclass(frozen=True)
+class RuntimeOptions:
+    """The reference's optimization switches; the defaults are the program
+    without them."""
+
+    mesh: object = None  # launch.mesh's DeviceMesh (adaptive / sharded paths)
+    sharded_moe: bool = False  # EP dispatch over `model` (moe_sharded.py)
+    adaptive_embedding: bool = False  # AdHash hot-row replication
+    hot_ids: tuple[int, ...] = ()  # embedding replication plan (sorted)
+    cold_frac: float = 1.0  # static cold-exchange capacity fraction
+    bf16_cache_math: bool = False  # decode: no f32 cast of the KV cache
+    kv_cache_int8: bool = False  # decode: quantized KV cache (s8 + scales)
+    slot_map: tuple[int, ...] | None = None  # hot-expert replication plan
+
+
+def cold_capacity(opts: RuntimeOptions, tokens: torch.Tensor) -> int:
+    """The per-shard cold-exchange capacity ``lm_forward`` gives
+    ``adaptive_embed``: max(8, B * T * cold_frac / model), as the
+    reference computes it."""
+    per_shard = tokens.shape[0] * tokens.shape[1]
+    return max(8, int(per_shard * opts.cold_frac
+                      / axis_size(opts.mesh, "model")))
 
 
 # ------------------------------------------------------- remat (checkpoint)
@@ -127,16 +168,22 @@ class Block(nn.Module):
         setattr(self, "moe" if cfg.moe is not None else "mlp", ffn)
 
     def ffn(self, z: torch.Tensor,
-            slot_map: tuple[int, ...] | None = None) -> torch.Tensor:
+            slot_map: tuple[int, ...] | None = None,
+            opts: RuntimeOptions | None = None) -> torch.Tensor:
         if self.cfg.moe is not None:
+            if opts is not None and opts.sharded_moe:
+                return moesh.moe_ffn_sharded(
+                    self.moe, z, self.cfg, opts.mesh,
+                    slot_map=opts.slot_map or slot_map)
             return moem.moe_ffn(self.moe, z, self.cfg, slot_map)[0]
         return self.mlp(z)
 
     def forward(self, x: torch.Tensor,
-                slot_map: tuple[int, ...] | None = None) -> torch.Tensor:
+                slot_map: tuple[int, ...] | None = None,
+                opts: RuntimeOptions | None = None) -> torch.Tensor:
         eps = self.cfg.norm_eps
         h = x + self.attn(rms_norm(x, self.ln1, eps))
-        return h + self.ffn(rms_norm(h, self.ln2, eps), slot_map)
+        return h + self.ffn(rms_norm(h, self.ln2, eps), slot_map, opts)
 
 
 class SSMBlock(nn.Module):
@@ -149,7 +196,8 @@ class SSMBlock(nn.Module):
         self.ssm = ssm
 
     def forward(self, x: torch.Tensor,
-                slot_map: tuple[int, ...] | None = None) -> torch.Tensor:
+                slot_map: tuple[int, ...] | None = None,
+                opts: RuntimeOptions | None = None) -> torch.Tensor:
         return x + self.ssm(rms_norm(x, self.ln1, self.cfg.norm_eps))
 
 
@@ -261,10 +309,16 @@ def lm_forward(
     cfg: ModelConfig,
     slot_map: tuple[int, ...] | None = None,  # moe hot-expert plan
     inputs_embeds: torch.Tensor | None = None,  # (B, P, D) put first
+    opts: RuntimeOptions | None = None,
 ) -> torch.Tensor:
     """Returns final hidden states (B, P + T, D) after ln_f."""
     check_supported(cfg)
-    x = emb.embed(params.embed, tokens, cfg)
+    if opts is not None and opts.adaptive_embedding and opts.mesh is not None:
+        x, _overflow = emb.adaptive_embed(
+            params.embed, tokens, cfg, opts.hot_ids,
+            cold_capacity(opts, tokens), opts.mesh)
+    else:
+        x = emb.embed(params.embed, tokens, cfg)
     if inputs_embeds is not None:
         x = torch.cat([inputs_embeds.to(x.dtype), x], dim=1)
     if cfg.family == "hybrid":
@@ -274,7 +328,7 @@ def lm_forward(
             x = sub(x)
     else:
         for block in params.blocks:
-            x = _remat(block, cfg)(x, slot_map)
+            x = _remat(block, cfg)(x, slot_map, opts)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -296,10 +350,11 @@ def lm_loss(
     slot_map: tuple[int, ...] | None = None,
     inputs_embeds: torch.Tensor | None = None,
     loss_chunk: int = 128,
+    opts: RuntimeOptions | None = None,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy over unmasked labels, float32; with
     ``inputs_embeds``, over the text positions only."""
-    h = lm_forward(params, tokens, cfg, slot_map, inputs_embeds)
+    h = lm_forward(params, tokens, cfg, slot_map, inputs_embeds, opts)
     if inputs_embeds is not None:
         h = h[:, inputs_embeds.shape[1]:]
     return hidden_loss(params, h, labels, cfg, loss_chunk)
@@ -310,8 +365,7 @@ def hidden_loss(params: LM, h: torch.Tensor, labels: torch.Tensor,
     """``lm_loss`` from the final hidden states (B, T, D) of the labelled
     positions: the LM head and the cross-entropy, in chunks of
     ``loss_chunk`` positions."""
-    w_out = (params.embed.table.t() if cfg.tie_embeddings
-             else params.embed.out).to(h.dtype)
+    w_out = emb.head_weight(params.embed, cfg).to(h.dtype)
     return chunked_nll(h, labels, w_out, cfg, loss_chunk)
 
 
@@ -340,12 +394,15 @@ def _stacked(state: dict, n: int) -> dict:
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  device: str | torch.device = "cuda") -> dict:
+                  device: str | torch.device = "cuda",
+                  opts: RuntimeOptions | None = None) -> dict:
     """Zero decode caches in the reference's structure, stacked over the
     layers (groups): dense, moe and vlm {"kv": {"k", "v"}}, each (n_layers,
-    B, max_len, KV, hd) in the compute dtype; ssm {"ssm": {"conv",
-    "ssm"}}; hybrid {"rec1", "rec2": RG-LRU states, "attn": rings of
-    min(window, max_len) slots, "tail": a list of RG-LRU states}."""
+    B, max_len, KV, hd) in the compute dtype (dense and moe with
+    ``opts.kv_cache_int8``: int8 "k", "v" and float32 "k_scale",
+    "v_scale" (n_layers, B, max_len, KV)); ssm {"ssm": {"conv", "ssm"}};
+    hybrid {"rec1", "rec2": RG-LRU states, "attn": rings of min(window,
+    max_len) slots, "tail": a list of RG-LRU states}."""
     check_supported(cfg)
     if cfg.family == "ssm":
         return {"ssm": _stacked(ssmm.init_ssm_state(cfg, batch, device),
@@ -359,7 +416,9 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                 "attn": _stacked(kv, ng),
                 "tail": [rg.init_rglru_state(cfg, batch, device)
                          for _ in range(rem)]}
-    kv = attn.init_kv_cache(cfg, batch, max_len, device=device)
+    int8 = bool(opts is not None and opts.kv_cache_int8
+                and cfg.family in ("dense", "moe"))
+    kv = attn.init_kv_cache(cfg, batch, max_len, int8=int8, device=device)
     return {"kv": _stacked(kv, cfg.n_layers)}
 
 
@@ -395,6 +454,7 @@ def lm_decode_step(
     pos: int | torch.Tensor,  # position of the current token
     cfg: ModelConfig,
     slot_map: tuple[int, ...] | None = None,
+    opts: RuntimeOptions | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step.  Returns (logits (B, 1, V), cache) with the cache
     updated in place."""
@@ -416,20 +476,22 @@ def lm_decode_step(
         for sub, state in zip(params.tail, cache["tail"]):
             x = _hybrid_sub_decode(sub, x, state, pos, cfg)
     else:
-        x = _dense_decode(params, cache, x, pos, cfg, slot_map)
+        f32c = not (opts is not None and opts.bf16_cache_math)
+        x = _dense_decode(params, cache, x, pos, cfg, slot_map, f32c)
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
     return emb.lm_head(params.embed, x, cfg), cache
 
 
 def _dense_decode(params: LM, cache: dict, x: torch.Tensor,
                   pos: int | torch.Tensor, cfg: ModelConfig,
-                  slot_map: tuple[int, ...] | None) -> torch.Tensor:
-    """The dense, moe and vlm layers' decode step over the KV cache."""
-    ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+                  slot_map: tuple[int, ...] | None,
+                  f32_cache_math: bool = True) -> torch.Tensor:
+    """The dense, moe and vlm layers' decode step over the KV cache (an
+    int8 cache carries its scales)."""
     for i, block in enumerate(params.blocks):
         z = rms_norm(x, block.ln1, cfg.norm_eps)
-        y, _ = attn.decode_attention(block.attn, z, {"k": ck[i], "v": cv[i]},
-                                     pos, cfg)
+        y, _ = attn.decode_attention(block.attn, z, _layer(cache["kv"], i),
+                                     pos, cfg, f32_cache_math=f32_cache_math)
         x = x + y
         z2 = rms_norm(x, block.ln2, cfg.norm_eps)
         x = x + block.ffn(z2, slot_map)  # moe: moe_ffn on (B, 1, D)

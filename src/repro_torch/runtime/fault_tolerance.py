@@ -34,8 +34,8 @@ story, mapped onto this framework:
                  bit-identical throughout.  See repro_torch.core.health.
   LM training    atomic checkpoints of the LM and its optimizer state
                  (repro_torch.checkpoint, the reference's leaf names) on
-                 one device; the multi-pod loop needs the mesh (ROADMAP.md
-                 §1 item 12d), and the policy below is the step-boundary
+                 one device; the multi-pod loop needs data-parallel
+                 training (ROADMAP.md §1 item 12d.2), and the policy below is the step-boundary
                  logic it will use.
 
 Straggler mitigation (``StragglerPolicy``) lives at the step boundary:
