@@ -267,6 +267,23 @@ Phases:
             state), B=1, T=4096: one warm-up and two timed steps, 8
             forward / 4 backward flash launches a step, finite loss and
             grad_norm, tokens/s, peak memory, one profiled step
+  6c train-mesh  moe-train's model through the train CLI's path on a
+            world-size-1 NCCL mesh (``make_local_mesh``, ``place``,
+            ``make_train_step(..., mesh)``): the first step's loss and
+            updated parameters bit-identical to the unmeshed step's from
+            the same weights and batch, a warm-up and two timed steps
+            (tokens/s beside moe-train's, 8 / 4 flash launches a step,
+            peak memory), then a checkpoint saved and restored through the
+            mesh into fresh state, bit for bit (the config at 0 layers --
+            its embedding, LM head and final norm -- after one mesh step:
+            the four layers' 34.85 GB take ~150 s)
+    train-mesh2  two gloo ranks on the card, mesh (1, 2): qwen2-moe-a2.7b
+            at 2 layers, full width, float32, B=2, T=512, its attention,
+            FFN and expert leaves cut over ``model``; one step's loss and
+            every gradient (gathered whole) against the card's
+            world-size-1 step: 1e-5 relative, 1e-5 of each leaf's largest
+            (``bk``, zero in exact arithmetic, of the largest gradient's);
+            each rank's parameter bytes against the whole model's
   6b ssm    mamba2-130m at full size, bf16 weights from seed 0: prefill
             (``model.loss``, B=4, T=4096) cold and 3x warm, no attention;
             decode (``serve_loop``: batch 8, 16 steps, 4 batches); profiled
@@ -328,12 +345,23 @@ Phases:
             (``mincut_lite`` must take 5x hash on subject), its edge cut,
             and ``AdHashEngine`` bootstrap on the card (its answers to the
             60 queries equal to phase 2's)
+The CPU side of ``moe-parity`` and ``hybrid-parity`` (the CPU port's
+forwards and first train step's gradients, ``SIDE_JOBS``) runs in a side
+process spawned at the top of the run with half of the host's threads,
+beside the card phases; it makes the same seed-0 weights on the card and
+moves them to the CPU before phase 1 starts (phase 1 waits for it).
+``card_vs_cpu_steps`` holds the CPU's tensors against the card's on the
+card.  The ``walls`` line names what moved, the side process's seconds
+for each job, how long the card phases waited, and the host's memory
+after each phase; a thread stops the run (exit 3, a ``memory-watch``
+line) before the host's available memory falls below 6 GiB.
 Each path's kernels must launch on that path's run (the DSJ kernels on
 LUBM, on the directory engines and on the mesh; on a served stream probe and
 ``expand`` always, all four once a staged answer was served;
 flash_attention on the LM, the moe, the hybrid (windowed, hd 256), the vlm
-and the audio prefills and the audio decode; its backward on the train
-steps, dense, moe, hybrid (windowed, hd 256) and audio).  Each phase
+and the audio prefills, the audio decode and the mesh train steps; its
+backward on the train steps, dense, moe, the mesh's, hybrid (windowed, hd
+256) and audio).  Each phase
 prints its wall seconds.  The line before the last holds every kernel's
 numbers; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -345,6 +373,7 @@ import json
 import math
 import subprocess
 import sys
+import textwrap
 import time
 import warnings
 from collections import Counter
@@ -955,6 +984,9 @@ def phase_flash(torch) -> dict:
          True),
         ("prefill_32k row T=S=32768 f32", 1, 32768, 32, 8, 128,
          torch.float32, True),
+        # train-mesh2's local heads: qwen2-moe's 16 over model = 2
+        ("train-mesh2 rank's layer B=2 T=S=512 H=KV=8 f32 causal", 2, 512,
+         8, 8, 128, torch.float32, True),
     ]
     for variant, b, t, h, kv, hd, dt, causal in shapes:
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
@@ -1264,6 +1296,9 @@ FLASH_BWD_SHAPES = [
      "bfloat16", True, 3072, 2048),
     ("odd T=S=1001 window 300", 1, 1001, 1001, 10, 1, 256, "bfloat16", True,
      0, 300),
+    # train-mesh2's local heads: qwen2-moe's 16 over model = 2
+    ("train-mesh2 rank's layer B=2 T=S=512 H=KV=8 f32 causal", 2, 512, 512,
+     8, 8, 128, "float32", True, 0),
 ]
 
 
@@ -3350,20 +3385,75 @@ STEP_TOL = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "grad_norm_rel": 1e-5,
             "param_abs": 1e-5, "m_over_sqrt_v_eps": 1e-5, "v_rel": 1e-5}
 
 
-def card_vs_cpu_steps(torch, cfg2, n_steps: int, seq: int, models=None):
+def step_grads(model, p, batch) -> tuple[float, dict]:
+    """(loss, {parameter name: gradient}) of one batch, the parameters'
+    ``.grad`` left empty."""
+    for x in p.parameters():
+        x.grad = None
+    loss = model.loss(p, batch)
+    loss.backward()
+    grads = {n: x.grad for n, x in p.named_parameters()}
+    for x in p.parameters():
+        x.grad = None
+    return float(loss.detach()), grads
+
+
+def cpu_first_step(torch, cfg2, model, p, seq: int) -> dict:
+    """The CPU port's part of ``card_vs_cpu_steps``' first step: the loss,
+    the gradients and their global norm at ``p`` on ``make_batch(cfg2, 1,
+    seq, 0)``."""
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.optim.adamw import global_norm
+
+    loss, grads = step_grads(model, p, make_batch(cfg2, 1, seq, 0,
+                                                  device="cpu"))
+    return {"loss": loss, "grads": grads,
+            "norm": float(global_norm(grads.values()))}
+
+
+def optimizer_errors(torch, params_a, opt_a, params_b, opt_b, dev: str
+                     ) -> dict:
+    """One device's parameters and ``OptState`` (a) against the other's
+    (b), a leaf at a time on ``dev``: the parameters' largest absolute
+    difference; v (a sum of squares) relative to b's each element, floored
+    at 1e-30; m in units of the step it drives, |dm| / (sqrt(v) + eps)
+    (an element of m that cancels to near 0 has no relative precision to
+    hold)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from torch.utils._pytree import tree_leaves
+
+    on = lambda t: t.detach().to(dev)
+    eps = AdamWConfig().eps
+    err = {"param": 0.0, "m": 0.0, "v": 0.0}
+    for a, b in zip(params_a, params_b):
+        err["param"] = max(err["param"], float((on(a) - on(b)).abs().max()))
+    for ma, mb, va, vb in zip(tree_leaves(opt_a.m), tree_leaves(opt_b.m),
+                              tree_leaves(opt_a.v), tree_leaves(opt_b.v)):
+        vb = on(vb)
+        err["m"] = max(err["m"], float(
+            ((on(ma) - on(mb)).abs() / (vb.sqrt() + eps)).max()))
+        err["v"] = max(err["v"], float(
+            ((on(va) - vb).abs() / vb.abs().clamp_min(1e-30)).max()))
+    return err
+
+
+def card_vs_cpu_steps(torch, cfg2, n_steps: int, seq: int, models=None,
+                      first: dict | None = None):
     """``n_steps`` train steps (B=1, T=``seq``) of the float32 config
     ``cfg2`` on the card and on the CPU port, the parts of a step apart,
     from ``models`` (a list of the card's and the CPU's model and their
     parameters, equal weights, which it empties) or, by default, from both
     built at seed 0.
-    Each step: the loss and gradients of each device at its own weights;
-    then ``adamw_update`` on the card from its gradients and on the CPU from
-    the same gradients copied to the host, so the optimizers' results are
-    held element by element on equal inputs (the CPU port's weights stay
-    the CPU optimizer's).  The first step's gradients are also compressed
-    on each device.  Returns the line's fields (``ok`` among them, and the
-    host seconds of each part) and the card's model, parameters and
-    optimizer state."""
+    Each step: the loss and gradients of each device at its own weights
+    (the CPU's first step given as ``first``, ``cpu_first_step``'s result,
+    where the side process computed it); then ``adamw_update`` on the card
+    from its gradients and on the CPU from the same gradients copied to
+    the host, so the optimizers' results are held element by element on
+    equal inputs (the CPU port's weights stay the CPU optimizer's).  The
+    first step's gradients are also compressed on each device.  The CPU's
+    tensors are held against the card's on the card, a leaf at a time.
+    Returns the line's fields (``ok`` among them, and the host seconds of
+    each part) and the card's model, parameters and optimizer state."""
     import copy
 
     from repro_torch.data.tokens import make_batch
@@ -3392,39 +3482,36 @@ def card_vs_cpu_steps(torch, cfg2, n_steps: int, seq: int, models=None):
         secs[part] += now - t0
         return now
 
-    def loss_and_grads(model, p, batch) -> tuple[float, dict]:
-        for x in p.parameters():
-            x.grad = None
-        loss = model.loss(p, batch)
-        loss.backward()
-        grads = {n: x.grad for n, x in p.named_parameters()}
-        for x in p.parameters():
-            x.grad = None
-        return float(loss.detach()), grads
-
+    card = lambda t: t.to("cuda", non_blocking=False)
     grad_rel: dict[str, float] = {}
     compress_equal = False
     train_rows = []
     for i in range(n_steps):
         bg = make_batch(cfg2, 1, seq, i, device="cuda")
         bc = {k: v.cpu() for k, v in bg.items()}
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, gg = loss_and_grads(gpu, pg, bg)
+        lg, gg = step_grads(gpu, pg, bg)
         t0 = timed("grads_card", t0)
-        lc, gc_ = loss_and_grads(cpu, pc, bc)
+        if i == 0 and first is not None:
+            lc, gc_, cpu_norm = first["loss"], first.pop("grads"), \
+                first["norm"]
+        else:
+            lc, gc_ = step_grads(cpu, pc, bc)
+            cpu_norm = float(global_norm(gc_.values()))
         t0 = timed("grads_cpu", t0)
-        host = {n: g.cpu() for n, g in gg.items()}
         for n, g in gc_.items():
+            gd = card(g)
             grad_rel[n] = max(grad_rel.get(n, 0.0), float(
-                (host[n] - g).norm() / g.norm().clamp_min(1e-30)))
-        cpu_norm = float(global_norm(gc_.values()))
-        del gc_
+                (gg[n] - gd).norm() / gd.norm().clamp_min(1e-30)))
+        del gc_, gd
+        host = {n: g.cpu() for n, g in gg.items()}
         t0 = timed("compare", t0)
         if i == 0:  # the same gradients compressed on each device
             qg, sg, _ = compress_tree(gg, ef_init(gg))
             qc, sc, _ = compress_tree(host, ef_init(host))
-            compress_equal = all(torch.equal(qg[n].cpu(), qc[n]) and
-                                 torch.equal(sg[n].cpu(), sc[n])
+            compress_equal = all(torch.equal(qg[n], card(qc[n])) and
+                                 torch.equal(sg[n], card(sc[n]))
                                  for n in qc)
             del qg, sg, qc, sc
             t0 = timed("compress", t0)
@@ -3437,20 +3524,9 @@ def card_vs_cpu_steps(torch, cfg2, n_steps: int, seq: int, models=None):
                            "grad_norm_same_grads": [float(mg["grad_norm"]),
                                                     float(mc["grad_norm"])]})
     t0 = time.perf_counter()
-    param_err = 0.0
-    for a, b in zip(pg.parameters(), pc.parameters()):
-        param_err = max(param_err,
-                        float((a.detach().cpu() - b.detach()).abs().max()))
-    # v (a sum of squares) relative to each element, floored at 1e-30; m
-    # in units of the step it drives, |dm| / (sqrt(v) + eps): an element
-    # of m that cancels to near 0 has no relative precision to hold
-    moment_err = {"m": 0.0, "v": 0.0}
-    for mg_, mc_, vg_, vc_ in zip(tree_leaves(og.m), tree_leaves(oc.m),
-                                  tree_leaves(og.v), tree_leaves(oc.v)):
-        moment_err["m"] = max(moment_err["m"], float(
-            ((mg_.cpu() - mc_).abs() / (vc_.sqrt() + opt_cfg.eps)).max()))
-        moment_err["v"] = max(moment_err["v"], float(
-            ((vg_.cpu() - vc_).abs() / vc_.abs().clamp_min(1e-30)).max()))
+    moment_err = optimizer_errors(torch, pg.parameters(), og,
+                                  pc.parameters(), oc, "cuda")
+    param_err = moment_err["param"]
     steps_equal = int(og.step) == int(oc.step) == n_steps
     n_elems = sum(x.numel() for x in pc.parameters())
     del pc, oc, cpu
@@ -3476,6 +3552,217 @@ def card_vs_cpu_steps(torch, cfg2, n_steps: int, seq: int, models=None):
              "compress_q_and_scales_equal": compress_equal,
              "host_s": secs, "ok": ok},
             gpu, pg, og)
+
+
+# ------------------------------------------------------------ side process
+#: the CPU work of the parity phases that runs in the side process, beside
+#: the card phases (what moved, for the walls line)
+SIDE_JOBS = {
+    "moe-parity": "the CPU port's forward, loss, layer-0 moe_ffn, "
+                  "plan forward (lm-mesh-parity) and first train step's "
+                  "gradients",
+    "hybrid-parity": "the CPU port's forward, loss and first train "
+                     "step's gradients",
+}
+
+
+def side_models(torch, cfg2):
+    """The CPU model of ``cfg2`` and the card's seed-0 weights (made on
+    the card, as the parity phases make theirs) moved to the CPU; the
+    card's memory is freed."""
+    from repro_torch.models.model_zoo import build_model
+
+    p = build_model(cfg2, device="cuda").init(0).to("cpu")
+    torch.cuda.empty_cache()
+    return build_model(cfg2, device="cpu"), p
+
+
+def side_main(out: str, threads: int) -> None:
+    """The side process: the card's seed-0 weights of each job's config
+    first (its only card work, then the ``card-done`` marker), then each
+    of ``SIDE_JOBS``' CPU parts, written to ``out/<job>.pt`` (atomically,
+    with its seconds) as it is done."""
+    import os
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+
+    os.nice(10)  # the card phases' host threads come first
+    torch.set_num_threads(threads)
+    cfg2, text_len, train_len = hybrid_parity_cfg()
+    moe = side_models(torch, moe_parity_cfg())
+    hybrid = side_models(torch, cfg2)
+    Path(f"{out}/card-done").touch()
+    jobs = {"moe-parity": lambda: side_moe(torch, *moe),
+            "hybrid-parity": lambda: side_family(torch, cfg2, *hybrid,
+                                                 text_len, train_len)}
+    for job, run in jobs.items():
+        t0 = time.perf_counter()
+        res = run()
+        res["side_s"] = time.perf_counter() - t0
+        torch.save(res, f"{out}/{job}.tmp")
+        os.replace(f"{out}/{job}.tmp", f"{out}/{job}.pt")
+        del res
+        if job == "moe-parity":
+            del moe
+        else:
+            del hybrid
+
+
+#: the least memory the host may keep available (GiB) before the run stops
+#: itself rather than exhaust it
+MIN_AVAILABLE_GIB = 6.0
+
+
+def host_memory() -> dict:
+    """This process's resident and peak resident GiB and the host's
+    available GiB (``/proc``; a field the kernel does not give is None)."""
+    kib = {}
+    for path in ("/proc/self/status", "/proc/meminfo"):
+        try:
+            with open(path) as f:
+                lines = f.read().splitlines()
+        except OSError:  # not every kernel exposes it
+            continue
+        for line in lines:
+            name, _, rest = line.partition(":")
+            if name in ("VmRSS", "VmHWM", "MemAvailable", "MemFree"):
+                kib[name] = int(rest.split()[0])
+    gib = lambda name: kib[name] / 2**20 if name in kib else None
+    return {"rss_gib": gib("VmRSS"), "peak_rss_gib": gib("VmHWM"),
+            "available_gib": gib("MemAvailable") or gib("MemFree")}
+
+
+def tmp_dir_info() -> dict:
+    """The temporary directory the run writes its files to (the side
+    process's results, the checkpoints): its file system and free GiB."""
+    import os
+    import tempfile
+
+    tmp = os.path.realpath(tempfile.gettempdir())
+    fs, best = None, ""
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mount, kind = line.split()[:3]
+            if tmp.startswith(mount) and len(mount) > len(best):
+                fs, best = kind, mount
+    st = os.statvfs(tmp)
+    return {"dir": tmp, "fs": fs, "free_gib": st.f_bavail * st.f_frsize
+            / 2**30}
+
+
+class MemoryWatch:
+    """A thread that reads the host's available memory every half second,
+    keeps its least, and stops the run (its children too) with a line of
+    its own before the host runs out of it."""
+
+    def __init__(self):
+        import threading
+
+        self.least = float("inf")
+        self.children: list = []  # processes to stop with the run
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def _watch(self) -> None:
+        import os
+
+        while True:
+            avail = host_memory()["available_gib"]
+            if avail is None:  # nothing to watch
+                return
+            self.least = min(self.least, avail)
+            if avail < MIN_AVAILABLE_GIB:
+                print(json.dumps({"phase": "memory-watch", "stopped": True,
+                                  **host_memory()}), flush=True)
+                print(f"chip_smoke: the host has {avail:.1f} GiB left; "
+                      "stopping", file=sys.stderr, flush=True)
+                for proc in self.children:
+                    proc.kill()
+                os._exit(3)
+            time.sleep(0.5)
+
+
+def lap(side: "SideProcess", walls: dict, name: str, t0: float) -> None:
+    """At the end of a phase: its seconds since ``t0`` into ``walls`` and
+    the host's memory into ``walls["host_memory_gib"]``; this process takes
+    its threads back once the side process has ended."""
+    side.poll()
+    walls[name] = time.perf_counter() - t0
+    mem = host_memory()
+    walls.setdefault("host_memory_gib", {})[name] = [
+        mem["rss_gib"], mem["available_gib"]]
+
+
+class SideProcess:
+    """The side process, spawned at the top of the run with half of the
+    host's threads (at a lower priority), while this process keeps the
+    other half until it ends (``poll``); ``result(job)`` waits for a job's
+    results (raising if the process died without them) and loads them."""
+
+    def __init__(self):
+        import multiprocessing
+        import os
+        import tempfile
+
+        import torch
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_side_")
+        self.threads = max(1, (os.cpu_count() or 2) // 2)
+        self.main_threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, self.main_threads - self.threads))
+        self.seconds: dict[str, float] = {}
+        self.waited = 0.0  # seconds the card phases waited for results
+        self.waited_card = 0.0  # ... for the side's card work to end
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=side_main, args=(self.dir, self.threads), daemon=True)
+        self.proc.start()
+
+    def poll(self) -> None:
+        """This process takes all its threads back once the side process
+        has ended."""
+        import torch
+
+        if self.main_threads and not self.proc.is_alive():
+            torch.set_num_threads(self.main_threads)
+            self.main_threads = 0
+
+    def wait_card(self) -> None:
+        """Wait until the side process has ended its work on the card (its
+        models' weights), so the card phases time their kernels alone."""
+        t0 = time.perf_counter()
+        while not (Path(self.dir) / "card-done").exists():
+            if not self.proc.is_alive():
+                raise RuntimeError(f"side process ended (exit code "
+                                   f"{self.proc.exitcode}) before its "
+                                   "card work")
+            time.sleep(0.2)
+        self.waited_card = time.perf_counter() - t0
+
+    def result(self, job: str) -> dict:
+        import torch
+
+        path = Path(self.dir) / f"{job}.pt"
+        t0 = time.perf_counter()
+        while not path.exists():
+            if not self.proc.is_alive() and not path.exists():
+                raise RuntimeError(f"side process ended (exit code "
+                                   f"{self.proc.exitcode}) without {job}")
+            time.sleep(0.5)
+        res = torch.load(path, weights_only=False)
+        path.unlink()
+        self.seconds[job] = res.pop("side_s")
+        self.waited += time.perf_counter() - t0
+        self.poll()
+        return res
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(30)
+        self.poll()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 # ------------------------------------------------------------ phase 5
@@ -3944,46 +4231,85 @@ def near_tie_clear(card: list, host: list, k: int) -> tuple[np.ndarray, list]:
     return ~reached, first
 
 
-def phase_moe_parity(torch) -> None:
+def moe_parity_cfg():
+    """moe-parity's config: qwen2-moe-a2.7b, 2 layers at full width,
+    float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=2,
+                               dtype="float32")
+
+
+def side_moe(torch, cpu, pc) -> dict:
+    """moe-parity's CPU side (the side process), at the card's seed-0
+    weights ``pc`` (``side_models``): the CPU port's hidden states, loss
+    and layer 0's ``moe_ffn`` on its own layer-0 input with their routers'
+    gates, the plain forward under the hot-expert plan of its layer-0
+    loads (lm-mesh-parity's), and the first train step's loss and
+    gradients."""
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.moe import slot_map_for_plan
+
+    cfg2 = moe_parity_cfg()
+    bc = make_batch(cfg2, 1, 256, 0, device="cpu")
+    bsz = int(bc["tokens"].shape[0])
+    out: dict = {}
+    with torch.inference_mode():
+        with route_spy(torch, bsz) as host:
+            out["h_host"] = TT.lm_forward(pc, bc["tokens"], cfg2)
+        out["loss_host"] = float(cpu.loss(pc, bc))
+        # layer 0's input on the CPU, given to both
+        x0 = host[0][0].reshape(bsz, -1, cfg2.d_model)
+        with route_spy(torch, bsz) as ffn_host:
+            out["out_h"], out["d_h"] = TM.moe_ffn(pc.blocks[0].moe, x0, cfg2)
+        hot = tuple(int(e) for e in torch.argsort(
+            out["d_h"]["route_counts"], descending=True,
+            stable=True)[:MOE_HOT])
+        with route_spy(torch, bsz) as host2:
+            out["h_mesh_host"] = TT.lm_forward(
+                pc, bc["tokens"], cfg2,
+                slot_map=slot_map_for_plan(cfg2.moe.n_experts, hot))
+    out.update(host=host, ffn_host=ffn_host, x0=x0, hot=hot,
+               mesh_host=host2,
+               first=cpu_first_step(torch, cfg2, cpu, pc, 256))
+    return out
+
+
+def phase_moe_parity(torch, side: "SideProcess") -> None:
     """qwen2-moe-a2.7b with 2 layers at full width in float32 (B=1,
     T=256), the card against the CPU port: hidden states, loss and layer
     0's ``moe_ffn`` on the same input (diagnostics bit-exact where both
     devices route every token alike; a token routed differently must be a
     near-tie and is left out with the tokens it reached), then one train
-    step's gradients and parameters (phase 5's limits)."""
+    step's gradients and parameters (phase 5's limits).  The CPU port's
+    side comes from the side process (``side_moe``)."""
     import copy
-    import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.data.tokens import make_batch
     from repro_torch.models import moe as TM
     from repro_torch.models import transformer as TT
     from repro_torch.models.model_zoo import build_model
 
     t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(get_config(MOE_ARCH), n_layers=2,
-                               dtype="float32")
+    cfg2 = moe_parity_cfg()
     k = cfg2.moe.top_k
-    gpu, cpu = build_model(cfg2, device="cuda"), build_model(cfg2,
-                                                             device="cpu")
+    gpu = build_model(cfg2, device="cuda")
     pg = gpu.init(0)
-    pc = copy.deepcopy(pg).to("cpu")
     bg = make_batch(cfg2, 1, 256, 0, device="cuda")
-    bc = {name: v.cpu() for name, v in bg.items()}
     bsz = int(bg["tokens"].shape[0])
+    cs = side.result("moe-parity")
+    host, ffn_host, h_host = cs["host"], cs["ffn_host"], cs["h_host"]
+    out_h, d_h, loss_host = cs["out_h"], cs["d_h"], cs["loss_host"]
     with torch.inference_mode():
         with route_spy(torch, bsz) as card:
             h_card = TT.lm_forward(pg, bg["tokens"], cfg2).cpu()
-        with route_spy(torch, bsz) as host:
-            h_host = TT.lm_forward(pc, bc["tokens"], cfg2)
         loss_card = float(gpu.loss(pg, bg))
-        loss_host = float(cpu.loss(pc, bc))
-        # layer 0's input on the CPU, given to both
-        x0 = host[0][0].reshape(bsz, -1, cfg2.d_model)
         with route_spy(torch, bsz) as ffn_card:
-            out_c, d_c = TM.moe_ffn(pg.blocks[0].moe, x0.cuda(), cfg2)
-        with route_spy(torch, bsz) as ffn_host:
-            out_h, d_h = TM.moe_ffn(pc.blocks[0].moe, x0, cfg2)
+            out_c, d_c = TM.moe_ffn(pg.blocks[0].moe, cs["x0"].cuda(), cfg2)
     tol = 1e-4  # TOL float32: products summed in another order
     keep, reroutes = near_tie_clear(card, host, k)
     hidden_err = float((h_card[keep] - h_host[keep]).abs().max())
@@ -4000,18 +4326,19 @@ def phase_moe_parity(torch) -> None:
     del card, host, ffn_card, ffn_host, out_c, out_h, h_card, h_host
     forward_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    hot = tuple(int(e) for e in torch.argsort(
-        d_h["route_counts"], descending=True, stable=True)[:MOE_HOT])
-    phase_lm_mesh_parity(torch, cfg2, pg, pc, bg, bc, hot)
+    phase_lm_mesh_parity(torch, cfg2, pg, bg, cs["hot"], cs["mesh_host"],
+                         cs["h_mesh_host"])
     mesh_parity_s = time.perf_counter() - t1
 
-    # the train step starts from the same two models (inference mode left
-    # their weights as they were)
+    # the train step starts from the card's weights (inference mode left
+    # them as they were); the CPU's optimizer steps a copy of them
     t0 = time.perf_counter()
-    models = [gpu, cpu, pg, pc]
-    del gpu, cpu, pg, pc
-    row, gpu, pg, og = card_vs_cpu_steps(torch, cfg2, 1, 256, models)
-    del models, gpu, pg, og
+    models = [gpu, build_model(cfg2, device="cpu"), pg,
+              copy.deepcopy(pg).to("cpu")]
+    del gpu, pg
+    row, gpu, pg, og = card_vs_cpu_steps(torch, cfg2, 1, 256, models,
+                                         first=cs["first"])
+    del models, gpu, pg, og, cs
     gc.collect()
     torch.cuda.empty_cache()
     ok = (hidden_ok and keep.any() and ffn_ok and
@@ -4030,19 +4357,22 @@ def phase_moe_parity(torch) -> None:
                              "load": load_stats(d_h)},
           "train_step": row, "forward_s": forward_s,
           "lm_mesh_parity_s": mesh_parity_s,
-          "train_step_s": time.perf_counter() - t0, "ok": ok})
+          "train_step_s": time.perf_counter() - t0,
+          "cpu_side_s": side.seconds["moe-parity"], "ok": ok})
     if not ok:
         raise AssertionError("moe-parity: the card's moe model disagrees "
                              "with the CPU port's (see the line above)")
 
 
-def phase_lm_mesh_parity(torch, cfg2, pg, pc, bg, bc, hot) -> None:
+def phase_lm_mesh_parity(torch, cfg2, pg, bg, hot, host, h_host) -> None:
     """moe-parity's 2-layer float32 models: the card's ``lm_forward``
     under all options (``make_local_mesh()``, world-size-1 NCCL: the
     adaptive embedding with the controller's plan of the batch, the
     sharded moe with ``hot`` replicated) against the CPU port's plain
     forward with the same plan -- the function the options compute --
-    within 1e-4, on the tokens no near-tie rerouting reached."""
+    within 1e-4, on the tokens no near-tie rerouting reached (the CPU's
+    hidden states ``h_host`` and router records ``host`` from the side
+    process)."""
     from repro_torch.launch import multihost
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import transformer as TT
@@ -4050,14 +4380,12 @@ def phase_lm_mesh_parity(torch, cfg2, pg, pc, bg, bc, hot) -> None:
 
     slot_map = slot_map_for_plan(cfg2.moe.n_experts, hot)
     mesh = make_local_mesh("cuda")
-    opts, plan = mesh_options(torch, cfg2, bc["tokens"].numpy(), slot_map,
-                              mesh)
+    opts, plan = mesh_options(torch, cfg2, bg["tokens"].cpu().numpy(),
+                              slot_map, mesh)
     bsz = int(bg["tokens"].shape[0])
     with torch.inference_mode():
         with route_spy(torch, bsz) as card:
             h_card = TT.lm_forward(pg, bg["tokens"], cfg2, opts=opts).cpu()
-        with route_spy(torch, bsz) as host:
-            h_host = TT.lm_forward(pc, bc["tokens"], cfg2, slot_map=slot_map)
     multihost.shutdown()
     tol = 1e-4  # TOL float32: products summed in another order
     keep, reroutes = near_tie_clear(card, host, cfg2.moe.top_k)
@@ -4165,7 +4493,276 @@ def phase_moe_train(torch) -> dict[str, int]:
     del params, opt, model, batches, step_fn, met
     gc.collect()
     torch.cuda.empty_cache()
+    return {**launches, "tokens_per_s": tokens / step_s}
+
+
+# ------------------------------------------------------------ phase 6c
+#: the layers of train-mesh's checkpoint round trip, at the config's
+#: width: 0 keeps the embedding table, the LM head and the final norm
+#: (7.47 GB with their moments); a layer adds 6.84 GB, ~30 s of reads and
+#: writes where the temporary directory is a 9p file system (~0.9 GB/s
+#: written, ~0.45 GB/s read back, on an H100 host)
+MESH_CKPT_LAYERS = 0
+
+
+def phase_train_mesh(torch, moe_tokens_per_s: float) -> dict[str, int]:
+    """moe-train's model (qwen2-moe-a2.7b, MOE_TRAIN_LAYERS layers at full
+    width, B=1 T=4096) through the train CLI's path on a world-size-1 NCCL
+    mesh: ``make_local_mesh``, ``place``, ``make_train_step(..., mesh)``,
+    three steps, then a checkpoint saved and restored through the mesh
+    (``restore_latest(..., mesh=)``) into fresh state, of the same config
+    at MESH_CKPT_LAYERS layers after one mesh step.  The first step's
+    loss and updated parameters must be bit-identical to the unmeshed
+    step's from the same weights and batch (held on the card), and the
+    restored leaves to the saved ones.  Returns the flash launches of the
+    three mesh steps."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shardings import param_specs, place
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from torch.utils._pytree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg, device="cuda")
+    batches = [make_batch(cfg, *TRAIN, i, device="cuda") for i in range(3)]
+    walls: dict[str, float] = {}
+    t0 = time.perf_counter()
+    params = model.init(0)
+    opt = adamw_init(params)
+    params, opt, met = make_train_step(model, AdamWConfig())(
+        params, opt, batches[0])
+    plain_loss = met["loss"]
+    # the unmeshed step's parameters stay on the card (11.62 GB) for the
+    # comparison
+    plain = dict(params.named_parameters())
+    plain_bytes = sum(p.numel() * p.element_size() for p in plain.values())
+    del params, opt, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["unmeshed_step_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh("cuda")
+    try:
+        params = model.init(0)
+        pspecs = param_specs(params, mesh)
+        params = place(params, mesh, pspecs)
+        opt = adamw_init(params)
+        step_fn = make_train_step(model, AdamWConfig(), mesh)
+        # the main path: counts set to 0 just before, read just after
+        reset_launches()
+        steps = []
+        for i in range(3):  # one warm-up step, two timed
+            fwd = LAUNCHES["flash_attention"]
+            bwd = LAUNCHES["flash_attention_bwd"]
+            a = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batches[i])
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            steps.append({"step": i, "s": time.perf_counter() - a,
+                          "loss": loss, "grad_norm": gnorm,
+                          "flash_fwd": LAUNCHES["flash_attention"] - fwd,
+                          "flash_bwd": LAUNCHES["flash_attention_bwd"] - bwd})
+            if i == 0:
+                loss_equal = torch.equal(met["loss"], plain_loss)
+                params_equal = all(torch.equal(p.detach(), plain[n].detach())
+                                   for n, p in params.named_parameters())
+                del plain
+            if steps[-1]["flash_fwd"] != 2 * cfg.n_layers or \
+                    steps[-1]["flash_bwd"] != cfg.n_layers:
+                raise AssertionError(f"train-mesh step {i}: flash launches "
+                                     f"{steps[-1]}")
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        walls["mesh_steps_s"] = time.perf_counter() - t0
+        step_s = float(np.mean([r["s"] for r in steps[1:]]))
+
+        # the checkpoint round trip through the mesh, into fresh state, on
+        # the same config at MESH_CKPT_LAYERS layers: the four layers' state
+        # (34.85 GB) takes ~150 s to write and read back
+        t0 = time.perf_counter()
+        del params, opt, met
+        gc.collect()
+        torch.cuda.empty_cache()
+        ck_cfg = dataclasses.replace(cfg, n_layers=MESH_CKPT_LAYERS)
+        ck_model = build_model(ck_cfg, device="cuda")
+        params = ck_model.init(0)
+        pspecs = param_specs(params, mesh)
+        params = place(params, mesh, pspecs)
+        opt = adamw_init(params)
+        params, opt, _ = make_train_step(ck_model, AdamWConfig(), mesh)(
+            params, opt, batches[0])
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            mgr.save(params, opt, 1)
+            ckpt_bytes = dir_bytes(Path(tmp))
+            fresh = ck_model.init(5)
+            fresh_opt = adamw_init(fresh)
+            fresh, fresh_opt, step = mgr.restore_latest(
+                fresh, fresh_opt, mesh=mesh, specs=pspecs)
+        ckpt_equal = (step == 1 and int(fresh_opt.step) == int(opt.step)
+                      and fresh.placement is not None and all(
+                          torch.equal(a.detach(), b.detach()) for a, b in
+                          zip(params.parameters(), fresh.parameters())))
+        for name in ("m", "v"):
+            ckpt_equal = ckpt_equal and all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(getattr(opt, name)),
+                    tree_leaves(getattr(fresh_opt, name))))
+        walls["checkpoint_s"] = time.perf_counter() - t0
+        del fresh, fresh_opt
+    finally:
+        multihost.shutdown()
+    tokens = TRAIN[0] * TRAIN[1]
+    ok = loss_equal and params_equal and ckpt_equal
+    emit({"phase": "train-mesh", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "mesh": list(mesh.shape), "backend": "nccl",
+          "batch": TRAIN[0], "seq": TRAIN[1], "steps": steps,
+          "step_s": step_s, "tokens_per_s": tokens / step_s,
+          "moe_train_tokens_per_s": moe_tokens_per_s,
+          "flash_launches_per_step": {"forward": 2 * cfg.n_layers,
+                                      "backward": cfg.n_layers},
+          "max_memory_allocated": peak,
+          "of_it_the_unmeshed_parameters_held": plain_bytes,
+          "first_step_loss_bit_identical": loss_equal,
+          "first_step_params_bit_identical": params_equal,
+          "checkpoint_layers": MESH_CKPT_LAYERS,
+          "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_round_trip_bit_exact": ckpt_equal,
+          "launches": launches, "walls": walls, "ok": ok})
+    del params, opt, model, ck_model, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("train-mesh: the mesh step or its checkpoint "
+                             "is not bit-identical (see the line above)")
     return launches
+
+
+#: train-mesh2's batch and length: the expert stacks, QKV and FFN cut over
+#: two ranks' model axis
+MESH_TRAIN = (2, 512)
+
+TRAIN_MESH2_CHILD = textwrap.dedent(
+    r'''
+    import dataclasses
+    import json
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.mesh import local_mesh_shape, make_local_mesh
+    from repro_torch.launch.shardings import (Stats, gather_whole,
+                                              param_specs, place)
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.collectives import trace_collectives
+    from repro_torch.models.model_zoo import build_model
+
+    b, t = int(sys.argv[1]), int(sys.argv[2])
+    rank = dist.get_rank()
+    mesh = make_local_mesh("cuda")
+    assert tuple(mesh.shape) == local_mesh_shape(2) == (1, 2)
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=2,
+                              dtype="float32")
+    model = build_model(cfg, device="cuda")
+    whole_bytes = Stats.bytes_of(model.param_specs())  # fake: no storage
+    params = model.init(0)
+    params = place(params, mesh, param_specs(params, mesh))
+    batch = make_batch(cfg, b, t, 0, device="cuda")
+    reset_launches()
+    with trace_collectives() as events:
+        loss, grads = loss_and_grads(model, params, batch, mesh)
+    launches = dict(LAUNCHES)
+    grads = gather_whole(grads, params.placement)
+    out = {"rank": rank, "param_bytes": Stats.bytes_of(params),
+           "whole_param_bytes": whole_bytes, "loss": float(loss),
+           "cut": len(params.placement.cut),
+           "collectives_a_step": collective_bytes(events),
+           "flash": {"forward": launches["flash_attention"],
+                     "backward": launches["flash_attention_bwd"]}}
+    if rank == 0:  # the card's world-size-1 step on the same weights
+        del params
+        torch.cuda.empty_cache()
+        one = model.init(0)
+        loss1, grads1 = loss_and_grads(model, one, batch)
+        top = max(float(g.abs().max()) for g in grads1.values())
+        worst, worst_leaf = 0.0, None
+        for n, g1 in grads1.items():
+            # bk's gradient is zero in exact arithmetic: rounding noise
+            scale = top if n.endswith(".bk") else float(g1.abs().max())
+            err = float((grads[n] - g1).abs().max()) / max(scale, 1e-30)
+            if err > worst:
+                worst, worst_leaf = err, n
+        out.update(loss_one_rank=float(loss1),
+                   loss_rel_err=abs(float(loss) - float(loss1)) /
+                   abs(float(loss1)),
+                   grad_err_over_leaf_max=worst, grad_worst_leaf=worst_leaf)
+    print("TRAINMESH2-OK " + json.dumps(out), flush=True)
+    dist.barrier()
+    '''
+)
+
+
+def phase_train_mesh2(torch) -> dict:
+    """Two gloo ranks on the card over mesh (1, 2) (``local_mesh_shape(2)``,
+    as ``mesh2`` runs its two): qwen2-moe-a2.7b at 2 layers, full width,
+    float32, B=2, T=512, the attention, FFN and expert leaves cut over
+    ``model``; one step's loss and every gradient, gathered whole, against
+    the card's world-size-1 step on the same weights and batch (rank 0):
+    the loss within 1e-5 relative, each gradient within 1e-5 of its leaf's
+    largest magnitude (``bk``, zero in exact arithmetic, of the largest
+    gradient's).  Gloo carries every collective of the step on the card's
+    tensors (all_reduce and all_gather)."""
+    import tempfile
+
+    from repro_torch.launch.multihost import launch_localhost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "train_mesh2_child.py"
+        script.write_text(TRAIN_MESH2_CHILD)
+        t0 = time.perf_counter()
+        results = launch_localhost(
+            2, [str(script), str(MESH_TRAIN[0]), str(MESH_TRAIN[1])],
+            device="cuda", backend="gloo", timeout=240.0)
+        wall = time.perf_counter() - t0
+    outs = []
+    for r in results:
+        line = next((ln for ln in r.stdout.splitlines()
+                     if ln.startswith("TRAINMESH2-OK ")), None)
+        if not r.ok or line is None:
+            raise AssertionError(f"train-mesh2: rank {r.process_id} rc "
+                                 f"{r.returncode}\n{r.stderr[-3000:]}")
+        outs.append(json.loads(line[len("TRAINMESH2-OK "):]))
+    r0 = outs[0]
+    ok = (r0["loss_rel_err"] <= 1e-5 and r0["grad_err_over_leaf_max"] <= 1e-5
+          and all(o["cut"] > 0 and o["flash"]["forward"] > 0 and
+                  o["flash"]["backward"] > 0 for o in outs) and
+          outs[0]["loss"] == outs[1]["loss"])
+    emit({"phase": "train-mesh2", "ranks": 2, "mesh": [1, 2],
+          "backend": "gloo", "device": "cuda", "arch": MOE_ARCH,
+          "n_layers": 2, "compute_dtype": "float32", "batch": MESH_TRAIN[0],
+          "seq": MESH_TRAIN[1], "per_rank": outs,
+          "tolerance": {"loss_rel": 1e-5, "grad_over_leaf_max": 1e-5},
+          "wall_s": wall, "ok": ok})
+    if not ok:
+        raise AssertionError("train-mesh2: the two ranks' step disagrees "
+                             "with the card's world-size-1 step")
+    return outs[0]
 
 
 # ------------------------------------------------------------ phase 6b
@@ -4398,9 +4995,52 @@ def max_err(torch, got, want, scaled: bool = False) -> tuple[float, bool]:
             bool(torch.allclose(g, w, atol=atol, rtol=PARITY_TOL)))
 
 
+def family_forward(torch, cfg2, p, batch) -> tuple:
+    """(hidden states, loss, seconds, the decode's extra inputs) of one
+    forward of ``p`` on ``batch``: an audio config's hidden states are
+    the encoder states and the decoder's."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.models import vlm as TV
+    from repro_torch.models import whisper as TW
+
+    a = time.perf_counter()
+    extra = {}
+    with torch.inference_mode():
+        if cfg2.family == "audio":
+            enc = TW.whisper_encode(p, batch["frames"], cfg2)
+            t = batch["tokens"].shape[1]
+            x = TW._embed(p, batch["tokens"], cfg2) + \
+                p.dec_pos[None, :t].to(cfg2.cdtype)
+            text = TW._decode_stack(p, x, enc, cfg2)
+            loss = float(TT.chunked_nll(text, batch["labels"],
+                                        p.tok.t().to(text.dtype), cfg2))
+            h, extra = torch.cat([enc, text], dim=1), {"enc": enc}
+        else:
+            emb = (TV._project(p, batch["patches"], cfg2)
+                   if cfg2.vlm is not None else None)
+            h = TT.lm_forward(p, batch["tokens"], cfg2, inputs_embeds=emb)
+            text = h if emb is None else h[:, emb.shape[1]:]
+            loss = float(TT.hidden_loss(p, text, batch["labels"], cfg2))
+    return h, loss, time.perf_counter() - a, extra
+
+
+def side_family(torch, cfg2, cpu, pc, text_len: int, train_len: int
+                ) -> dict:
+    """``family_parity``'s CPU side (the side process): the CPU port's
+    hidden states and loss of one forward, and the train step's first
+    loss and gradients, at the card's seed-0 weights ``pc``."""
+    from repro_torch.data.tokens import make_batch
+
+    bc = make_batch(cfg2, 1, text_len, 0, device="cpu")
+    h, loss, secs, _ = family_forward(torch, cfg2, pc, bc)
+    return {"h_host": h, "loss_host": loss, "s": secs,
+            "first": cpu_first_step(torch, cfg2, cpu, pc, train_len)}
+
+
 def family_parity(torch, phase: str, cfg2, text_len: int,
                   decode_at: tuple[int, int] | None, decode_max_len: int,
-                  train: bool, train_len: int | None = None) -> None:
+                  train: bool, train_len: int | None = None,
+                  side: "SideProcess | None" = None) -> None:
     """The float32 config ``cfg2`` at seed 0 on the card and a copy on the
     CPU port: hidden states (one forward each) within PARITY_TOL and the
     loss from them within 1e-5 relative; decode steps at positions
@@ -4412,13 +5052,12 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
     ``train_len`` tokens (default ``text_len``).  An audio
     config's hidden states are the encoder states of the batch's frames
     and the decoder's, and its decode steps attend to each device's own
-    encoder states."""
+    encoder states.  With ``side``, the CPU port's forward and its first
+    train step's gradients come from the side process (``side_family``);
+    the decode steps run here, side by side."""
     import copy
 
     from repro_torch.data.tokens import make_batch
-    from repro_torch.models import transformer as TT
-    from repro_torch.models import vlm as TV
-    from repro_torch.models import whisper as TW
     from repro_torch.models.model_zoo import build_model
 
     t0 = time.perf_counter()
@@ -4429,30 +5068,15 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
     bg = make_batch(cfg2, 1, text_len, 0, device="cuda")
     bc = {k: v.cpu() for k, v in bg.items()}
 
-    def forward(p, batch) -> tuple[torch.Tensor, float, float, dict]:
-        a = time.perf_counter()
-        extra = {}
-        with torch.inference_mode():
-            if cfg2.family == "audio":
-                enc = TW.whisper_encode(p, batch["frames"], cfg2)
-                t = batch["tokens"].shape[1]
-                x = TW._embed(p, batch["tokens"], cfg2) + \
-                    p.dec_pos[None, :t].to(cfg2.cdtype)
-                text = TW._decode_stack(p, x, enc, cfg2)
-                loss = float(TT.chunked_nll(text, batch["labels"],
-                                            p.tok.t().to(text.dtype), cfg2))
-                h, extra = torch.cat([enc, text], dim=1), {"enc": enc}
-            else:
-                emb = (TV._project(p, batch["patches"], cfg2)
-                       if cfg2.vlm is not None else None)
-                h = TT.lm_forward(p, batch["tokens"], cfg2,
-                                  inputs_embeds=emb)
-                text = h if emb is None else h[:, emb.shape[1]:]
-                loss = float(TT.hidden_loss(p, text, batch["labels"], cfg2))
-        return h, loss, time.perf_counter() - a, extra
-
-    h_card, loss_card, card_s, extra_card = forward(pg, bg)
-    h_host, loss_host, host_s, extra_host = forward(pc, bc)
+    h_card, loss_card, card_s, extra_card = family_forward(torch, cfg2, pg,
+                                                           bg)
+    cs = side.result(phase) if side is not None else None
+    if cs is not None:
+        h_host, loss_host, host_s = cs["h_host"], cs["loss_host"], cs["s"]
+        extra_host = {}
+    else:
+        h_host, loss_host, host_s, extra_host = family_forward(torch, cfg2,
+                                                               pc, bc)
     hidden_err, hidden_ok = max_err(torch, h_card, h_host)
     loss_rel = abs(loss_card - loss_host) / abs(loss_host)
     del h_card, h_host
@@ -4497,9 +5121,10 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
     if train:
         t0 = time.perf_counter()
         row = card_vs_cpu_steps(torch, cfg2, 1, train_len or text_len,
-                                models)[0]
+                                models, first=cs and cs["first"])[0]
         row["s"] = time.perf_counter() - t0
-    del models
+    side_s = side.seconds[phase] if cs is not None else None
+    del models, cs
     gc.collect()
     torch.cuda.empty_cache()
     ok = (hidden_ok and loss_rel <= STEP_TOL["loss_rel"] and
@@ -4517,7 +5142,7 @@ def family_parity(torch, phase: str, cfg2, text_len: int,
           "decode": decode, "train_step": row,
           "train_seq": (train_len or text_len) if train else None,
           "forward_s": {"card": card_s, "cpu": host_s, "phase": forward_s},
-          "ok": ok})
+          "cpu_side_s": side_s, "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: the card's model disagrees with the "
                              "CPU port's (see the line above)")
@@ -4753,7 +5378,23 @@ def phase_audio(torch) -> dict[str, int]:
     return launches
 
 
-def phase_families(torch) -> dict[str, int]:
+def hybrid_parity_cfg():
+    """hybrid-parity's config, forward length and train length: one group
+    (3 layers) of recurrentgemma-2b at full width in float32; T = 4096 so
+    the window cuts in (its decode crosses the ring's wrap, 2048 slots,
+    from caches filled from a seed); the train step on window + 256
+    tokens, where the window still cuts in (the CPU port's backward at
+    T=4096 takes ~110 s of the card's host)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    hybrid = get_config(HYBRID_ARCH)
+    return (dataclasses.replace(hybrid, n_layers=3, dtype="float32"),
+            PREFILL[1], hybrid.hybrid.window + 256)
+
+
+def phase_families(torch, side: "SideProcess") -> dict[str, int]:
     """The ssm, hybrid, vlm and audio families on the card (phases ssm,
     ssm-parity, hybrid, hybrid-parity, hybrid-train, vlm, vlm-parity,
     audio, audio-parity, audio-train); returns the flash_attention
@@ -4784,15 +5425,10 @@ def phase_families(torch) -> dict[str, int]:
         window=hybrid.hybrid.window)["flash_attention"]
     walls["hybrid_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # one group at full width; T = 4096 so the window cuts in; decode
-    # crosses the ring's wrap (2048 slots) from caches filled from a seed
+    cfg2, text_len, train_len = hybrid_parity_cfg()
     w = hybrid.hybrid.window
-    # its train step on window + 256 tokens, where the window still cuts
-    # in (the CPU port's backward at T=4096 takes ~110 s of the card's host)
-    family_parity(torch, "hybrid-parity",
-                  dataclasses.replace(hybrid, n_layers=3, dtype="float32"),
-                  PREFILL[1], (w - 8, w + 8), 2 * w, train=True,
-                  train_len=w + 256)
+    family_parity(torch, "hybrid-parity", cfg2, text_len, (w - 8, w + 8),
+                  2 * w, train=True, train_len=train_len, side=side)
     walls["hybrid_parity_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     # all 26 layers: remat runs each group's windowed attention twice
@@ -4899,15 +5535,28 @@ def main() -> int:
         print(f"chip_smoke: {root} holds no src/repro_torch", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.data.synthetic_rdf import (Workload, lubm_like,
-                                                zipf_skew, zipf_workload)
-    from repro_torch.kernels import build, tuning
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    watch = MemoryWatch()
+    # the parity phases' CPU side runs beside the card phases from here
+    side = SideProcess()
+    watch.children.append(side.proc)
+    try:
+        return run(torch, smi, side, watch)
+    finally:
+        side.close()
+
+
+def run(torch, smi: str, side: SideProcess, watch: MemoryWatch) -> int:
+    """The phases, in order, then the kernels line and the last line."""
+    from repro_torch.data.synthetic_rdf import (Workload, lubm_like,
+                                                zipf_skew, zipf_workload)
+    from repro_torch.kernels import build, tuning
+
     t0 = time.perf_counter()
     build.library()
     build_s = time.perf_counter() - t0
@@ -4915,7 +5564,8 @@ def main() -> int:
     emit({"phase": "setup", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s,
+          "build_s": build_s, "tmp": tmp_dir_info(),
+          "host_memory_gib": host_memory(),
           "tuned": {"platform": tuning.BUILD_PLATFORM, "table": table,
                     "defines": build.defines(table),
                     "tiles": build.tiles()._asdict()}})
@@ -4926,32 +5576,33 @@ def main() -> int:
     walls = {}
     t0 = time.perf_counter()
     skew_in = skew_rebalance_input()
-    walls["skew_input_s"] = time.perf_counter() - t0
+    lap(side, walls, "skew_input_s", t0)
+    side.wait_card()  # phase 1 times the kernels with the card to itself
     t0 = time.perf_counter()
     rows = phase_kernels(torch, skew_in)
     rows["flash_attention"] = phase_flash(torch)
     phase_flash_window(torch)
     phase_flash_window(torch, FLASH_AUDIO_SHAPES, seed=2)
     rows["flash_attention_bwd"] = phase_flash_bwd(torch)
-    walls["kernels_s"] = time.perf_counter() - t0
+    lap(side, walls, "kernels_s", t0)
     t0 = time.perf_counter()
     lubm = phase_lubm(torch)
     launches = lubm["launches"]
-    walls["lubm_s"] = time.perf_counter() - t0
+    lap(side, walls, "lubm_s", t0)
     t0 = time.perf_counter()
     phase_lubm_batch(torch, lubm)
-    walls["lubm_batch_s"] = time.perf_counter() - t0
+    lap(side, walls, "lubm_batch_s", t0)
     del lubm["eng"]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_startup(torch, lubm)
-    walls["startup_s"] = time.perf_counter() - t0
+    lap(side, walls, "startup_s", t0)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     twin = phase_lubm_adaptive(torch, lubm)
-    walls["lubm_adaptive_s"] = time.perf_counter() - t0
+    lap(side, walls, "lubm_adaptive_s", t0)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4959,7 +5610,7 @@ def main() -> int:
     phase_card_parity(torch, "adaptive-parity", triples,
                       Workload(d, seed=0).sample(40), 4,
                       frequency_threshold=2)
-    walls["adaptive_parity_s"] = time.perf_counter() - t0
+    lap(side, walls, "adaptive_parity_s", t0)
     t0 = time.perf_counter()
     # the reference tests' skew shape (tests/test_recovery.py)
     phase_card_parity(
@@ -4969,22 +5620,22 @@ def main() -> int:
         zipf_workload(40, n_subjects=64, n_predicates=8, exponent=1.8,
                       seed=1), 4,
         frequency_threshold=3, skew_threshold=1.2, placement="directory")
-    walls["skew_parity_s"] = time.perf_counter() - t0
+    lap(side, walls, "skew_parity_s", t0)
     t0 = time.perf_counter()
     skew = phase_skew(torch, skew_in)
     del skew_in
-    walls["skew_s"] = time.perf_counter() - t0
+    lap(side, walls, "skew_s", t0)
     t0 = time.perf_counter()
     phase_lubm_directory(torch, lubm)
-    walls["lubm_directory_s"] = time.perf_counter() - t0
+    lap(side, walls, "lubm_directory_s", t0)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_serve_parity(torch)
-    walls["serve_parity_s"] = time.perf_counter() - t0
+    lap(side, walls, "serve_parity_s", t0)
     t0 = time.perf_counter()
     phase_serve(torch, lubm)
-    walls["serve_s"] = time.perf_counter() - t0
+    lap(side, walls, "serve_s", t0)
     mesh_in = {"twin": twin, **{k: lubm[k] for k in ("triples", "queries",
                                                       "ref", "warm_qps")}}
     del lubm, twin
@@ -4992,49 +5643,64 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_recovery(torch, skew)
-    walls["recovery_s"] = time.perf_counter() - t0
+    lap(side, walls, "recovery_s", t0)
     del skew
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_mesh(torch, mesh_in)
-    walls["mesh_s"] = time.perf_counter() - t0
+    lap(side, walls, "mesh_s", t0)
     del mesh_in
     t0 = time.perf_counter()
     phase_mesh2(torch)
-    walls["mesh2_s"] = time.perf_counter() - t0
+    lap(side, walls, "mesh2_s", t0)
     t0 = time.perf_counter()
     phase_scale(torch)
-    walls["scale_s"] = time.perf_counter() - t0
+    lap(side, walls, "scale_s", t0)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches["flash_attention"] = phase_lm(torch)["flash_attention"]
-    walls["lm_s"] = time.perf_counter() - t0
+    lap(side, walls, "lm_s", t0)
     t0 = time.perf_counter()
     # the backward's launches are the train path's (the forward's stay
     # prefill's: the LM serving path)
     train_launches = phase_train(torch)
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
-    walls["train_s"] = time.perf_counter() - t0
+    lap(side, walls, "train_s", t0)
     t0 = time.perf_counter()
     # the moe path's own launches join the dense path's
     launches["flash_attention"] += phase_moe(torch)["flash_attention"]
-    walls["moe_s"] = time.perf_counter() - t0
+    lap(side, walls, "moe_s", t0)
     t0 = time.perf_counter()
-    phase_moe_parity(torch)
-    walls["moe_parity_s"] = time.perf_counter() - t0
+    phase_moe_parity(torch, side)
+    lap(side, walls, "moe_parity_s", t0)
     t0 = time.perf_counter()
-    launches["flash_attention_bwd"] += \
-        phase_moe_train(torch)["flash_attention_bwd"]
-    walls["moe_train_s"] = time.perf_counter() - t0
+    moe_train = phase_moe_train(torch)
+    launches["flash_attention_bwd"] += moe_train["flash_attention_bwd"]
+    lap(side, walls, "moe_train_s", t0)
+    t0 = time.perf_counter()
+    # the train CLI's mesh path: its forward and backward launches join
+    train_mesh = phase_train_mesh(torch, moe_train["tokens_per_s"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += train_mesh[name]
+    lap(side, walls, "train_mesh_s", t0)
+    t0 = time.perf_counter()
+    phase_train_mesh2(torch)
+    lap(side, walls, "train_mesh2_s", t0)
     t0 = time.perf_counter()
     # the hybrid's windowed, the vlm's and the audio prefill launches join
     # the others, the hybrid and audio train steps' backward launches too
-    family_launches = phase_families(torch)
+    family_launches = phase_families(torch, side)
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += family_launches[name]
-    walls["families_s"] = time.perf_counter() - t0
+    lap(side, walls, "families_s", t0)
+    walls["side"] = {"moved": SIDE_JOBS, "threads": side.threads,
+                     "seconds": side.seconds, "waited_s": side.waited,
+                     "waited_card_s": side.waited_card}
+    walls["host_memory"] = {**host_memory(),
+                            "least_available_gib": watch.least,
+                            "by_phase": "[rss, available] after each phase"}
     emit({"phase": "walls", **walls})
 
     sources = {"range_search": ("probe.cu",

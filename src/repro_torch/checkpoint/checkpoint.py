@@ -20,9 +20,20 @@ format, so a snapshot written by either package restores in the other:
     POSIX), so a crash mid-save never corrupts the latest step.  An
     optional background thread writes while the caller continues.
     Restore casts each leaf to the dtype of the tree it is restored into
-    and puts tensors on a given device; there is no mesh to re-place
-    onto.  bfloat16 leaves are stored as float32 (exact) since numpy has
-    no bfloat16.
+    and puts tensors on a given device.  bfloat16 leaves are stored as
+    float32 (exact) since numpy has no bfloat16.
+
+    On a mesh (an ``LM`` that ``launch.shardings.place`` placed: its
+    ``placement``), every rank calls ``save``: each leaf cut over
+    ``model`` (and its ``OptState`` moments, cut alike) is gathered back
+    to its whole shape, only rank 0 writes, synchronously, and every rank
+    waits on a barrier until the step is published; so a checkpoint holds
+    whole leaves whatever mesh wrote it.  ``restore_latest(...,
+    mesh=, specs=)`` is the elastic restore: it places a module not yet
+    placed (``place(params, mesh, specs)``), then each rank reads the
+    whole leaves and copies its slice of each into the module and the
+    moments, in place, so a step saved on one mesh shape restores onto
+    another.
   * ``save_engine_state``: dictionary + statistics (read-only, saved
     once), the placement table, and the **append-only** query log the PI
     replay needs (offset-tracked — a mid-workload save appends only the new
@@ -65,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.convert import params_to_numpy, ref_path
+from repro_torch.models.collectives import axis_rank, axis_size
 
 __all__ = ["CheckpointManager"]
 
@@ -121,6 +133,67 @@ def _flatten_with_names(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
+def _placement(tree: Any):
+    """The placement of a placed module, else None."""
+    if isinstance(tree, torch.nn.Module):
+        return getattr(tree, "placement", None)
+    return None
+
+
+def _moment_dims(placement) -> dict[str, int]:
+    """Flat name of each cut leaf in the reference's tree (the moments'
+    structure) -> the dimension its stacked tensor is cut along."""
+    out = {}
+    for name, dim in placement.cut.items():
+        path, layer = ref_path(name)
+        out["/".join(path)] = dim + (layer is not None)
+    return out
+
+
+def _whole_tree(tree: Any, dims: dict[str, int], group, prefix: str = ""):
+    """A moments tree with each cut leaf gathered over ``group``."""
+    from repro_torch.launch.shardings import gather_cut
+
+    if isinstance(tree, dict):
+        return {k: _whole_tree(v, dims, group, _join(prefix, str(k)))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_whole_tree(v, dims, group, _join(prefix, str(i)))
+                for i, v in enumerate(tree)]
+    return tree if prefix not in dims else gather_cut(tree, dims[prefix],
+                                                      group)
+
+
+def _whole(params: Any, opt_state: Any) -> tuple[Any, Any]:
+    """(params, opt_state) with every leaf cut over ``model`` joined back
+    to its whole shape (a collective a cut leaf); a placed module with cut
+    leaves becomes a mapping of its parameter names to whole tensors."""
+    from repro_torch.launch.shardings import gather_whole
+    from repro_torch.models.collectives import axis_group
+
+    placement = _placement(params)
+    if placement is None or not placement.cut:
+        return params, opt_state
+    whole = gather_whole(dict(params.named_parameters()), placement)
+    if _is_namedtuple(opt_state) and hasattr(opt_state, "m"):
+        dims = _moment_dims(placement)
+        group = axis_group(placement.mesh, "model")
+        opt_state = opt_state._replace(
+            m=_whole_tree(opt_state.m, dims, group),
+            v=_whole_tree(opt_state.v, dims, group))
+    return whole, opt_state
+
+
+def _narrow(arr: np.ndarray, dim: int, placement) -> np.ndarray:
+    """This rank's slice of a whole leaf along ``dim`` over ``model``."""
+    m = axis_size(placement.mesh, "model")
+    r = axis_rank(placement.mesh, "model")
+    size = arr.shape[dim] // m
+    index = [slice(None)] * arr.ndim
+    index[dim] = slice(r * size, (r + 1) * size)
+    return arr[tuple(index)]
+
+
 def _tensor(arr: np.ndarray) -> torch.Tensor:
     # ascontiguousarray makes a 0-d array 1-d: keep the leaf's shape
     return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
@@ -135,7 +208,9 @@ def _check_shape(name: str, arr: np.ndarray, like) -> None:
 @torch.no_grad()
 def _restore_module(module: torch.nn.Module, flat, prefix: str
                     ) -> torch.nn.Module:
-    """Copy the reference-named leaves into the module's parameters."""
+    """Copy the reference-named leaves into the module's parameters (a
+    placed module's cut ones: this rank's slice)."""
+    placement = _placement(module)
     stacked: dict[str, np.ndarray] = {}
     for pname, p in module.named_parameters():
         path, layer = ref_path(pname)
@@ -143,18 +218,24 @@ def _restore_module(module: torch.nn.Module, flat, prefix: str
         if name not in stacked:
             stacked[name] = flat[name]
         arr = stacked[name] if layer is None else stacked[name][layer]
+        if placement is not None and pname in placement.cut:
+            arr = _narrow(arr, placement.cut[pname], placement)
         _check_shape(pname, arr, p)
         p.copy_(_tensor(arr))
     return module
 
 
 def _unflatten_like(tree: Any, flat, device, prefix: str = "",
-                    in_place: bool = False) -> Any:
+                    in_place: bool = False, cut=None) -> Any:
+    """``cut``: (placement, flat name -> dim) of the leaves a rank holds a
+    slice of."""
     if isinstance(tree, torch.nn.Module):
         return _restore_module(tree, flat, prefix)
     items = _items(tree)
     if items is None:
         arr = flat[prefix]
+        if cut is not None and prefix in cut[1]:
+            arr = _narrow(arr, cut[1][prefix], cut[0])
         _check_shape(prefix, arr, tree)
         if isinstance(tree, torch.Tensor):
             src = _tensor(arr)
@@ -166,7 +247,7 @@ def _unflatten_like(tree: Any, flat, device, prefix: str = "",
         return arr.astype(np.asarray(tree).dtype)
     in_place = in_place or _is_namedtuple(tree)
     out = {name: _unflatten_like(child, flat, device, _join(prefix, name),
-                                 in_place)
+                                 in_place, cut)
            for name, child in items}
     if isinstance(tree, dict):
         return {k: out[str(k)] for k in tree}
@@ -191,6 +272,21 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, params: Any, opt_state: Any, step: int,
              extra: dict | None = None) -> None:
+        """Write (params, opt_state) as step ``step``.  A placed module's
+        every rank calls it: the leaves are gathered whole, rank 0 writes
+        and all wait until the step is published (module docstring)."""
+        placement = _placement(params)
+        if placement is not None:
+            import torch.distributed as dist
+
+            params, opt_state = _whole(params, opt_state)
+            if dist.get_rank() == 0:
+                if not isinstance(params, torch.nn.Module):
+                    params = params_to_numpy(params)
+                self._write(_flatten_with_names(params),
+                            _flatten_with_names(opt_state), step, extra)
+            dist.barrier()
+            return
         # snapshot to the host first, then write (in the background when
         # async, so the caller continues)
         host_p = _flatten_with_names(params)
@@ -246,20 +342,37 @@ class CheckpointManager:
         return int(steps[-1].name[4:])
 
     def restore_latest(self, params_like: Any, opt_like: Any,
-                       device: str | torch.device | None = None):
+                       device: str | torch.device | None = None, *,
+                       mesh=None, specs=None):
         """Restore into the structure of (params_like, opt_like): each leaf
         takes its like-leaf's dtype.  An ``LM`` and a NamedTuple state
         (``OptState``) are overwritten in place on their own device; other
         tensor leaves go to ``device`` (default: the like-leaf's device),
-        numpy leaves stay numpy."""
+        numpy leaves stay numpy.  With ``mesh``, an ``LM`` not yet placed is
+        placed by ``specs`` (default ``param_specs(params_like, mesh)``), and
+        each rank copies its slice of every cut leaf and of its moments
+        (the reference's ``shardings``: the elastic restore)."""
         step = self.latest_step()
         if step is None:
             return None
+        if mesh is not None and isinstance(params_like, torch.nn.Module) \
+                and _placement(params_like) is None:
+            from repro_torch.launch.shardings import param_specs, place
+
+            place(params_like, mesh,
+                  specs if specs is not None else
+                  param_specs(params_like, mesh))
+        placement = _placement(params_like)
+        cut = None
+        if placement is not None and placement.cut:
+            dims = _moment_dims(placement)
+            cut = (placement, {f"{f}/{n}": d for n, d in dims.items()
+                               for f in (".m", ".v")})
         d = self.dir / f"step{step:010d}"
         with np.load(d / "params.npz") as z:
             params = _unflatten_like(params_like, z, device)
         with np.load(d / "opt.npz") as z:
-            opt = _unflatten_like(opt_like, z, device)
+            opt = _unflatten_like(opt_like, z, device, cut=cut)
         return params, opt, step
 
     # --------------------------------------- AdHash master state (paper §3.1)

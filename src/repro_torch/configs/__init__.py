@@ -19,7 +19,7 @@ from . import (codeqwen15_7b, internvl2_2b, llama3_8b, mamba2_130m,
                recurrentgemma_2b, whisper_tiny, yi_9b)
 
 __all__ = ["ARCH_IDS", "LATER", "SHAPES", "ShapeSpec", "get_config",
-           "get_smoke_config"]
+           "get_smoke_config", "applicable_shapes"]
 
 _MODULES = {
     "yi-9b": yi_9b,
@@ -54,6 +54,9 @@ SHAPES = {
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
 
+# families with sub-quadratic sequence mixing (may run long_500k)
+_SUBQUADRATIC = {"ssm", "hybrid"}
+
 
 def _module(arch: str):
     if arch not in _MODULES:
@@ -67,3 +70,11 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def applicable_shapes(arch: str) -> list[str]:
+    """The shape cells of ``arch``, as the reference's rule gives them:
+    every shape, but ``long_500k`` only for the sub-quadratic families."""
+    cfg = get_config(arch)
+    return [name for name in SHAPES
+            if name != "long_500k" or cfg.family in _SUBQUADRATIC]

@@ -22,31 +22,65 @@ test can hold them to the reference's leaf by leaf; ``cache_specs`` keys
 the cache's leaves by their paths likewise.
 
 ``place(params, mesh, specs)`` is the counterpart of ``named`` plus
-``jax.device_put``.  The port keeps activations, and so the dense layers,
-replicated in this slice (tensor-parallel dense layers: ROADMAP §1 item
-12d.2), which computes what GSPMD computes.  So only a leaf that a
-per-shard body consumes is laid out as its spec says: the embedding
-table's rows over ``model`` (``embedding.adaptive_embed`` serves the cold
-rows this rank owns; the plain lookup runs the reference's
-vocab-parallel lowering over them, and the tied LM head gathers them).  The expert stacks stay
-whole on every rank, since a replica slot of the hot-expert plan reads an
-expert another rank owns; ``moe_sharded.moe_ffn_sharded`` gathers only this
-rank's slots of them, each call.  Every other leaf is replicated.
+``jax.device_put``: it cuts each leaf over ``model`` as its spec says,
+where the port's per-rank layers compute with the cut, and keeps it whole
+(replicated) where they cannot; activations stay replicated over
+``model`` and the cut layers run Megatron style (``models.collectives``):
+
+  embed.table          rows (``embedding``: the vocab-parallel lookup and
+                       ``adaptive_embed``'s owned rows; the tied head
+                       gathers them)
+  attention            wq, bq by columns and wo by rows, on whole query
+                       heads; wk, wv, bk, bv by columns where the KV heads
+                       split over ``model`` (``models.attention``)
+  SwiGLU (mlp, and     w1, w3 by columns, w2 by rows
+  moe.shared)
+  moe expert stacks    over the experts, or within each expert's hidden
+                       width where E does not divide (60 experts over 8)
+
+Kept whole although the spec cuts them:
+
+  * a cut that is not on whole heads: wq/bq/wo where H does not split
+    over ``model`` (then the whole layer), wk/wv/bk/bv where KV does not
+    (recurrentgemma-2b's single KV head, llama3-8b's 8 over 16); and a
+    layer whose query heads' KV heads are not a whole run of heads;
+  * a cut of the stacked layer axis (the reference cuts the (L, D, F)
+    shared-expert stacks over layers where L divides and the width does
+    not: qwen2-moe's smoke config at ``model`` 2);
+  * the LM head ``embed.out`` (the reference's (None, 'model'): its logits
+    would be vocab-parallel; the loss uses the whole head);
+  * every leaf of the hybrid family (RG-LRU ``w_x``, ``w_y``, ``w_i``,
+    ``w_r``, ``conv``, ``lam`` and its attention and MLPs), of the audio
+    family (whisper's layers) and the vlm ``projector``; the ssm family is
+    replicated by its spec.
+
+``Placement`` (``params.placement``) records the mesh and each cut leaf's
+dimension: ``gather_whole`` joins cut leaves back to their whole shape (the
+checkpoint's save, the tests), the checkpoint's restore takes each rank's
+slice of a whole one, and the optimizer's global norm sums a cut leaf's
+squares over ``model``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
 from torch import nn
 
-from repro_torch.models.collectives import axis_rank, axis_size
+from repro_torch.models.attention import Attention, AttnTP
+from repro_torch.models.collectives import axis_group, axis_rank, axis_size
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.mlp import SwiGLU
+from repro_torch.models.moe import MoE, MoETP
 
 from .mesh import batch_axes
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "place", "leaves",
-           "Stats"]
+           "Placement", "gather_cut", "gather_whole", "Stats"]
+
+#: the families whose attention, FFN and expert leaves ``place`` cuts
+TP_FAMILIES = ("dense", "moe", "vlm")
 
 # parameter-name -> spec for the *trailing* dims (leading dims replicated)
 _LAST2 = {
@@ -208,29 +242,157 @@ def cache_specs(cache, cfg: ModelConfig, mesh, global_batch: int
             for path, leaf in leaves(cache)}
 
 
-def place(params: nn.Module, mesh, specs: dict[tuple[str, ...], tuple]
-          ) -> nn.Module:
-    """Put ``params`` on the mesh's device, in place, and return it.  The
-    embedding table is cut to this rank's rows where its spec shards them
-    over ``model`` (``params.embed.mesh`` then names the mesh); every other
-    leaf stays whole (module docstring)."""
+@dataclass
+class Placement:
+    """The mesh a module is placed on and each cut parameter's dimension
+    (port parameter name -> dim of this rank's slice), over ``model``."""
+
+    mesh: Any
+    cut: dict[str, int] = field(default_factory=dict)
+
+
+def _device(mesh) -> torch.device:
+    return (torch.device("cuda", torch.cuda.current_device())
+            if mesh.device_type == "cuda" else torch.device("cpu"))
+
+
+def _layer_spec(specs: dict, name: str) -> tuple | None:
+    """The spec of port parameter ``name`` over its own dimensions; None
+    where the reference's cuts its stacked layer axis."""
     from repro_torch.models.convert import ref_path
 
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if mesh.device_type == "cuda" else torch.device("cpu"))
-    params.to(dev)
+    path, layer = ref_path(name)
+    spec = specs[path]
+    if layer is None:
+        return tuple(spec)
+    return None if spec[0] is not None else tuple(spec[1:])
+
+
+def _cuts(specs: dict, prefix: str, names, dims: tuple[int, ...]) -> bool:
+    """Whether each of ``names`` (parameters under ``prefix``; None entries
+    skipped) has its spec cut exactly dimension ``dims[i]`` over model."""
+    for n, dim in zip(names, dims):
+        if n is None:
+            continue
+        spec = _layer_spec(specs, f"{prefix}{n}")
+        if spec is None or spec[dim] != "model" or \
+                any(a is not None for i, a in enumerate(spec) if i != dim):
+            return False
+    return True
+
+
+def _cut(module: nn.Module, name: str, dim: int, m: int, r: int) -> None:
+    t = getattr(module, name)
+    size = t.shape[dim] // m
+    part = t.detach().narrow(dim, r * size, size).clone()
+    setattr(module, name, nn.Parameter(part, requires_grad=t.requires_grad))
+
+
+def _cut_all(module: nn.Module, prefix: str, names, dims, m: int, r: int,
+             cut: dict) -> None:
+    """``_cut`` each of ``names`` (None entries skipped) along its dim, and
+    record it in ``cut``."""
+    for n, dim in zip(names, dims):
+        if n is not None:
+            _cut(module, n, dim, m, r)
+            cut[f"{prefix}{n}"] = dim
+
+
+def _place_attention(mod: Attention, prefix: str, specs, cfg, mesh, m, r,
+                     cut: dict) -> None:
+    hd = cfg.hd
+    h, kv = mod.wq.shape[1] // hd, mod.wk.shape[1] // hd
+    bias = mod.bq is not None
+    q_names = ("wq", "bq" if bias else None, "wo")
+    kv_names = ("wk", "wv", "bk" if bias else None, "bv" if bias else None)
+    if h % m or not _cuts(specs, prefix, q_names, (1, 0, 0)):
+        return
+    h_loc, g = h // m, h // kv
+    kv_cut = kv % m == 0 and _cuts(specs, prefix, kv_names, (1, 1, 0, 0))
+    if kv_cut:
+        lo, hi = r * (kv // m), (r + 1) * (kv // m)
+    else:  # the KV heads of query heads [r h_loc, (r + 1) h_loc)
+        lo, hi = r * h_loc // g, ((r + 1) * h_loc - 1) // g + 1
+        if h_loc % g and g % h_loc:  # not a whole run of KV heads
+            return
+    _cut_all(mod, prefix, q_names, (1, 0, 0), m, r, cut)
+    if kv_cut:
+        _cut_all(mod, prefix, kv_names, (1, 1, 0, 0), m, r, cut)
+    mod.tp = AttnTP(axis_group(mesh, "model"), kv_cut, lo, hi)
+
+
+def _place_swiglu(mod: SwiGLU, prefix: str, specs, mesh, m, r,
+                  cut: dict) -> None:
+    names, dims = ("w1", "w3", "w2"), (1, 1, 0)
+    if _cuts(specs, prefix, names, dims):
+        _cut_all(mod, prefix, names, dims, m, r, cut)
+        mod.tp = axis_group(mesh, "model")
+
+
+def _place_moe(mod: MoE, prefix: str, specs, mesh, m, r, cut: dict) -> None:
+    names = ("w1", "w3", "w2")
+    for by_experts, dims in ((True, (0, 0, 0)), (False, (2, 2, 1))):
+        if _cuts(specs, prefix, names, dims):
+            _cut_all(mod, prefix, names, dims, m, r, cut)
+            mod.tp = MoETP(axis_group(mesh, "model"), m, r, by_experts)
+            return
+
+
+def place(params: nn.Module, mesh, specs: dict[tuple[str, ...], tuple]
+          ) -> nn.Module:
+    """Put ``params`` on the mesh's device, in place, and return it, each
+    leaf cut over ``model`` where the module docstring says; records the
+    ``Placement`` as ``params.placement``.  ``specs``: ``param_specs(params,
+    mesh)`` of the whole module.  A module placed once is not cut again."""
+    dev = _device(mesh)
+    if any(t.device != dev for t in params.parameters()):
+        params.to(dev)
+    if getattr(params, "placement", None) is not None:
+        return params
+    m, r = axis_size(mesh, "model"), axis_rank(mesh, "model")
+    cut: dict[str, int] = {}
     embed = getattr(params, "embed", None)
     if embed is not None and getattr(embed, "mesh", None) is None:
-        path, _ = ref_path("embed.table")
-        if specs[path][0] == "model":
-            m, r = axis_size(mesh, "model"), axis_rank(mesh, "model")
-            t = embed.table
-            rows = t.shape[0] // m
-            embed.table = nn.Parameter(
-                t.detach()[r * rows:(r + 1) * rows].clone(),
-                requires_grad=t.requires_grad)
+        if _layer_spec(specs, "embed.table")[0] == "model":
+            _cut_all(embed, "embed.", ("table",), (0,), m, r,
+                     cut if m > 1 else {})
             embed.mesh = mesh
+    cfg = getattr(params, "cfg", None)
+    if m > 1 and cfg is not None and cfg.family in TP_FAMILIES:
+        for prefix, mod in params.named_modules():
+            prefix = f"{prefix}." if prefix else ""
+            if isinstance(mod, Attention):
+                _place_attention(mod, prefix, specs, cfg, mesh, m, r, cut)
+            elif isinstance(mod, SwiGLU):
+                _place_swiglu(mod, prefix, specs, mesh, m, r, cut)
+            elif isinstance(mod, MoE):
+                _place_moe(mod, prefix, specs, mesh, m, r, cut)
+    params.placement = Placement(mesh, cut)
     return params
+
+
+def gather_cut(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """A leaf cut along ``dim`` over ``group``, joined back whole from
+    every rank's slice (every rank of the group calls it)."""
+    import torch.distributed as dist
+
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_whole(tensors: dict[str, torch.Tensor], placement: Placement | None
+                 ) -> dict[str, torch.Tensor]:
+    """``tensors`` (port parameter name -> a parameter, or a tensor of its
+    shape such as its gradient) with each cut one joined back to its whole
+    shape over ``model``; every rank calls it (a collective a cut leaf)."""
+    if placement is None or not placement.cut:
+        return dict(tensors)
+    group = axis_group(placement.mesh, "model")
+    return {name: (t if name not in placement.cut else
+                   gather_cut(t, placement.cut[name], group))
+            for name, t in tensors.items()}
 
 
 class Stats:

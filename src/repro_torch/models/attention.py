@@ -18,8 +18,21 @@ windowed layer's cache holds ``min(window, max_len)`` slots, written at
 ``jnp`` computes it).
 Weights are stored as the JAX package stores them, (in, out), and cast to
 the activations' dtype where used.
+
+A layer that ``launch.shardings.place`` cut over a mesh's ``model`` axis
+(``Attention.tp``, an ``AttnTP``) runs tensor-parallel on whole heads: wq
+(and bq) hold this rank's query heads' columns, wo their rows, and the
+output projection's partial sums are all-reduced.  wk and wv (and bk, bv)
+hold this rank's KV heads' columns where the KV heads split over the
+axis; else they stay whole, every rank projects all KV heads and keeps
+the ones its query heads read (the gradient of the whole projection is
+summed over the axis).  Head counts are the local ones, taken from the
+weights' widths.  Decode writes and reads this rank's KV heads of a
+whole cache.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -28,9 +41,11 @@ from torch import nn
 from repro_torch.core.backend import resolve_device
 from repro_torch.kernels.flash_attention.ops import NEG_INF, flash_attention
 
+from .collectives import all_reduce_replicated, copy_to_parallel
 from .common import ModelConfig, apply_rope, dense_init, rope_tables
 
 __all__ = [
+    "AttnTP",
     "Attention",
     "init_attention",
     "attention",
@@ -42,10 +57,25 @@ __all__ = [
 _PARAMS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
+@dataclass(frozen=True)
+class AttnTP:
+    """How ``place`` cut a layer over ``model``: its group, and the KV
+    heads [kv_lo, kv_hi) of the whole projection this rank's query heads
+    read (``kv_cut``: wk and wv hold only those)."""
+
+    group: object
+    kv_cut: bool
+    kv_lo: int
+    kv_hi: int
+
+
 class Attention(nn.Module):
     """Projection weights of one attention layer: wq (D, H*hd), wk and wv
     (D, KV*hd), wo (H*hd, D), and with ``cfg.qkv_bias`` the biases bq, bk,
-    bv."""
+    bv; ``tp`` an ``AttnTP`` once placed cut (H, and KV where cut, then
+    this rank's heads)."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -78,20 +108,43 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return Attention(cfg, p)
 
 
-def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
-    """q (B, T, H, hd), k and v (B, T, KV, hd); KV from wk's width."""
-    b, t, _ = x.shape
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 kv: torch.Tensor | None = None, bias: bool = True):
+    """q (B, T, H, hd) from ``x``, k and v (B, S, KV, hd) from ``kv``
+    (default ``x``); H and KV from the weights' widths (a cut layer's
+    local heads).  Biases where the layer has them, unless ``bias`` is
+    False."""
     hd = cfg.hd
-    nkv = p.wk.shape[1] // hd
-    q = x @ p.wq.to(x.dtype)
-    k = x @ p.wk.to(x.dtype)
-    v = x @ p.wv.to(x.dtype)
-    if p.bq is not None:
-        q = q + p.bq.to(x.dtype)
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
-    return (q.reshape(b, t, cfg.n_heads, hd), k.reshape(b, t, nkv, hd),
-            v.reshape(b, t, nkv, hd))
+    tp = p.tp
+    bq, bk, bv = (p.bq, p.bk, p.bv) if bias else (None, None, None)
+    src = x if kv is None else kv
+    x_in, src_in = x, src
+    if tp is not None:
+        x_in = copy_to_parallel(x, tp.group)
+        src_in = x_in if kv is None else copy_to_parallel(kv, tp.group)
+    q = _linear(x_in, p.wq, bq)
+    if tp is None or tp.kv_cut:
+        k, v = _linear(src_in, p.wk, bk), _linear(src_in, p.wv, bv)
+    else:  # whole projection: keep the KV heads this rank's queries read
+        lo, hi = tp.kv_lo * hd, tp.kv_hi * hd
+        k = copy_to_parallel(_linear(src, p.wk, bk), tp.group)[..., lo:hi]
+        v = copy_to_parallel(_linear(src, p.wv, bv), tp.group)[..., lo:hi]
+    heads = lambda t: t.reshape(*t.shape[:2], -1, hd)
+    return heads(q), heads(k), heads(v)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None
+            ) -> torch.Tensor:
+    """x @ w (+ b), the weights cast to x's dtype."""
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    """The output projection of (B, T, H, hd) heads, summed over ``model``
+    when the layer is cut."""
+    y = o.reshape(*o.shape[:2], -1) @ p.wo.to(o.dtype)
+    return y if p.tp is None else all_reduce_replicated(y, p.tp.group)
 
 
 def attention(
@@ -107,7 +160,7 @@ def attention(
     by default (the audio encoder's is not); with ``window > 0`` query t
     sees keys (t - window, t]; RoPE on q and k unless ``use_rope`` is
     False (whisper's learned positions)."""
-    b, t, _ = x.shape
+    t = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
         cos, sin = rope_tables(torch.arange(t, device=x.device), cfg.hd,
@@ -115,7 +168,7 @@ def attention(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=causal, window=window)
-    return o.reshape(b, t, -1) @ p.wo.to(x.dtype)
+    return _out(p, o)
 
 
 def cross_attention(
@@ -127,15 +180,9 @@ def cross_attention(
     """Attention of T decoder positions over S encoder states: q from
     ``x``, k and v from ``kv`` (no bias, no RoPE, as the reference's), every
     key visible (non-causal)."""
-    b, t, _ = x.shape
-    s = kv.shape[1]
-    hd = cfg.hd
-    nkv = p.wk.shape[1] // hd
-    q = (x @ p.wq.to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
-    k = (kv @ p.wk.to(x.dtype)).reshape(b, s, nkv, hd)
-    v = (kv @ p.wv.to(x.dtype)).reshape(b, s, nkv, hd)
+    q, k, v = _project_qkv(p, x, cfg, kv=kv, bias=False)
     o = flash_attention(q, k, v, causal=False)
-    return o.reshape(b, t, -1) @ p.wo.to(x.dtype)
+    return _out(p, o)
 
 
 # ------------------------------------------------------------------- decode
@@ -259,7 +306,11 @@ def decode_attention(
     hd = cfg.hd
     pos = int(pos)
     q, k, v = _project_qkv(p, x, cfg)  # (B, 1, H/KV, hd)
-    nkv = k.shape[2]
+    nh, nkv = q.shape[2], k.shape[2]
+    whole = cache
+    if p.tp is not None:  # this rank's KV heads of the whole cache
+        cache = {name: t[:, :, p.tp.kv_lo:p.tp.kv_hi]
+                 for name, t in cache.items()}
     if use_rope:
         cos, sin = rope_tables(torch.full((1,), pos, device=x.device), hd,
                                cfg.rope_theta)
@@ -269,7 +320,7 @@ def decode_attention(
     L = ck.shape[1]
     slot = pos % L if window > 0 else pos  # ring buffer for local attention
     visible = _visible(L, pos, slot, window, x.device)
-    g = cfg.n_heads // nkv
+    g = nh // nkv
     if "k_scale" in cache:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
@@ -296,7 +347,6 @@ def decode_attention(
     else:
         ck[:, slot] = k[:, 0].to(ck.dtype)
         cv[:, slot] = v[:, 0].to(cv.dtype)
-        o = _bf16_cache_attend(q.reshape(b, cfg.n_heads, hd).to(ck.dtype),
+        o = _bf16_cache_attend(q.reshape(b, nh, hd).to(ck.dtype),
                                ck, cv, visible, hd)
-    o = o.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
-    return o @ p.wo.to(x.dtype), cache
+    return _out(p, o.reshape(b, 1, nh * hd).to(x.dtype)), whole

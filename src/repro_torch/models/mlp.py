@@ -3,6 +3,12 @@ plain GeLU MLP of the audio family (whisper).
 
 PyTorch port of ``repro.models.mlp``.  The GeLU is the tanh approximation,
 ``jax.nn.gelu``'s default (``F.gelu``'s default is the exact form).
+
+A SwiGLU that ``launch.shardings.place`` cut over a mesh's ``model`` axis
+(``SwiGLU.tp``, the axis's group: w1 and w3 by columns, w2 by rows) runs
+tensor-parallel: the input enters through ``copy_to_parallel`` and the
+row-parallel product's partial output is summed by
+``all_reduce_replicated``.
 """
 from __future__ import annotations
 
@@ -10,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .collectives import all_reduce_replicated, copy_to_parallel
 from .common import ModelConfig, dense_init
 
 __all__ = ["SwiGLU", "init_swiglu", "swiglu", "GeLUMLP", "init_gelu_mlp",
@@ -17,7 +24,10 @@ __all__ = ["SwiGLU", "init_swiglu", "swiglu", "GeLUMLP", "init_gelu_mlp",
 
 
 class SwiGLU(nn.Module):
-    """w1 (D, F) gate, w3 (D, F) up, w2 (F, D) down."""
+    """w1 (D, F) gate, w3 (D, F) up, w2 (F, D) down; ``tp`` the ``model``
+    group once placed cut (F then this rank's share)."""
+
+    tp = None
 
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -41,9 +51,12 @@ def init_swiglu(gen: torch.Generator, cfg: ModelConfig,
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    if p.tp is not None:
+        x = copy_to_parallel(x, p.tp)
     g = F.silu(x @ p.w1.to(x.dtype))
     u = x @ p.w3.to(x.dtype)
-    return (g * u) @ p.w2.to(x.dtype)
+    y = (g * u) @ p.w2.to(x.dtype)
+    return y if p.tp is None else all_reduce_replicated(y, p.tp)
 
 
 class GeLUMLP(nn.Module):

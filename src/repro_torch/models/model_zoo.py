@@ -6,6 +6,8 @@ package (dense, moe, ssm, hybrid, vlm and audio).  Each arch exposes:
   loss(params, batch)            -> scalar CE loss (the prefill lowering)
   init_cache(batch, max_len)     -> decode cache (zeros)
   decode(params, cache, batch)   -> (logits, cache)   (the serve lowering)
+  input_specs(shape)             -> {name: (shape, dtype)} of a cell's inputs
+  param_specs()                  -> the params without storage (fake)
 
 ``loss`` follows the caller's grad mode, as the reference's one ``loss``
 serves both prefill and training: ``launch.train`` differentiates it,
@@ -25,6 +27,12 @@ reference's mesh and cache options, and passes them to the decoder-only
 families' ``loss``, ``init_cache`` and ``decode``, as the reference's
 ``build_model`` does (the vlm and audio families take none); ``None`` is
 the program without them.
+
+``input_specs`` gives the reference's names, shapes and dtypes of one
+(arch, shape) cell's inputs (the vlm family's text length leaves room for
+the patches, ``_text_len``); ``param_specs`` builds the parameters under
+``FakeTensorMode`` (shapes and dtypes, no storage), the counterpart of
+the reference's ``jax.eval_shape(init)``: the dry-run's input.
 """
 from __future__ import annotations
 
@@ -50,6 +58,54 @@ class ModelAPI:
     loss: Callable[[Any, dict], torch.Tensor]
     init_cache: Callable[[int, int], Any]
     decode: Callable[[Any, Any, dict], tuple[torch.Tensor, Any]]
+
+    def input_specs(self, shape) -> dict[str, tuple[tuple[int, ...],
+                                                    torch.dtype]]:
+        """{name: (shape, dtype)} of a cell's inputs (``configs.SHAPES``
+        entry ``shape``), as the reference's ``input_specs``."""
+        return input_specs(self.cfg, shape)
+
+    def param_specs(self):
+        """The parameters built under ``FakeTensorMode``: every tensor
+        fake (its shape and dtype, no storage), on the CPU.  Enter the
+        same mode (``fake_mode``) to compute with them."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        with mode:
+            params = build_model(self.cfg, device="cpu").init(0)
+        params.fake_mode = mode
+        return params
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.family == "vlm":
+        return max(seq_len - cfg.vlm.n_patches, 8)
+    return seq_len
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """{name: (shape, dtype)} of one (arch, shape) cell's inputs."""
+    b, t = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    train = shape.kind in ("train", "prefill")
+    if cfg.family == "audio":
+        f = cfg.encdec.n_frames
+        if train:
+            return {"frames": ((b, f, cfg.d_model), torch.float32),
+                    "tokens": ((b, t), i32), "labels": ((b, t), i32)}
+        return {"enc": ((b, f, cfg.d_model), cfg.cdtype),
+                "tokens": ((b, 1), i32), "pos": ((), i32)}
+    if cfg.family == "vlm":
+        t = _text_len(cfg, t)
+        if train:
+            return {"patches": ((b, cfg.vlm.n_patches, cfg.vlm.d_vision),
+                                torch.float32),
+                    "tokens": ((b, t), i32), "labels": ((b, t), i32)}
+        return {"tokens": ((b, 1), i32), "pos": ((), i32)}
+    if train:
+        return {"tokens": ((b, t), i32), "labels": ((b, t), i32)}
+    return {"tokens": ((b, 1), i32), "pos": ((), i32)}
 
 
 def build_model(cfg: ModelConfig, opts: "tfm.RuntimeOptions | None" = None,

@@ -30,6 +30,21 @@ Where the two packages would otherwise part:
 
 No Pallas kernel is on this path: the products run on cuBLAS, the rest is
 sort, searchsorted, gathers and adds.
+
+On a mesh, ``moe_ffn`` computes what the reference's plain ``moe_ffn``
+computes on the global batch under GSPMD:
+
+* inside a data-parallel region (``collectives.data_parallel``) the
+  routed part runs on the global batch (``gather_batch`` /
+  ``shard_batch``), so capacity and drops are the global batch's;
+* expert stacks that ``launch.shardings.place`` cut over ``model``
+  (``MoE.tp``, a ``MoETP``) by experts make each rank compute its experts'
+  slot rows (a replica slot with its expert's owner) of the one global
+  dispatch; cut within each expert's hidden width, every rank computes
+  every slot row over its share of the width.  Either way the experts'
+  input enters through ``copy_to_parallel``, the routing weights too
+  (each rank's combine uses only its part of them), and the combine's
+  partial sums are all-reduced over ``model``.
 """
 from __future__ import annotations
 
@@ -40,17 +55,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dataclasses import dataclass
+
+from .collectives import (all_reduce_replicated, copy_to_parallel, dp_axes,
+                          gather_batch, shard_batch)
 from .common import ModelConfig, dense_init
 from .mlp import SwiGLU, init_swiglu, swiglu
 
-__all__ = ["MoE", "init_moe", "moe_ffn", "route", "combine",
+__all__ = ["MoE", "MoETP", "init_moe", "moe_ffn", "route", "combine",
            "slot_map_for_plan"]
+
+
+@dataclass(frozen=True)
+class MoETP:
+    """How ``place`` cut a layer's expert stacks over ``model``: its group,
+    its size and this rank's place on it, and ``by_experts`` (this rank's
+    E / m experts, from ``rank * E / m``) or else each expert's hidden
+    width (its F / m share)."""
+
+    group: object
+    m: int
+    rank: int
+    by_experts: bool
 
 
 class MoE(nn.Module):
     """router (D, E), w1 and w3 (E, D, F), w2 (E, F, D), and with shared
     experts ``shared``, one SwiGLU of width n_shared * F.  ``moe_ffn``
-    applies it."""
+    applies it.  ``tp`` a ``MoETP`` once placed cut."""
+
+    tp = None
 
     def __init__(self, params: dict, shared: SwiGLU | None = None):
         super().__init__()
@@ -111,6 +145,13 @@ def route(p: MoE, xf: torch.Tensor, k: int
     return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), top_e
 
 
+def _route_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 (n,) count of each value in ``ids`` (``torch.bincount``'s
+    counts with minlength n, at a static shape)."""
+    return torch.zeros(n, dtype=torch.float32, device=ids.device).index_add_(
+        0, ids.reshape(-1).long(), torch.ones(ids.numel(), device=ids.device))
+
+
 def combine(ye: torch.Tensor, wgt: torch.Tensor, flat_slot: torch.Tensor,
             order: torch.Tensor, starts: torch.Tensor, cap: int, n: int,
             k: int) -> torch.Tensor:
@@ -144,7 +185,25 @@ def moe_ffn(
     slot_map: tuple[int, ...] | None = None,  # replication plan (static)
 ) -> tuple[torch.Tensor, dict]:
     """Returns (out (B, T, D), diagnostics {dropped, expert_load,
-    route_counts})."""
+    route_counts}); on a mesh, of the global batch (module docstring)."""
+    dp = dp_axes()
+    if dp is None:
+        return _moe_ffn(p, x, cfg, slot_map)
+    out, diag = _moe_ffn(p, gather_batch(*dp, x), cfg, slot_map)
+    return shard_batch(*dp, out), diag
+
+
+def _owned_slots(tp: MoETP | None, slots: tuple[int, ...], e: int
+                 ) -> tuple[int, ...] | None:
+    """The slots this rank computes (None: all of them)."""
+    if tp is None or not tp.by_experts:
+        return None
+    e_loc = e // tp.m
+    return tuple(si for si, ex in enumerate(slots) if ex // e_loc == tp.rank)
+
+
+def _moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+             slot_map: tuple[int, ...] | None) -> tuple[torch.Tensor, dict]:
     mc = cfg.moe
     assert mc is not None
     b, t, d = x.shape
@@ -154,9 +213,12 @@ def moe_ffn(
     dev = x.device
     slots = tuple(slot_map) if slot_map is not None else tuple(range(e))
     s = len(slots)
+    tp = p.tp
 
     xf = x.reshape(n, d)
     top_w, top_e = route(p, xf, k)  # (N, k)
+    if tp is not None:  # each rank's combine uses its part of the weights
+        top_w = copy_to_parallel(top_w, tp.group)
 
     # ------- map logical experts to slots; replicas split load by parity
     flat_e = top_e.reshape(-1).to(torch.int32)  # (N*k,)
@@ -185,6 +247,18 @@ def moe_ffn(
     ends = torch.searchsorted(
         se, torch.arange(1, s + 1, dtype=torch.int32, device=dev),
         out_int32=True)
+    counts = ends - starts
+    w1, w3, w2 = p.w1, p.w3, p.w2
+    owned = _owned_slots(tp, slots, e)
+    if owned is not None:  # this rank's slot rows of the global dispatch
+        own = _slot_index(owned, dev)
+        starts, ends = starts[own], ends[own]
+        flat_slot = _local_table(owned, s, dev)[flat_slot.long()]
+        first = tp.rank * (e // tp.m)
+        ex = _slot_index(tuple(slots[si] - first for si in owned), dev)
+        w1, w3, w2 = w1[ex], w3[ex], w2[ex]
+    elif slot_map is not None:
+        w1, w3, w2 = w1[slot_idx], w3[slot_idx], w2[slot_idx]
     idx = starts[:, None].long() + torch.arange(cap, device=dev)[None, :]
     valid = idx < ends[:, None]  # (S, cap)
     idx_c = torch.clamp(idx, max=n * k - 1)
@@ -192,24 +266,41 @@ def moe_ffn(
     wgt = torch.where(valid, sw[idx_c], 0.0)
 
     # ------- expert computation (batched products over stacked weights)
-    w1, w3, w2 = p.w1, p.w3, p.w2
-    if slot_map is not None:
-        w1, w3, w2 = w1[slot_idx], w3[slot_idx], w2[slot_idx]
-    xe = xf[tok] * valid[..., None].to(x.dtype)  # (S, cap, D)
+    xin = xf if tp is None else copy_to_parallel(xf, tp.group)
+    xe = xin[tok] * valid[..., None].to(x.dtype)  # (S, cap, D)
     h = F.silu(torch.bmm(xe, w1.to(x.dtype))) * torch.bmm(xe, w3.to(x.dtype))
     ye = torch.bmm(h, w2.to(x.dtype))  # (S, cap, D)
 
     out = combine(ye, wgt, flat_slot, order, starts, cap, n, k)
+    if tp is not None:
+        out = all_reduce_replicated(out, tp.group)
 
     if p.shared is not None:
         out = out + swiglu(p.shared, xf)
 
-    counts = ends - starts
     diag = {
         "dropped": torch.clamp(counts - cap, min=0).sum(),
         "expert_load": torch.clamp(counts, max=cap),
         # router aux statistics for the adaptive controller's heat map
-        "route_counts": torch.bincount(top_e.reshape(-1),
-                                       minlength=e).float(),
+        "route_counts": _route_counts(top_e, e),
     }
     return out.reshape(b, t, d), diag
+
+
+@functools.lru_cache(maxsize=None)
+def _local_table(owned: tuple[int, ...], s: int, dev: torch.device
+                 ) -> torch.Tensor:
+    """(S,) each slot's row among ``owned``, len(owned) for a slot this
+    rank does not compute."""
+    table = np.full(s, len(owned), np.int64)
+    table[list(owned)] = np.arange(len(owned))
+    with torch.inference_mode(False):
+        return torch.from_numpy(table).to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_index(slots: tuple[int, ...], dev: torch.device) -> torch.Tensor:
+    """A static index on ``dev``, made once (outside inference mode, so
+    autograd may save it in a later training step)."""
+    with torch.inference_mode(False):
+        return torch.tensor(slots, dtype=torch.long, device=dev)

@@ -71,7 +71,7 @@ from . import moe as moem
 from . import moe_sharded as moesh
 from . import rglru as rg
 from . import ssm as ssmm
-from .collectives import axis_size
+from .collectives import axis_size, data_sum, dp_blocks
 from .common import ModelConfig, rms_norm
 
 __all__ = [
@@ -121,9 +121,10 @@ class RuntimeOptions:
 
 def cold_capacity(opts: RuntimeOptions, tokens: torch.Tensor) -> int:
     """The per-shard cold-exchange capacity ``lm_forward`` gives
-    ``adaptive_embed``: max(8, B * T * cold_frac / model), as the
-    reference computes it."""
-    per_shard = tokens.shape[0] * tokens.shape[1]
+    ``adaptive_embed``: max(8, B * T * cold_frac / model) of the global
+    batch, as the reference computes it (inside a data-parallel region
+    ``tokens`` is this rank's block of it)."""
+    per_shard = tokens.shape[0] * tokens.shape[1] * dp_blocks()
     return max(8, int(per_shard * opts.cold_frac
                       / axis_size(opts.mesh, "model")))
 
@@ -373,7 +374,9 @@ def chunked_nll(h: torch.Tensor, labels: torch.Tensor, w_out: torch.Tensor,
                 cfg: ModelConfig, loss_chunk: int = 128) -> torch.Tensor:
     """Mean masked cross-entropy of the logits ``h @ w_out`` (taken in
     float32), in chunks of ``loss_chunk`` positions, each under remat when
-    ``cfg.remat`` asks for it."""
+    ``cfg.remat`` asks for it.  Inside a data-parallel region the count is
+    the global batch's (``collectives.data_sum``), so the ranks' losses sum
+    to the global batch's mean."""
     t = h.shape[1]
     c = min(loss_chunk, t)
     chunk = _remat(_chunk_nll, cfg)
@@ -383,7 +386,7 @@ def chunked_nll(h: torch.Tensor, labels: torch.Tensor, w_out: torch.Tensor,
         nll, n = chunk(h[:, s:s + c], labels[:, s:s + c].long(), w_out)
         tot = tot + nll
         cnt = cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(data_sum(cnt), min=1.0)
 
 
 # ------------------------------------------------------------------- decode

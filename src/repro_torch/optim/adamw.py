@@ -17,6 +17,12 @@ weight decay on the float32 parameter, then a cast back to the parameter's
 dtype.  Unlike the reference, which returns new arrays, it updates the
 parameters and moments in place (and returns them), so a step holds no
 second copy of either.
+
+On a mesh (a module ``launch.shardings.place`` placed), a parameter cut
+over ``model`` holds this rank's slice and its moments the same slice
+(``adamw_init`` takes the placed shapes).  The clip scale's global norm
+then sums a cut leaf's squares over ``model`` and counts a replicated
+leaf's once, as the norm of the whole gradient.
 """
 from __future__ import annotations
 
@@ -59,13 +65,33 @@ def adamw_init(params: torch.nn.Module) -> OptState:
                     zeros())
 
 
-def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 squares (a 0-d tensor)."""
+def _sum_sq(leaves: Iterable[torch.Tensor]) -> torch.Tensor | None:
+    """The sum of every leaf's float32 squares (a 0-d tensor), leaf by
+    leaf in order; None for no leaves."""
     total = None
     for x in leaves:
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 squares (a 0-d tensor)."""
+    return torch.sqrt(_sum_sq(leaves))
+
+
+def _mesh_norm(grads: Mapping[str, torch.Tensor], names: list[str],
+               placement) -> torch.Tensor:
+    """The whole gradient's norm from this rank's: the replicated leaves'
+    squares, plus the cut leaves' summed over ``model``."""
+    import torch.distributed as dist
+
+    from repro_torch.models.collectives import axis_group
+
+    sq = _sum_sq(grads[n] for n in names if n in placement.cut)
+    dist.all_reduce(sq, group=axis_group(placement.mesh, "model"))
+    rep = _sum_sq(grads[n] for n in names if n not in placement.cut)
+    return torch.sqrt(sq if rep is None else rep + sq)
 
 
 @torch.no_grad()
@@ -76,7 +102,11 @@ def adamw_update(cfg: AdamWConfig, params: torch.nn.Module,
     gradient); returns (params, state, {"grad_norm"}), all updated in
     place but the step counter."""
     named = list(params.named_parameters())
-    gnorm = global_norm(grads[n] for n, _ in named)
+    placement = getattr(params, "placement", None)
+    if placement is not None and placement.cut:
+        gnorm = _mesh_norm(grads, [n for n, _ in named], placement)
+    else:
+        gnorm = global_norm(grads[n] for n, _ in named)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
