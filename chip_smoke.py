@@ -14,7 +14,7 @@ directory placement with hot-key rebalancing on a Zipf hub graph and on
 LUBM, the online serving front end (``repro_torch.serving``) over the
 adaptive engine, master recovery from a checkpoint, the multi-device
 substrate (W split over ``torch.distributed`` ranks: NCCL at world size 1,
-two gloo ranks on the card), a 32 M-triple Zipf stream, the dense LM's
+two gloo ranks on the card), a 16 M-triple Zipf stream, the dense LM's
 serving path (prefill and decode of llama3-8b, the decode also in the
 int8 and bf16 cache modes) and its training path (qwen1.5-4b train
 steps), the moe family (qwen2-moe-a2.7b served at full size, also under
@@ -111,7 +111,8 @@ Phases:
             top kernels, each DSJ kernel's device time), in a pass of its
             own the mix each bucket_by_dest shape gets (valid share, valid
             prefix, destinations in order), and two queries per template
-            held against a device="cpu" engine
+            held against a device="cpu" engine (``lubm-parity``, printed
+            after ``scale``: the CPU engine runs in the side process)
   2b lubm-batch  the same 60 queries through ``query_batch`` on that
             engine, cold and warm: answers, comm_cells and mode equal to
             the cold pass; buckets, batched dispatches, warm queries/s,
@@ -198,7 +199,7 @@ Phases:
             lifecycle and fingerprint, a ``query_batch`` pass, a checkpoint
             round trip with replicas over both ranks, a placement snapshot
             restored at W' = 16; the line states device and backend
-  3 scale   generate_stream(32_000_000, 2^20) streamed in: time to online,
+  3 scale   generate_stream(16_000_000, 2^20) streamed in: time to online,
             time to first answer, live/padded store bytes, 32 zipf queries,
             4 of them checked against a numpy scan of the same stream
   4 lm      llama3-8b at full width and depth, bf16 weights from seed 0:
@@ -237,7 +238,7 @@ Phases:
             within 1e-5 absolute, v 1e-5 relative, m 1e-5 of sqrt(v) +
             eps (the units of the step it drives); ``compress_tree`` of the same
             gradients equal on both, and a checkpoint round trip bit for
-            bit
+            bit (the 2 layers at CKPT_VOCAB rows, after two card steps)
   6 moe     qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed
             top-4 experts + 4 shared, 14.32 B parameters), bf16 weights
             from seed 0: prefill as phase 4 (B=4, T=4096, cold and 3x warm,
@@ -274,16 +275,24 @@ Phases:
             the same weights and batch, a warm-up and two timed steps
             (tokens/s beside moe-train's, 8 / 4 flash launches a step,
             peak memory), then a checkpoint saved and restored through the
-            mesh into fresh state, bit for bit (the config at 0 layers --
-            its embedding, LM head and final norm -- after one mesh step:
-            the four layers' 34.85 GB take ~150 s)
-    train-mesh2  two gloo ranks on the card, mesh (1, 2): qwen2-moe-a2.7b
-            at 2 layers, full width, float32, B=2, T=512, its attention,
-            FFN and expert leaves cut over ``model``; one step's loss and
-            every gradient (gathered whole) against the card's
+            mesh into fresh state, bit for bit (the config at 0 layers and
+            CKPT_VOCAB rows -- its embedding, LM head and final norm --
+            after one mesh step: the four layers' 34.85 GB take ~150 s)
+    train-mesh2  two gloo ranks on the card, mesh (1, 2), one launch, in
+            float32: qwen2-moe-a2.7b at 2 layers, full width, B=2, T=512
+            (attention, FFN and expert leaves cut over ``model``);
+            recurrentgemma-2b at one group (3 layers) at full width, B=2,
+            T=2,304 (the RG-LRU cut per channel, 5 query heads a rank over
+            the whole KV head, the window cutting in); whisper-tiny at
+            full size, B=2, 1,500 frames + 448 tokens (3 heads a rank,
+            the GeLU MLPs cut); every LM head vocab-parallel.  Each leg's
+            loss and every gradient (gathered whole) against the card's
             world-size-1 step: 1e-5 relative, 1e-5 of each leaf's largest
             (``bk``, zero in exact arithmetic, of the largest gradient's);
-            each rank's parameter bytes against the whole model's
+            the hybrid's and audio's 4 teacher-forced decode steps against
+            the whole model's, 1e-5 of the largest logit; each rank's
+            parameter bytes against the whole model's, the collectives of
+            a step by kind
   6b ssm    mamba2-130m at full size, bf16 weights from seed 0: prefill
             (``model.loss``, B=4, T=4096) cold and 3x warm, no attention;
             decode (``serve_loop``: batch 8, 16 steps, 4 batches); profiled
@@ -345,10 +354,11 @@ Phases:
             (``mincut_lite`` must take 5x hash on subject), its edge cut,
             and ``AdHashEngine`` bootstrap on the card (its answers to the
             60 queries equal to phase 2's)
-The CPU side of ``moe-parity`` and ``hybrid-parity`` (the CPU port's
-forwards and first train step's gradients, ``SIDE_JOBS``) runs in a side
-process spawned at the top of the run with half of the host's threads,
-beside the card phases; it makes the same seed-0 weights on the card and
+The CPU side of ``lubm-parity`` (phase 2's CPU engine and its answers),
+``moe-parity`` and ``hybrid-parity`` (the CPU port's forwards and first
+train step's gradients), ``SIDE_JOBS``, runs in a side process spawned at
+the top of the run with half of the host's threads, beside the card
+phases; it makes the same seed-0 weights on the card and
 moves them to the CPU before phase 1 starts (phase 1 waits for it).
 ``card_vs_cpu_steps`` holds the CPU's tensors against the card's on the
 card.  The ``walls`` line names what moved, the side process's seconds
@@ -1611,7 +1621,7 @@ def phase_lubm(torch) -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
-    d, triples = lubm_like(100, 20, 30, 12, 2)
+    d, triples = lubm_like(*LUBM)
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     eng = AdHashEngine(triples, W, adaptive=False, device="cuda")
@@ -1690,15 +1700,18 @@ def phase_lubm(torch) -> dict:
           "warm_chain_counted_syncs": tr.host_transfers,
           "warm_chain_cuda_syncs": cuda_syncs})
 
+    walls = {"to_lubm_line_s": time.perf_counter() - t0}
     # where the device time goes, per template (profiler on: wall times
     # here include its overhead; the warm numbers above are without it)
+    t1 = time.perf_counter()
     for name in names:
         picked = [q for q in queries if q.name == name]
         emit({"phase": "lubm-profile", "template": name,
               "queries": len(picked),
               **profile_run(torch, lambda: [eng.query(q) for q in picked])})
-
+    walls["profiles_s"] = time.perf_counter() - t1
     # the mix each bucket_by_dest shape gets, in a pass of its own
+    t1 = time.perf_counter()
     with bucket_mix_census(torch) as mixes:
         for q in queries:
             eng.query(q)
@@ -1713,29 +1726,85 @@ def phase_lubm(torch) -> dict:
                "dest_sorted_share": float(np.mean([r[3] for r in rows]))}
               for shape, rows in sorted(mixes.items(),
                                         key=lambda kv: -len(kv[1]))]})
-
-    # two queries per template against a CPU engine on the same triples
-    cpu = AdHashEngine(triples, W, adaptive=False, device="cpu")
-    checked: dict[str, int] = {}
-    for q, (rel, st) in zip(queries, cold):
-        if checked.get(q.name, 0) >= 2:
-            continue
-        rel_c, st_c = cpu.query(q)
-        got = (rel.to_set(), st.comm_cells, st.mode, st.route, st.n_retries)
-        want = (rel_c.to_set(), st_c.comm_cells, st_c.mode, st_c.route,
-                st_c.n_retries)
-        if got != want:
-            raise AssertionError(f"{q.name}: gpu {got[1:]} rows "
-                                 f"{len(got[0])} != cpu {want[1:]} rows "
-                                 f"{len(want[0])}")
-        checked[q.name] = checked.get(q.name, 0) + 1
-    emit({"phase": "lubm-parity", "checked": checked,
-          "equal": ["to_set", "comm_cells", "mode", "route", "n_retries"]})
+    walls["bucket_mix_s"] = time.perf_counter() - t1
+    # two queries per template against a CPU engine on the same triples:
+    # the CPU side runs in the side process (side_lubm); the card's answers
+    # are held against it by check_lubm_parity, once it has them
+    emit({"phase": "lubm-walls", **walls})
+    parity_card = {i: answer_digest(*cold[i])
+                   for i in lubm_parity_picks(queries)}
     ref = [(canon(rel, q), st.comm_cells, st.mode)
            for q, (rel, st) in zip(queries, cold)]
     return {"launches": launches, "warm_launches": warm_launches,
             "warm_qps": len(queries) / warm_s, "eng": eng, "d": d,
-            "triples": triples, "queries": queries, "ref": ref}
+            "triples": triples, "queries": queries, "ref": ref,
+            "parity_card": parity_card}
+
+
+#: phase 2's graph, its workload and the queries it holds against a CPU
+#: engine (the first two of each template)
+LUBM = (100, 20, 30, 12, 2)
+
+
+def lubm_parity_picks(queries) -> list[int]:
+    """The indexes of the first two queries of each template."""
+    seen: Counter = Counter()
+    picks = []
+    for i, q in enumerate(queries):
+        if seen[q.name] < 2:
+            seen[q.name] += 1
+            picks.append(i)
+    return picks
+
+
+def answer_digest(rel, st) -> tuple:
+    """A query's answer for the parity check: its distinct rows (as
+    ``Relation.to_set`` holds them: in the relation's column order) as
+    their count and the SHA-256 of the sorted int64 rows, then
+    comm_cells, mode, route and n_retries."""
+    import hashlib
+
+    rows = np.unique(rel.to_numpy().astype(np.int64), axis=0)
+    return (len(rows), hashlib.sha256(rows.tobytes()).hexdigest(),
+            st.comm_cells, st.mode, st.route, st.n_retries)
+
+
+def side_lubm(torch) -> dict:
+    """Phase 2's CPU side (the side process): a device="cpu" engine on the
+    same LUBM-100 triples answers the picked queries (``answer_digest``:
+    rows, comm_cells, mode, route and retries)."""
+    from repro_torch.core.engine import AdHashEngine
+    from repro_torch.data.synthetic_rdf import Workload, lubm_like
+
+    d, triples = lubm_like(*LUBM)
+    queries = Workload(d, seed=0).sample(60)
+    cpu = AdHashEngine(triples, W, adaptive=False, device="cpu")
+    out = {}
+    for i in lubm_parity_picks(queries):
+        out[i] = answer_digest(*cpu.query(queries[i]))
+    return {"answers": out, "names": {i: queries[i].name for i in out}}
+
+
+def check_lubm_parity(parity_card: dict, side: "SideProcess") -> None:
+    """Phase 2's cold answers to the picked queries against the CPU
+    engine's (the side process's ``lubm-parity``): rows, comm_cells, mode,
+    route and n_retries equal."""
+    cs = side.result("lubm-parity")
+    checked: Counter = Counter()
+    if sorted(cs["answers"]) != sorted(parity_card):
+        raise AssertionError(f"lubm-parity: queries {sorted(cs['answers'])} "
+                             f"!= {sorted(parity_card)}")
+    for i, want in cs["answers"].items():
+        got = parity_card[i]
+        if got != want:
+            raise AssertionError(f"{cs['names'][i]}: gpu {got[2:]} rows "
+                                 f"{got[0]} != cpu {want[2:]} rows "
+                                 f"{want[0]}")
+        checked[cs["names"][i]] += 1
+    emit({"phase": "lubm-parity", "checked": dict(checked),
+          "equal": ["to_set (count, SHA-256 of the sorted rows)",
+                    "comm_cells", "mode", "route", "n_retries"],
+          "cpu_side_s": side.seconds["lubm-parity"]})
 
 
 # ------------------------------------------------------- phases 2b to 2d
@@ -2978,12 +3047,18 @@ def phase_mesh2(torch) -> None:
                     "placement snapshot at W' = 16"]})
 
 
+#: the Zipf stream's triples (32 M until the run's time had to be won back:
+#: 51.8 s of the run at 32 M on an H100 host, most of it host-side
+#: generation and ingest)
+SCALE_TRIPLES = 16_000_000
+
+
 def phase_scale(torch) -> None:
     from repro_torch.core.engine import AdHashEngine
     from repro_torch.data.synthetic_rdf import generate_stream, zipf_workload
     from repro_torch.kernels import LAUNCHES, reset_launches
 
-    n_triples, chunk = 32_000_000, 1 << 20
+    n_triples, chunk = SCALE_TRIPLES, 1 << 20
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = AdHashEngine.ingest_stream(generate_stream(n_triples, chunk), W,
@@ -3563,6 +3638,8 @@ SIDE_JOBS = {
                   "gradients",
     "hybrid-parity": "the CPU port's forward, loss and first train "
                      "step's gradients",
+    "lubm-parity": "phase 2's device=\"cpu\" engine on the LUBM-100 triples "
+                   "and its answers to two queries of each template",
 }
 
 
@@ -3580,8 +3657,8 @@ def side_models(torch, cfg2):
 def side_main(out: str, threads: int) -> None:
     """The side process: the card's seed-0 weights of each job's config
     first (its only card work, then the ``card-done`` marker), then each
-    of ``SIDE_JOBS``' CPU parts, written to ``out/<job>.pt`` (atomically,
-    with its seconds) as it is done."""
+    of ``SIDE_JOBS``' CPU parts in order, written to ``out/<job>.pt``
+    (atomically, with its seconds) as it is done."""
     import os
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -3595,7 +3672,8 @@ def side_main(out: str, threads: int) -> None:
     Path(f"{out}/card-done").touch()
     jobs = {"moe-parity": lambda: side_moe(torch, *moe),
             "hybrid-parity": lambda: side_family(torch, cfg2, *hybrid,
-                                                 text_len, train_len)}
+                                                 text_len, train_len),
+            "lubm-parity": lambda: side_lubm(torch)}
     for job, run in jobs.items():
         t0 = time.perf_counter()
         res = run()
@@ -3605,7 +3683,7 @@ def side_main(out: str, threads: int) -> None:
         del res
         if job == "moe-parity":
             del moe
-        else:
+        elif job == "hybrid-parity":
             del hybrid
 
 
@@ -3767,6 +3845,12 @@ class SideProcess:
 
 # ------------------------------------------------------------ phase 5
 TRAIN = (1, 4096)  # train_4k's length; its global batch of 256 cut to 1
+#: the vocabulary rows of the checkpoint round trips' models (train-parity's
+#: 2 layers and train-mesh's 0 layers, each at its config's width): the
+#: whole vocabulary's tables and moments (11.2 GB and 7.47 GB) took 47.4 s
+#: and 29.0 s through a 9p temporary directory (~0.9 GB/s written, ~0.45
+#: GB/s read back, on an H100 host)
+CKPT_VOCAB = 16384
 
 
 def phase_train(torch) -> dict[str, int]:
@@ -3860,8 +3944,19 @@ def phase_train(torch) -> dict[str, int]:
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     row, gpu, pg, og = card_vs_cpu_steps(torch, cfg2, 2, 256)
     walls["parity_s"] = time.perf_counter() - t0
-    # the checkpoint round trip, bit for bit, into fresh state
+    # the checkpoint round trip, bit for bit, into fresh state: the same
+    # 2-layer full-width model at CKPT_VOCAB rows after two card steps
     t0 = time.perf_counter()
+    del pg, og
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck_cfg = dataclasses.replace(cfg2, vocab_size=CKPT_VOCAB)
+    gpu = build_model(ck_cfg, device="cuda")
+    pg = gpu.init(0)
+    og = adamw_init(pg)
+    for i in range(2):
+        pg, og, _ = make_train_step(gpu, AdamWConfig())(
+            pg, og, make_batch(ck_cfg, 1, 256, i, device="cuda"))
     with tempfile.TemporaryDirectory() as tmp:
         mgr = CheckpointManager(tmp)
         mgr.save(pg, og, 2)
@@ -3882,7 +3977,7 @@ def phase_train(torch) -> dict[str, int]:
     emit({"phase": "train-parity", "arch": cfg.name, "n_layers": 2,
           "compute_dtype": "float32", "batch": 1, "seq": 256, **row,
           "checkpoint_round_trip_bit_exact": ckpt_equal,
-          "checkpoint_bytes": ckpt_bytes})
+          "checkpoint_vocab": CKPT_VOCAB, "checkpoint_bytes": ckpt_bytes})
     if not row["ok"]:
         raise AssertionError("train-parity: the card's train steps disagree "
                              "with the CPU port's (see the line above)")
@@ -4498,10 +4593,9 @@ def phase_moe_train(torch) -> dict[str, int]:
 
 # ------------------------------------------------------------ phase 6c
 #: the layers of train-mesh's checkpoint round trip, at the config's
-#: width: 0 keeps the embedding table, the LM head and the final norm
-#: (7.47 GB with their moments); a layer adds 6.84 GB, ~30 s of reads and
-#: writes where the temporary directory is a 9p file system (~0.9 GB/s
-#: written, ~0.45 GB/s read back, on an H100 host)
+#: width and CKPT_VOCAB rows: 0 keeps the embedding table, the LM head and
+#: the final norm; a layer adds 6.84 GB, ~30 s of reads and writes where
+#: the temporary directory is a 9p file system
 MESH_CKPT_LAYERS = 0
 
 
@@ -4588,20 +4682,22 @@ def phase_train_mesh(torch, moe_tokens_per_s: float) -> dict[str, int]:
         step_s = float(np.mean([r["s"] for r in steps[1:]]))
 
         # the checkpoint round trip through the mesh, into fresh state, on
-        # the same config at MESH_CKPT_LAYERS layers: the four layers' state
-        # (34.85 GB) takes ~150 s to write and read back
+        # the same config at MESH_CKPT_LAYERS layers and CKPT_VOCAB rows:
+        # the four layers' state (34.85 GB) takes ~150 s to write and read
+        # back
         t0 = time.perf_counter()
         del params, opt, met
         gc.collect()
         torch.cuda.empty_cache()
-        ck_cfg = dataclasses.replace(cfg, n_layers=MESH_CKPT_LAYERS)
+        ck_cfg = dataclasses.replace(cfg, n_layers=MESH_CKPT_LAYERS,
+                                     vocab_size=CKPT_VOCAB)
         ck_model = build_model(ck_cfg, device="cuda")
         params = ck_model.init(0)
         pspecs = param_specs(params, mesh)
         params = place(params, mesh, pspecs)
         opt = adamw_init(params)
         params, opt, _ = make_train_step(ck_model, AdamWConfig(), mesh)(
-            params, opt, batches[0])
+            params, opt, make_batch(ck_cfg, *TRAIN, 0, device="cuda"))
         with tempfile.TemporaryDirectory() as tmp:
             mgr = CheckpointManager(tmp)
             mgr.save(params, opt, 1)
@@ -4637,7 +4733,7 @@ def phase_train_mesh(torch, moe_tokens_per_s: float) -> dict[str, int]:
           "first_step_loss_bit_identical": loss_equal,
           "first_step_params_bit_identical": params_equal,
           "checkpoint_layers": MESH_CKPT_LAYERS,
-          "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_vocab": CKPT_VOCAB, "checkpoint_bytes": ckpt_bytes,
           "checkpoint_round_trip_bit_exact": ckpt_equal,
           "launches": launches, "walls": walls, "ok": ok})
     del params, opt, model, ck_model, batches, step_fn
@@ -4649,15 +4745,24 @@ def phase_train_mesh(torch, moe_tokens_per_s: float) -> dict[str, int]:
     return launches
 
 
-#: train-mesh2's batch and length: the expert stacks, QKV and FFN cut over
-#: two ranks' model axis
-MESH_TRAIN = (2, 512)
+#: train-mesh2's legs: (arch, layers (None: the config's), batch, text
+#: length, decode).  moe: the expert stacks, QKV and FFN cut over two
+#: ranks' model axis; hybrid: one rec/rec/attn group at full width, the
+#: RG-LRU cut per channel, 5 query heads a rank over the whole KV head,
+#: T past the window (2048); audio: whisper-tiny at full size, 3 heads a
+#: rank in each attention, the GeLU MLPs cut (its 51,865-row token table
+#: stays whole by the spec); every head vocab-parallel
+MESH2_LEGS = {"moe": (MOE_ARCH, 2, 2, 512, False),
+              "hybrid": ("recurrentgemma-2b", 3, 2, 2304, True),
+              "audio": ("whisper-tiny", None, 2, 448, True)}
+MESH2_DECODE = (4, 16)  # teacher-forced decode steps, the cache's max_len
 
 TRAIN_MESH2_CHILD = textwrap.dedent(
-    r'''
+    r"""
     import dataclasses
     import json
     import sys
+    import time
 
     import torch
     import torch.distributed as dist
@@ -4672,62 +4777,114 @@ TRAIN_MESH2_CHILD = textwrap.dedent(
     from repro_torch.launch.train import loss_and_grads
     from repro_torch.models.collectives import trace_collectives
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.whisper import whisper_encode
 
-    b, t = int(sys.argv[1]), int(sys.argv[2])
+    legs = json.loads(sys.argv[1])
+    steps, max_len = json.loads(sys.argv[2])
     rank = dist.get_rank()
     mesh = make_local_mesh("cuda")
     assert tuple(mesh.shape) == local_mesh_shape(2) == (1, 2)
-    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=2,
-                              dtype="float32")
-    model = build_model(cfg, device="cuda")
-    whole_bytes = Stats.bytes_of(model.param_specs())  # fake: no storage
-    params = model.init(0)
-    params = place(params, mesh, param_specs(params, mesh))
-    batch = make_batch(cfg, b, t, 0, device="cuda")
-    reset_launches()
-    with trace_collectives() as events:
-        loss, grads = loss_and_grads(model, params, batch, mesh)
-    launches = dict(LAUNCHES)
-    grads = gather_whole(grads, params.placement)
-    out = {"rank": rank, "param_bytes": Stats.bytes_of(params),
-           "whole_param_bytes": whole_bytes, "loss": float(loss),
-           "cut": len(params.placement.cut),
-           "collectives_a_step": collective_bytes(events),
-           "flash": {"forward": launches["flash_attention"],
-                     "backward": launches["flash_attention_bwd"]}}
-    if rank == 0:  # the card's world-size-1 step on the same weights
-        del params
+
+
+    def decode(model, params, batch):
+        # teacher-forced decode steps from a zero cache (the placed
+        # model's cache holds its RG-LRU channels); whisper's over its own
+        # encoder states
+        extra = {}
+        if model.cfg.family == "audio":
+            with torch.no_grad():
+                extra["enc"] = whisper_encode(params, batch["frames"],
+                                              model.cfg)
+        cache = model.init_cache(batch["tokens"].shape[0], max_len, params)
+        out = []
+        for pos in range(steps):
+            lg, cache = model.decode(params, cache, {
+                "tokens": batch["tokens"][:, pos:pos + 1], "pos": pos,
+                **extra})
+            out.append(lg.float())
+        return out
+
+
+    for leg, (arch, layers, b, t, with_decode) in legs.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        model = build_model(cfg, device="cuda")
+        whole_bytes = Stats.bytes_of(model.param_specs())  # fake: no storage
+        params = model.init(0)
+        params = place(params, mesh, param_specs(params, mesh))
+        batch = make_batch(cfg, b, t, 0, device="cuda")
+        reset_launches()
+        with trace_collectives() as events:
+            loss, grads = loss_and_grads(model, params, batch, mesh)
+        launches = dict(LAUNCHES)
+        grads = gather_whole(grads, params.placement)
+        logits = decode(model, params, batch) if with_decode else []
+        out = {"leg": leg, "arch": cfg.name, "n_layers": cfg.n_layers,
+               "batch": b, "seq": t, "rank": rank,
+               "param_bytes": Stats.bytes_of(params),
+               "whole_param_bytes": whole_bytes, "loss": float(loss),
+               "cut": len(params.placement.cut),
+               "cut_leaves": sorted(params.placement.cut),
+               "collectives_a_step": collective_bytes(events),
+               "flash": {"forward": launches["flash_attention"],
+                         "backward": launches["flash_attention_bwd"]}}
+        out["param_share"] = out["param_bytes"] / whole_bytes
+        if rank == 0:  # the card's world-size-1 step on the same weights
+            del params
+            torch.cuda.empty_cache()
+            one = model.init(0)
+            loss1, grads1 = loss_and_grads(model, one, batch)
+            top = max(float(g.abs().max()) for g in grads1.values())
+            worst, worst_leaf = 0.0, None
+            for n, g1 in grads1.items():
+                # bk's gradient is zero in exact arithmetic: rounding noise
+                scale = top if n.endswith(".bk") else float(g1.abs().max())
+                err = float((grads[n] - g1).abs().max()) / max(scale, 1e-30)
+                if err > worst:
+                    worst, worst_leaf = err, n
+            del grads1
+            out.update(loss_one_rank=float(loss1),
+                       loss_rel_err=abs(float(loss) - float(loss1)) /
+                       abs(float(loss1)),
+                       grad_err_over_leaf_max=worst,
+                       grad_worst_leaf=worst_leaf)
+            if with_decode:
+                want = decode(model, one, batch)
+                out["decode_err_over_max"] = max(
+                    float((a - w).abs().max() / w.abs().max())
+                    for a, w in zip(logits, want))
+                out["decode_steps"] = len(want)
+            del one
+        del grads, logits, batch
+        params = None
         torch.cuda.empty_cache()
-        one = model.init(0)
-        loss1, grads1 = loss_and_grads(model, one, batch)
-        top = max(float(g.abs().max()) for g in grads1.values())
-        worst, worst_leaf = 0.0, None
-        for n, g1 in grads1.items():
-            # bk's gradient is zero in exact arithmetic: rounding noise
-            scale = top if n.endswith(".bk") else float(g1.abs().max())
-            err = float((grads[n] - g1).abs().max()) / max(scale, 1e-30)
-            if err > worst:
-                worst, worst_leaf = err, n
-        out.update(loss_one_rank=float(loss1),
-                   loss_rel_err=abs(float(loss) - float(loss1)) /
-                   abs(float(loss1)),
-                   grad_err_over_leaf_max=worst, grad_worst_leaf=worst_leaf)
-    print("TRAINMESH2-OK " + json.dumps(out), flush=True)
-    dist.barrier()
-    '''
+        out["wall_s"] = time.perf_counter() - t0
+        print("TRAINMESH2-OK " + json.dumps(out), flush=True)
+        dist.barrier()
+    """
 )
 
 
-def phase_train_mesh2(torch) -> dict:
+def phase_train_mesh2(torch) -> dict[str, int]:
     """Two gloo ranks on the card over mesh (1, 2) (``local_mesh_shape(2)``,
-    as ``mesh2`` runs its two): qwen2-moe-a2.7b at 2 layers, full width,
-    float32, B=2, T=512, the attention, FFN and expert leaves cut over
-    ``model``; one step's loss and every gradient, gathered whole, against
+    as ``mesh2`` runs its two), in one launch, the legs of
+    ``MESH2_LEGS`` in float32: qwen2-moe-a2.7b at 2 layers (B=2, T=512),
+    recurrentgemma-2b at one group (B=2, T=2,304) and whisper-tiny at full
+    size (B=2, 1,500 frames, 448 tokens), every leaf ``place`` cuts over
+    ``model``; each leg's loss and every gradient, gathered whole, against
     the card's world-size-1 step on the same weights and batch (rank 0):
     the loss within 1e-5 relative, each gradient within 1e-5 of its leaf's
     largest magnitude (``bk``, zero in exact arithmetic, of the largest
-    gradient's).  Gloo carries every collective of the step on the card's
-    tensors (all_reduce and all_gather)."""
+    gradient's); for the hybrid and audio legs four teacher-forced decode
+    steps of the placed model against the whole model's, logits within
+    1e-5 of their largest.  Each rank's placed parameter bytes against the
+    whole model's, and the step's collectives by kind, are printed.  Gloo
+    carries every collective on the card's tensors (all_reduce,
+    all_gather, and the RG-LRU's reduce-scatter).  Returns the flash
+    launches of both ranks' steps, summed."""
     import tempfile
 
     from repro_torch.launch.multihost import launch_localhost
@@ -4737,32 +4894,49 @@ def phase_train_mesh2(torch) -> dict:
         script.write_text(TRAIN_MESH2_CHILD)
         t0 = time.perf_counter()
         results = launch_localhost(
-            2, [str(script), str(MESH_TRAIN[0]), str(MESH_TRAIN[1])],
-            device="cuda", backend="gloo", timeout=240.0)
+            2, [str(script), json.dumps(MESH2_LEGS),
+                json.dumps(MESH2_DECODE)],
+            device="cuda", backend="gloo", timeout=300.0)
         wall = time.perf_counter() - t0
-    outs = []
+    outs: dict[str, list] = {leg: [] for leg in MESH2_LEGS}
     for r in results:
-        line = next((ln for ln in r.stdout.splitlines()
-                     if ln.startswith("TRAINMESH2-OK ")), None)
-        if not r.ok or line is None:
+        lines = [json.loads(ln[len("TRAINMESH2-OK "):])
+                 for ln in r.stdout.splitlines()
+                 if ln.startswith("TRAINMESH2-OK ")]
+        if not r.ok or len(lines) != len(MESH2_LEGS):
             raise AssertionError(f"train-mesh2: rank {r.process_id} rc "
                                  f"{r.returncode}\n{r.stderr[-3000:]}")
-        outs.append(json.loads(line[len("TRAINMESH2-OK "):]))
-    r0 = outs[0]
-    ok = (r0["loss_rel_err"] <= 1e-5 and r0["grad_err_over_leaf_max"] <= 1e-5
-          and all(o["cut"] > 0 and o["flash"]["forward"] > 0 and
-                  o["flash"]["backward"] > 0 for o in outs) and
-          outs[0]["loss"] == outs[1]["loss"])
-    emit({"phase": "train-mesh2", "ranks": 2, "mesh": [1, 2],
-          "backend": "gloo", "device": "cuda", "arch": MOE_ARCH,
-          "n_layers": 2, "compute_dtype": "float32", "batch": MESH_TRAIN[0],
-          "seq": MESH_TRAIN[1], "per_rank": outs,
-          "tolerance": {"loss_rel": 1e-5, "grad_over_leaf_max": 1e-5},
-          "wall_s": wall, "ok": ok})
+        for o in lines:
+            outs[o["leg"]].append(o)
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    ok = True
+    for leg, ranks in outs.items():
+        r0 = ranks[0]
+        leg_ok = (r0["loss_rel_err"] <= 1e-5 and
+                  r0["grad_err_over_leaf_max"] <= 1e-5 and
+                  r0.get("decode_err_over_max", 0.0) <= 1e-5 and
+                  all(o["cut"] > 0 and o["flash"]["forward"] > 0 and
+                      o["flash"]["backward"] > 0 for o in ranks) and
+                  ranks[0]["loss"] == ranks[1]["loss"])
+        ok = ok and leg_ok
+        for o in ranks:
+            launches["flash_attention"] += o["flash"]["forward"]
+            launches["flash_attention_bwd"] += o["flash"]["backward"]
+        emit({"phase": "train-mesh2", "leg": leg, "ranks": 2, "mesh": [1, 2],
+              "backend": "gloo", "device": "cuda", "arch": r0["arch"],
+              "n_layers": r0["n_layers"], "compute_dtype": "float32",
+              "batch": r0["batch"], "seq": r0["seq"], "per_rank": ranks,
+              "tolerance": {"loss_rel": 1e-5, "grad_over_leaf_max": 1e-5,
+                            "decode_over_max": 1e-5},
+              "ok": leg_ok})
+    emit({"phase": "train-mesh2-walls", "wall_s": wall,
+          "legs_s": {leg: max(o["wall_s"] for o in ranks)
+                     for leg, ranks in outs.items()},
+          "launches": launches})
     if not ok:
-        raise AssertionError("train-mesh2: the two ranks' step disagrees "
-                             "with the card's world-size-1 step")
-    return outs[0]
+        raise AssertionError("train-mesh2: the two ranks' step or decode "
+                             "disagrees with the card's world-size-1 one")
+    return launches
 
 
 # ------------------------------------------------------------ phase 6b
@@ -5588,6 +5762,7 @@ def run(torch, smi: str, side: SideProcess, watch: MemoryWatch) -> int:
     t0 = time.perf_counter()
     lubm = phase_lubm(torch)
     launches = lubm["launches"]
+    parity_card = lubm.pop("parity_card")
     lap(side, walls, "lubm_s", t0)
     t0 = time.perf_counter()
     phase_lubm_batch(torch, lubm)
@@ -5657,6 +5832,10 @@ def run(torch, smi: str, side: SideProcess, watch: MemoryWatch) -> int:
     t0 = time.perf_counter()
     phase_scale(torch)
     lap(side, walls, "scale_s", t0)
+    t0 = time.perf_counter()
+    check_lubm_parity(parity_card, side)
+    del parity_card
+    lap(side, walls, "lubm_parity_s", t0)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5686,7 +5865,10 @@ def run(torch, smi: str, side: SideProcess, watch: MemoryWatch) -> int:
         launches[name] += train_mesh[name]
     lap(side, walls, "train_mesh_s", t0)
     t0 = time.perf_counter()
-    phase_train_mesh2(torch)
+    # both ranks' launches on the card join the mesh train path's
+    train_mesh2 = phase_train_mesh2(torch)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += train_mesh2[name]
     lap(side, walls, "train_mesh2_s", t0)
     t0 = time.perf_counter()
     # the hybrid's windowed, the vlm's and the audio prefill launches join

@@ -165,7 +165,8 @@ def _run_step(model, cfg, shape, mesh, params, record: dict) -> None:
             with torch.no_grad(), data_parallel(mesh, axes):
                 outputs = [model.loss(params, batch)]
         else:
-            cache = model.init_cache(batch["tokens"].shape[0], shape.seq_len)
+            cache = model.init_cache(batch["tokens"].shape[0], shape.seq_len,
+                                     params)
             batch["pos"] = shape.seq_len - 1  # a Python int: no fake read
             with data_parallel(mesh, axes):
                 nxt, cache = make_serve_step(model)(params, cache, batch)

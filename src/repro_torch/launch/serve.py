@@ -42,7 +42,9 @@ __all__ = ["serve_loop", "main"]
 
 def serve_loop(model, params, *, batch_size: int, max_len: int,
                steps: int, n_batches: int, controller=None, rng=None):
-    """Decode ``steps`` tokens for ``n_batches`` request batches.
+    """Decode ``steps`` tokens for ``n_batches`` request batches, each from
+    a zero cache made for ``params`` (a placed hybrid's holds its RG-LRU
+    channels).
 
     Returns per-batch decode times (ended by a device synchronize) and the
     final replication plan."""
@@ -56,7 +58,7 @@ def serve_loop(model, params, *, batch_size: int, max_len: int,
     times = []
     plan = None
     for _ in range(n_batches):
-        cache = model.init_cache(batch_size, max_len)
+        cache = model.init_cache(batch_size, max_len, params)
         tok = torch.from_numpy(
             zipf_tokens(rng, model.cfg.vocab_size, (batch_size, 1))
             .astype(np.int64)).to(dev)

@@ -27,32 +27,45 @@ where the port's per-rank layers compute with the cut, and keeps it whole
 (replicated) where they cannot; activations stay replicated over
 ``model`` and the cut layers run Megatron style (``models.collectives``):
 
-  embed.table          rows (``embedding``: the vocab-parallel lookup and
-                       ``adaptive_embed``'s owned rows; the tied head
-                       gathers them)
+  embed.table, tok     rows (``embedding.vocab_lookup``: the
+                       vocab-parallel lookup, and ``adaptive_embed``'s
+                       owned rows)
+  LM head              embed.out by columns, a tied table by its rows:
+                       vocab-parallel logits, the loss's log-sum-exp
+                       from them (``transformer.chunked_nll``), decode
+                       logits gathered at the end of a step
   attention            wq, bq by columns and wo by rows, on whole query
                        heads; wk, wv, bk, bv by columns where the KV heads
-                       split over ``model`` (``models.attention``)
+                       split over ``model`` (``models.attention``; the
+                       hybrid family's windowed MQA and whisper's self-
+                       and cross-attention too)
   SwiGLU (mlp, and     w1, w3 by columns, w2 by rows
   moe.shared)
+  GeLU MLP (whisper)   w1 by columns, w2 by rows; b1 and b2 whole, as the
+                       spec keeps them (``models.mlp``)
+  RG-LRU (hybrid)      w_y, w_x, conv, w_i, w_r by columns, lam by
+                       channels, w_o by rows; the recurrence per channel
+                       (``models.rglru``)
   moe expert stacks    over the experts, or within each expert's hidden
                        width where E does not divide (60 experts over 8)
 
 Kept whole although the spec cuts them:
 
   * a cut that is not on whole heads: wq/bq/wo where H does not split
-    over ``model`` (then the whole layer), wk/wv/bk/bv where KV does not
-    (recurrentgemma-2b's single KV head, llama3-8b's 8 over 16); and a
-    layer whose query heads' KV heads are not a whole run of heads;
+    over ``model`` (then the whole layer: whisper-tiny's 6 heads over 4),
+    wk/wv/bk/bv where KV does not (recurrentgemma-2b's single KV head,
+    llama3-8b's 8 over 16); and a layer whose query heads' KV heads are
+    not a whole run of heads;
   * a cut of the stacked layer axis (the reference cuts the (L, D, F)
     shared-expert stacks over layers where L divides and the width does
-    not: qwen2-moe's smoke config at ``model`` 2);
-  * the LM head ``embed.out`` (the reference's (None, 'model'): its logits
-    would be vocab-parallel; the loss uses the whole head);
-  * every leaf of the hybrid family (RG-LRU ``w_x``, ``w_y``, ``w_i``,
-    ``w_r``, ``conv``, ``lam`` and its attention and MLPs), of the audio
-    family (whisper's layers) and the vlm ``projector``; the ssm family is
-    replicated by its spec.
+    not: qwen2-moe's smoke config at ``model`` 2).
+
+Whisper-tiny's ``tok`` (51,865 rows, odd) stays whole on every mesh by
+the spec itself, as do the vlm ``projector``, whisper's ``enc_pos`` and
+``dec_pos``, the norms, and the ssm family's mixers.  A cut RG-LRU's
+decode state holds this rank's channels (``transformer.init_lm_cache``
+with the placed params), where the reference's ``cache_specs`` keeps it
+replicated over ``model``: no rank reads another rank's channels.
 
 ``Placement`` (``params.placement``) records the mesh and each cut leaf's
 dimension: ``gather_whole`` joins cut leaves back to their whole shape (the
@@ -71,16 +84,18 @@ from torch import nn
 from repro_torch.models.attention import Attention, AttnTP
 from repro_torch.models.collectives import axis_group, axis_rank, axis_size
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.mlp import SwiGLU
+from repro_torch.models.mlp import GeLUMLP, SwiGLU
 from repro_torch.models.moe import MoE, MoETP
+from repro_torch.models.rglru import RGLRU
 
 from .mesh import batch_axes
 
 __all__ = ["param_specs", "batch_specs", "cache_specs", "place", "leaves",
            "Placement", "gather_cut", "gather_whole", "Stats"]
 
-#: the families whose attention, FFN and expert leaves ``place`` cuts
-TP_FAMILIES = ("dense", "moe", "vlm")
+#: the families whose layers ``place`` cuts (the ssm family's spec keeps
+#: its mixers whole)
+TP_FAMILIES = ("dense", "moe", "vlm", "hybrid", "audio")
 
 # parameter-name -> spec for the *trailing* dims (leading dims replicated)
 _LAST2 = {
@@ -329,6 +344,47 @@ def _place_swiglu(mod: SwiGLU, prefix: str, specs, mesh, m, r,
         mod.tp = axis_group(mesh, "model")
 
 
+def _place_gelu(mod: GeLUMLP, prefix: str, specs, mesh, m, r,
+                cut: dict) -> None:
+    names, dims = ("w1", "w2"), (1, 0)
+    if _cuts(specs, prefix, names, dims):
+        _cut_all(mod, prefix, names, dims, m, r, cut)
+        mod.tp = axis_group(mesh, "model")
+
+
+def _place_rglru(mod: RGLRU, prefix: str, specs, mesh, m, r,
+                 cut: dict) -> None:
+    names = ("w_y", "w_x", "conv", "w_i", "w_r", "lam", "w_o")
+    dims = (1, 1, 1, 1, 1, 0, 0)
+    if _cuts(specs, prefix, names, dims):
+        _cut_all(mod, prefix, names, dims, m, r, cut)
+        mod.tp = axis_group(mesh, "model")
+
+
+def _place_rows(params: nn.Module, name: str, specs, mesh, m, r,
+                cut: dict):
+    """Cut ``params``' table ``name`` by rows over ``model`` where its spec
+    does; returns the ``model`` group if it did, else None."""
+    if m > 1 and _layer_spec(specs, name) == ("model", None):
+        _cut_all(params, "", (name,), (0,), m, r, cut)
+        return axis_group(mesh, "model")
+    return None
+
+
+def _place_head(embed: nn.Module, specs, cfg, mesh, m, r, cut: dict
+                ) -> None:
+    """The vocab-parallel head: ``out`` cut by columns, or a tied table
+    already cut by rows."""
+    if m == 1:
+        return
+    if cfg.tie_embeddings:
+        if "embed.table" in cut:
+            embed.head = axis_group(mesh, "model")
+    elif _cuts(specs, "embed.", ("out",), (1,)):
+        _cut_all(embed, "embed.", ("out",), (1,), m, r, cut)
+        embed.head = axis_group(mesh, "model")
+
+
 def _place_moe(mod: MoE, prefix: str, specs, mesh, m, r, cut: dict) -> None:
     names = ("w1", "w3", "w2")
     for by_experts, dims in ((True, (0, 0, 0)), (False, (2, 2, 1))):
@@ -351,20 +407,29 @@ def place(params: nn.Module, mesh, specs: dict[tuple[str, ...], tuple]
         return params
     m, r = axis_size(mesh, "model"), axis_rank(mesh, "model")
     cut: dict[str, int] = {}
+    cfg = getattr(params, "cfg", None)
     embed = getattr(params, "embed", None)
     if embed is not None and getattr(embed, "mesh", None) is None:
         if _layer_spec(specs, "embed.table")[0] == "model":
             _cut_all(embed, "embed.", ("table",), (0,), m, r,
                      cut if m > 1 else {})
             embed.mesh = mesh
-    cfg = getattr(params, "cfg", None)
+        if cfg is not None:
+            _place_head(embed, specs, cfg, mesh, m, r, cut)
     if m > 1 and cfg is not None and cfg.family in TP_FAMILIES:
+        if cfg.family == "audio":
+            params.tok_tp = _place_rows(params, "tok", specs, mesh, m, r,
+                                        cut)
         for prefix, mod in params.named_modules():
             prefix = f"{prefix}." if prefix else ""
             if isinstance(mod, Attention):
                 _place_attention(mod, prefix, specs, cfg, mesh, m, r, cut)
             elif isinstance(mod, SwiGLU):
                 _place_swiglu(mod, prefix, specs, mesh, m, r, cut)
+            elif isinstance(mod, GeLUMLP):
+                _place_gelu(mod, prefix, specs, mesh, m, r, cut)
+            elif isinstance(mod, RGLRU):
+                _place_rglru(mod, prefix, specs, mesh, m, r, cut)
             elif isinstance(mod, MoE):
                 _place_moe(mod, prefix, specs, mesh, m, r, cut)
     params.placement = Placement(mesh, cut)

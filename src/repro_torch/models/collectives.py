@@ -52,6 +52,8 @@ __all__ = [
     "all_reduce_mesh",
     "copy_to_parallel",
     "all_reduce_sum",
+    "all_gather_parallel",
+    "all_reduce_max",
     "data_parallel",
     "dp_axes",
     "dp_blocks",
@@ -145,6 +147,28 @@ class _ReduceSum(torch.autograd.Function):
         return grad, None
 
 
+class _GatherParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim = group, dim
+        m = dist.get_world_size(group)
+        parts = x.new_empty((m, *x.shape))
+        dist.all_gather(list(parts.unbind(0)), x.contiguous(), group=group)
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        m = dist.get_world_size(ctx.group)
+        parts = [g.contiguous() for g in grad.chunk(m, dim=ctx.dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=ctx.group)
+        return out, None, None
+
+
 def _single(group) -> bool:
     import torch.distributed as dist
 
@@ -161,6 +185,25 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x``; backward: the gradient summed over
     ``group`` too (each rank uses the result in its own way)."""
     return x if _single(group) else _ReduceSum.apply(x, group)
+
+
+def all_gather_parallel(x: torch.Tensor, group, dim: int = -1
+                        ) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group-rank order: the
+    whole of an activation cut along ``dim``.  Backward: a reduce-scatter
+    (this rank's slice of the gradient summed over ``group``)."""
+    return x if _single(group) else _GatherParallel.apply(x, group, dim)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every rank's ``x``, detached (a new
+    tensor)."""
+    import torch.distributed as dist
+
+    x = x.detach().clone()
+    if not _single(group):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
 
 
 def all_gather_replicated(x: torch.Tensor, group) -> torch.Tensor:
@@ -291,6 +334,7 @@ def all_reduce_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
 # ------------------------------------------------------------------- tracing
 _KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
           "all_gather_into_tensor": "all-gather",
+          "reduce_scatter": "reduce-scatter",
           "reduce_scatter_tensor": "reduce-scatter",
           "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
 

@@ -27,7 +27,10 @@ already trees of the reference's structure.
 dicts and lists of arrays, the same structure in both packages) across,
 each leaf in its own dtype: an int8 cache's payloads ``k`` and ``v`` stay
 int8 beside their float32 ``k_scale`` and ``v_scale``, a bf16 leaf stays
-bf16, so both packages' decode can step from the same cache.
+bf16, so both packages' decode can step from the same cache.  A hybrid
+cache made for a model placed cut over ``model`` holds this rank's
+channels of each RG-LRU state: ``cache_to_numpy(cache, params)`` gathers
+them whole (every rank calls it).
 """
 from __future__ import annotations
 
@@ -174,15 +177,32 @@ def cache_from_numpy(tree, device: str | torch.device = "cuda"):
     return _cache_map(tree, leaf)
 
 
-def cache_to_numpy(cache):
+def cache_to_numpy(cache, params=None):
     """The reference's numpy tree of a port decode cache: int8 leaves stay
-    int8, float leaves become float32 (exact for bf16)."""
+    int8, float leaves become float32 (exact for bf16).  ``params``: the
+    model the cache is for; where it is a hybrid whose RG-LRU blocks are
+    cut over ``model``, their states (this rank's channels, the last
+    dimension) are gathered whole over it."""
     def leaf(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.numpy() if t.dtype in (torch.int8, torch.float32)
                 else t.float().numpy())
 
+    placement = getattr(params, "placement", None)
+    if placement is not None and any(n.endswith("mixer.lam")
+                                     for n in placement.cut):
+        from repro_torch.launch.shardings import gather_cut
+        from .collectives import axis_group
+
+        group = axis_group(placement.mesh, "model")
+        whole = lambda t: gather_cut(t, t.dim() - 1, group)
+        cache = {k: (_cache_map(v, whole) if k in _REC_STATES else v)
+                 for k, v in cache.items()}
     return _cache_map(cache, leaf)
+
+
+#: a hybrid cache's RG-LRU states
+_REC_STATES = ("rec1", "rec2", "tail")
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig,

@@ -5,8 +5,13 @@ PyTorch port of ``repro.models.embedding``.  The table is whole on one
 device.  On a mesh, ``launch.shardings.place`` cuts it to this rank's rows
 of the ``model`` axis (``Embedding.mesh`` then names the mesh), and the
 plain lookup runs the lowering GSPMD gives the reference's row-sharded
-table (masked local gathers and an all-reduce of the rows); the tied LM
-head gathers the table's rows over ``model``.
+table (masked local gathers and an all-reduce of the rows).  The LM head
+is vocab-parallel there (``Embedding.head``, the ``model`` group, set by
+``place`` where the head is cut): ``out`` holds this rank's columns, a
+tied head this rank's rows of the table, each rank's logits are its
+slice of the vocabulary, and ``lm_head`` gathers them over ``model``
+only at its end (decode); the loss takes its log-sum-exp from the
+per-rank logits (``transformer.chunked_nll``).
 
 ``adaptive_embed`` is the paper's IRD applied to embeddings: the hot rows
 the controller chose are replicated on every rank (gathered from their
@@ -28,17 +33,21 @@ from torch import nn
 
 from .collectives import (all_gather_replicated, all_reduce_mesh,
                           all_reduce_replicated, axis_group, axis_rank,
-                          axis_size, data_gather, data_shard)
+                          axis_size, copy_to_parallel, data_gather,
+                          data_shard)
 from .common import ModelConfig, dense_init
 
-__all__ = ["Embedding", "init_embedding", "embed", "lm_head", "head_weight",
-           "adaptive_embed"]
+__all__ = ["Embedding", "init_embedding", "embed", "vocab_lookup", "lm_head",
+           "head_weight", "gather_logits", "adaptive_embed"]
 
 
 class Embedding(nn.Module):
     """table (V, D), or this rank's (V / m, D) rows once placed on a mesh
     (``mesh`` set); out (D, V) unless the config ties the head to the
-    table."""
+    table, this rank's (D, V / m) columns once cut; ``head`` the ``model``
+    group where the head is cut (vocab-parallel logits)."""
+
+    head = None
 
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -59,37 +68,48 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig,
     return Embedding(p)
 
 
-def _rows(p: Embedding) -> tuple[int, int]:
-    """(rank along model, rows a rank) of a placed table."""
-    return axis_rank(p.mesh, "model"), p.table.shape[0]
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, group
+                 ) -> torch.Tensor:
+    """(B, T) ids -> (B, T, D) rows of a table cut by rows over ``group``
+    (this rank's block of rows): the masked local gather, all-reduced."""
+    import torch.distributed as dist
+
+    rows = table.shape[0]
+    local = ids.long() - dist.get_rank(group) * rows
+    own = (local >= 0) & (local < rows)
+    got = F.embedding(local.clamp(0, rows - 1), table) * own[..., None]
+    return all_reduce_replicated(got, group)
 
 
 def embed(p: Embedding, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(B, T) ids -> (B, T, D) rows in the compute dtype."""
     if p.mesh is None:
         return F.embedding(ids.long(), p.table).to(cfg.cdtype)
-    r, rows = _rows(p)
-    local = ids.long() - r * rows
-    own = (local >= 0) & (local < rows)
-    got = F.embedding(local.clamp(0, rows - 1), p.table) * own[..., None]
-    return all_reduce_replicated(got, axis_group(p.mesh, "model")
-                                 ).to(cfg.cdtype)
+    return vocab_lookup(p.table, ids, axis_group(p.mesh, "model")
+                        ).to(cfg.cdtype)
 
 
 def head_weight(p: Embedding, cfg: ModelConfig) -> torch.Tensor:
-    """The LM head's whole (D, V) weight: ``out``, or the tied table's
-    transpose (a placed table's rows gathered over ``model``)."""
-    if not cfg.tie_embeddings:
-        return p.out
-    if p.mesh is None:
-        return p.table.t()
-    g = all_gather_replicated(p.table, axis_group(p.mesh, "model"))
-    return g.flatten(0, 1).t()
+    """The LM head's (D, V) weight: ``out``, or the tied table's transpose;
+    where the head is cut (``p.head``), this rank's (D, V / m) columns."""
+    return p.table.t() if cfg.tie_embeddings else p.out
+
+
+def gather_logits(logits: torch.Tensor, group) -> torch.Tensor:
+    """The whole vocabulary's logits from every rank's slice (the last
+    dimension), in group-rank order."""
+    if group is None:
+        return logits
+    g = all_gather_replicated(logits, group)  # (m, ..., V / m)
+    return torch.cat(g.unbind(0), dim=-1)
 
 
 def lm_head(p: Embedding, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, T, D) -> (B, T, V) logits in h's dtype."""
-    return h @ head_weight(p, cfg).to(h.dtype)
+    """(B, T, D) -> (B, T, V) logits in h's dtype; a cut head's
+    vocab-parallel logits are gathered over ``model``."""
+    if p.head is not None:
+        h = copy_to_parallel(h, p.head)
+    return gather_logits(h @ head_weight(p, cfg).to(h.dtype), p.head)
 
 
 def adaptive_embed(

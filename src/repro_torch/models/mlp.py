@@ -8,7 +8,11 @@ A SwiGLU that ``launch.shardings.place`` cut over a mesh's ``model`` axis
 (``SwiGLU.tp``, the axis's group: w1 and w3 by columns, w2 by rows) runs
 tensor-parallel: the input enters through ``copy_to_parallel`` and the
 row-parallel product's partial output is summed by
-``all_reduce_replicated``.
+``all_reduce_replicated``.  A cut GeLU MLP (``GeLUMLP.tp``: w1 by
+columns, w2 by rows) runs the same way, with the biases the reference's
+spec keeps whole: each rank adds its slice of the whole b1, taken through
+``copy_to_parallel`` so that b1's gradient (zero outside the slice on
+each rank) is summed over the axis, and b2 is added once, after the sum.
 """
 from __future__ import annotations
 
@@ -60,7 +64,11 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
 
 
 class GeLUMLP(nn.Module):
-    """w1 (D, F), b1 (F,), w2 (F, D), b2 (D,)."""
+    """w1 (D, F), b1 (F,), w2 (F, D), b2 (D,); ``tp`` the ``model`` group
+    once placed cut (w1's columns and w2's rows this rank's share, the
+    biases whole)."""
+
+    tp = None
 
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -83,5 +91,16 @@ def init_gelu_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def gelu_mlp(p: GeLUMLP, x: torch.Tensor) -> torch.Tensor:
-    h = F.gelu(x @ p.w1.to(x.dtype) + p.b1.to(x.dtype), approximate="tanh")
-    return h @ p.w2.to(x.dtype) + p.b2.to(x.dtype)
+    b1 = p.b1
+    if p.tp is not None:
+        import torch.distributed as dist
+
+        x = copy_to_parallel(x, p.tp)
+        f = p.w1.shape[1]
+        b1 = copy_to_parallel(b1, p.tp).narrow(
+            0, dist.get_rank(p.tp) * f, f)
+    h = F.gelu(x @ p.w1.to(x.dtype) + b1.to(x.dtype), approximate="tanh")
+    y = h @ p.w2.to(x.dtype)
+    if p.tp is not None:
+        y = all_reduce_replicated(y, p.tp)
+    return y + p.b2.to(x.dtype)

@@ -4,7 +4,8 @@ PyTorch port of ``repro.models.model_zoo``: every family of the JAX
 package (dense, moe, ssm, hybrid, vlm and audio).  Each arch exposes:
   init(seed, dtype)              -> params (an ``nn.Module`` on the device)
   loss(params, batch)            -> scalar CE loss (the prefill lowering)
-  init_cache(batch, max_len)     -> decode cache (zeros)
+  init_cache(batch, max_len[, params]) -> decode cache (zeros; a placed
+                                 hybrid's RG-LRU states hold its channels)
   decode(params, cache, batch)   -> (logits, cache)   (the serve lowering)
   input_specs(shape)             -> {name: (shape, dtype)} of a cell's inputs
   param_specs()                  -> the params without storage (fake)
@@ -56,7 +57,7 @@ class ModelAPI:
     device: torch.device
     init: Callable[..., Any]
     loss: Callable[[Any, dict], torch.Tensor]
-    init_cache: Callable[[int, int], Any]
+    init_cache: Callable[..., Any]
     decode: Callable[[Any, Any, dict], tuple[torch.Tensor, Any]]
 
     def input_specs(self, shape) -> dict[str, tuple[tuple[int, ...],
@@ -130,9 +131,9 @@ def build_model(cfg: ModelConfig, opts: "tfm.RuntimeOptions | None" = None,
                            opts=opts)
 
     @torch.inference_mode()
-    def init_cache(b, max_len):
+    def init_cache(b, max_len, params=None):
         return tfm.init_lm_cache(cfg, b, max_len, device=dev,
-                                 opts=None if vlm else opts)
+                                 opts=None if vlm else opts, params=params)
 
     @torch.inference_mode()
     def decode(params, cache, batch):
@@ -155,7 +156,7 @@ def _audio(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
                                 batch["labels"], cfg)
 
     @torch.inference_mode()
-    def init_cache(b, max_len):
+    def init_cache(b, max_len, params=None):
         return whm.init_whisper_cache(cfg, b, max_len, device=dev)
 
     @torch.inference_mode()

@@ -14,6 +14,19 @@ whole-tensor ops (a Python loop over T = 4096 steps would cost a launch a
 step on the card).  The GeLU is the tanh approximation, ``jax.nn.gelu``'s
 default (``F.gelu``'s default is the exact form, 5e-4 away at x = -3).
 Decode is one gated-recurrence step.  No Pallas kernel is on this path.
+
+A block that ``launch.shardings.place`` cut over a mesh's ``model`` axis
+(``RGLRU.tp``, the axis's group; the reference's spec) runs on this
+rank's W / m channels: w_y, w_x, conv, w_i and w_r hold their columns,
+lam its entries and w_o its rows.  The input enters through
+``copy_to_parallel``; each rank computes its channels of the GeLU branch
+and of the conv branch; the gate products read the whole conv output,
+joined by ``all_gather_parallel`` (whose backward reduce-scatters the
+gate products' partial gradients); the recurrence runs per channel, so
+``linear_scan`` over a rank's channels gives the same bits as the whole
+scan on them; and (h * y) @ w_o is summed over ``model``.  A cut block's
+decode state holds this rank's channels of ``h`` and of the conv ring
+(``init_rglru_state``'s ``width``); no rank reads another's.
 """
 from __future__ import annotations
 
@@ -23,6 +36,8 @@ from torch import nn
 
 from repro_torch.core.backend import resolve_device
 
+from .collectives import (all_gather_parallel, all_reduce_replicated,
+                          copy_to_parallel)
 from .common import ModelConfig, dense_init
 from .ssm import causal_conv, softplus
 
@@ -35,7 +50,10 @@ _PARAMS = ("w_y", "w_x", "conv", "w_i", "w_r", "lam", "w_o")
 
 class RGLRU(nn.Module):
     """w_y and w_x (D, W), conv (4, W), w_i and w_r (W, W), lam (W,), w_o
-    (W, D)."""
+    (W, D); ``tp`` the ``model`` group once placed cut (then W this rank's
+    channels of the outputs and of w_o's rows)."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -67,9 +85,12 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig,
     })
 
 
-def _gates(p: RGLRU, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    i = torch.sigmoid(x @ p.w_i.to(x.dtype))
-    r = torch.sigmoid(x @ p.w_r.to(x.dtype))
+def _gates(p: RGLRU, x: torch.Tensor, xg: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) of this rank's channels ``x``; ``xg`` is the whole conv
+    output the gate products read (``x`` itself when uncut)."""
+    i = torch.sigmoid(xg @ p.w_i.to(x.dtype))
+    r = torch.sigmoid(xg @ p.w_r.to(x.dtype))
     log_a = -_C * softplus(p.lam.float())[None, None, :] * r.float()
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * (
@@ -105,20 +126,34 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
+def _whole(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
+    """The whole conv output from this rank's channels ``x``."""
+    return x if p.tp is None else all_gather_parallel(x, p.tp, -1)
+
+
+def _out(p: RGLRU, hy: torch.Tensor) -> torch.Tensor:
+    """(h * y) @ w_o, summed over ``model`` when cut."""
+    out = hy @ p.w_o.to(hy.dtype)
+    return out if p.tp is None else all_reduce_replicated(out, p.tp)
+
+
 def rglru_block(p: RGLRU, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """u: (B, T, D) -> (B, T, D)."""
+    if p.tp is not None:
+        u = copy_to_parallel(u, p.tp)
     y = F.gelu(u @ p.w_y.to(u.dtype), approximate="tanh")
     x = causal_conv(u @ p.w_x.to(u.dtype), p.conv.to(u.dtype))
-    a, b = _gates(p, x)
+    a, b = _gates(p, x, _whole(p, x))
     _, h = linear_scan(a, b)
-    return (h.to(u.dtype) * y) @ p.w_o.to(u.dtype)
+    return _out(p, h.to(u.dtype) * y)
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int,
-                     device: str | torch.device = "cuda") -> dict:
+                     device: str | torch.device = "cuda",
+                     width: int | None = None) -> dict:
     """{"conv": (B, 3, W) in the compute dtype, "h": (B, W) float32},
-    zero."""
-    w = _width(cfg)
+    zero; ``width`` a cut block's channels (default the config's W)."""
+    w = width or _width(cfg)
     dev = resolve_device(device)
     return {"conv": torch.zeros((batch, 3, w), dtype=cfg.cdtype, device=dev),
             "h": torch.zeros((batch, w), dtype=torch.float32, device=dev)}
@@ -126,13 +161,14 @@ def init_rglru_state(cfg: ModelConfig, batch: int,
 
 def rglru_decode_step(p: RGLRU, u: torch.Tensor, state: dict,
                       cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """u: (B, 1, D) -> (y, new state); O(1) per token."""
+    """u: (B, 1, D) -> (y, new state); O(1) per token.  A cut block's
+    state is its channels'."""
     y = F.gelu(u @ p.w_y.to(u.dtype), approximate="tanh")
     xc = u @ p.w_x.to(u.dtype)  # (B, 1, W)
     hist = torch.cat([state["conv"], xc.to(state["conv"].dtype)], dim=1)
     w = p.conv.to(u.dtype)
     x = torch.einsum("bkc,kc->bc", hist.to(u.dtype), w)[:, None, :]
-    a, b = _gates(p, x)  # (B, 1, W) each
+    a, b = _gates(p, x, _whole(p, x))  # (B, 1, W) each
     h = a[:, 0] * state["h"] + b[:, 0]
-    out = (h[:, None, :].to(u.dtype) * y) @ p.w_o.to(u.dtype)
+    out = _out(p, h[:, None, :].to(u.dtype) * y)
     return out, {"conv": hist[:, 1:], "h": h}

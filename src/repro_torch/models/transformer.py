@@ -51,6 +51,13 @@ PyTorch port of ``repro.models.transformer``:
   calls ``adaptive_embed`` itself with the same capacity
   (``cold_capacity``).
 
+* on a mesh whose ``model`` axis cuts the LM head (``embedding.Embedding.
+  head``), the loss is vocab-parallel: ``chunked_nll`` takes each rank's
+  logits of its vocabulary slice, the log-sum-exp from their all-reduced
+  max and sum of exps, the gold logit from its owner; decode gathers the
+  logits at the end of a step.  On an axis of one rank nothing is cut and
+  the program is the one without a mesh, bit for bit.
+
 The audio family (whisper) is an encoder-decoder of its own
 (``models.whisper``), which uses this module's remat and chunked loss.
 """
@@ -71,7 +78,8 @@ from . import moe as moem
 from . import moe_sharded as moesh
 from . import rglru as rg
 from . import ssm as ssmm
-from .collectives import axis_size, data_sum, dp_blocks
+from .collectives import (all_reduce_max, all_reduce_replicated, axis_size,
+                          copy_to_parallel, data_sum, dp_blocks)
 from .common import ModelConfig, rms_norm
 
 __all__ = [
@@ -343,6 +351,29 @@ def _chunk_nll(hc: torch.Tensor, lc: torch.Tensor, w_out: torch.Tensor
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
+def _chunk_nll_vocab_parallel(hc: torch.Tensor, lc: torch.Tensor,
+                              w_out: torch.Tensor, group
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_chunk_nll`` of a head cut over ``group`` (``w_out`` this rank's
+    (D, V / m) columns): the log-sum-exp from the per-rank logits, shifted
+    by their all-reduced max (no gradient), the sum of exps and the gold
+    logit (from the rank that owns it) summed over the group; h enters
+    through ``copy_to_parallel``."""
+    import torch.distributed as dist
+
+    logits = (copy_to_parallel(hc, group) @ w_out).float()
+    v = logits.shape[-1]
+    top = all_reduce_max(logits.amax(dim=-1), group)
+    sum_exp = torch.exp(logits - top[..., None]).sum(dim=-1)
+    lse = top + torch.log(all_reduce_replicated(sum_exp, group))
+    local = lc - dist.get_rank(group) * v
+    own = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    gold = all_reduce_replicated(gold * own, group)
+    mask = (lc >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
 def lm_loss(
     params: LM,
     tokens: torch.Tensor,  # (B, T)
@@ -365,21 +396,26 @@ def hidden_loss(params: LM, h: torch.Tensor, labels: torch.Tensor,
                 cfg: ModelConfig, loss_chunk: int = 128) -> torch.Tensor:
     """``lm_loss`` from the final hidden states (B, T, D) of the labelled
     positions: the LM head and the cross-entropy, in chunks of
-    ``loss_chunk`` positions."""
+    ``loss_chunk`` positions (vocab-parallel where the head is cut)."""
     w_out = emb.head_weight(params.embed, cfg).to(h.dtype)
-    return chunked_nll(h, labels, w_out, cfg, loss_chunk)
+    return chunked_nll(h, labels, w_out, cfg, loss_chunk,
+                       getattr(params.embed, "head", None))
 
 
 def chunked_nll(h: torch.Tensor, labels: torch.Tensor, w_out: torch.Tensor,
-                cfg: ModelConfig, loss_chunk: int = 128) -> torch.Tensor:
+                cfg: ModelConfig, loss_chunk: int = 128,
+                group=None) -> torch.Tensor:
     """Mean masked cross-entropy of the logits ``h @ w_out`` (taken in
     float32), in chunks of ``loss_chunk`` positions, each under remat when
-    ``cfg.remat`` asks for it.  Inside a data-parallel region the count is
-    the global batch's (``collectives.data_sum``), so the ranks' losses sum
-    to the global batch's mean."""
+    ``cfg.remat`` asks for it.  With ``group``, ``w_out`` is this rank's
+    columns of a head cut over it, and the logits stay vocab-parallel
+    (``_chunk_nll_vocab_parallel``).  Inside a data-parallel region the
+    count is the global batch's (``collectives.data_sum``), so the ranks'
+    losses sum to the global batch's mean."""
     t = h.shape[1]
     c = min(loss_chunk, t)
-    chunk = _remat(_chunk_nll, cfg)
+    chunk = _remat(_chunk_nll if group is None else
+                   partial(_chunk_nll_vocab_parallel, group=group), cfg)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, t, c):
@@ -396,28 +432,41 @@ def _stacked(state: dict, n: int) -> dict:
             for name, t in state.items()}
 
 
+def _rec_width(params) -> int | None:
+    """The RG-LRU channels a hybrid model's recurrent blocks hold (a cut
+    block's share), or None for the config's width (no params, or not a
+    hybrid)."""
+    subs = [g.rec1 for g in getattr(params, "groups", ())] + \
+        list(getattr(params, "tail", ()))
+    return subs[0].mixer.lam.shape[0] if subs else None
+
+
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device: str | torch.device = "cuda",
-                  opts: RuntimeOptions | None = None) -> dict:
+                  opts: RuntimeOptions | None = None,
+                  params: LM | None = None) -> dict:
     """Zero decode caches in the reference's structure, stacked over the
     layers (groups): dense, moe and vlm {"kv": {"k", "v"}}, each (n_layers,
     B, max_len, KV, hd) in the compute dtype (dense and moe with
     ``opts.kv_cache_int8``: int8 "k", "v" and float32 "k_scale",
     "v_scale" (n_layers, B, max_len, KV)); ssm {"ssm": {"conv", "ssm"}};
     hybrid {"rec1", "rec2": RG-LRU states, "attn": rings of min(window,
-    max_len) slots, "tail": a list of RG-LRU states}."""
+    max_len) slots, "tail": a list of RG-LRU states}.  ``params``: the
+    model the cache is for; a hybrid placed cut over ``model`` keeps this
+    rank's channels of each RG-LRU state."""
     check_supported(cfg)
     if cfg.family == "ssm":
         return {"ssm": _stacked(ssmm.init_ssm_state(cfg, batch, device),
                                 cfg.n_layers)}
     if cfg.family == "hybrid":
         ng, rem = hybrid_counts(cfg)
-        rec = rg.init_rglru_state(cfg, batch, device)
+        w = _rec_width(params)
+        rec = rg.init_rglru_state(cfg, batch, device, w)
         kv = attn.init_kv_cache(cfg, batch, min(cfg.hybrid.window, max_len),
                                 device=device)
         return {"rec1": _stacked(rec, ng), "rec2": _stacked(rec, ng),
                 "attn": _stacked(kv, ng),
-                "tail": [rg.init_rglru_state(cfg, batch, device)
+                "tail": [rg.init_rglru_state(cfg, batch, device, w)
                          for _ in range(rem)]}
     int8 = bool(opts is not None and opts.kv_cache_int8
                 and cfg.family in ("dense", "moe"))

@@ -19,6 +19,19 @@ checkpointing when ``cfg.remat`` asks for it and autograd records, as
 decoder layer, stacked as the reference stacks it, written in place; it
 re-projects the cross-attention's K and V from ``enc`` at every step, as
 the reference does.
+
+On a mesh, ``launch.shardings.place`` cuts the model over ``model`` as the
+reference's spec does: each attention (the encoder's, the decoder's self-
+and cross-attention) on whole heads, as the dense family's
+(``models.attention``; cross-attention projects K and V from ``enc`` with
+the cut wk and wv), each GeLU MLP by w1's columns and w2's rows with its
+biases whole (``models.mlp``), and the token table ``tok`` by rows where
+the vocabulary divides (``Whisper.tok_tp``, the ``model`` group): the
+lookup is then vocab-parallel, as ``embedding.vocab_lookup``, the loss
+takes its log-sum-exp from the per-rank logits of the tied head
+(``transformer.chunked_nll``), and decode gathers the logits over
+``model`` at the end of a step.  ``enc_pos``, ``dec_pos`` and the norms
+stay whole.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ from torch import nn
 from repro_torch.core.backend import resolve_device
 
 from . import attention as attn
+from . import embedding as emb
 from . import mlp as mlpm
 from . import transformer as tfm
 from .common import ModelConfig, dense_init
@@ -110,8 +124,11 @@ class DecLayer(nn.Module):
 
 class Whisper(nn.Module):
     """``enc_pos`` (n_frames, D), ``dec_pos`` (max_dec_len, D), the tied
-    token embedding ``tok`` (V, D), the layers ``enc`` and ``dec``, and the
+    token embedding ``tok`` (V, D; this rank's rows once cut, ``tok_tp``
+    then the ``model`` group), the layers ``enc`` and ``dec``, and the
     final norms ``ln_enc`` and ``ln_dec``."""
+
+    tok_tp = None
 
     def __init__(self, cfg: ModelConfig, enc_pos: torch.Tensor,
                  dec_pos: torch.Tensor, tok: torch.Tensor,
@@ -168,6 +185,8 @@ def _decode_stack(p: Whisper, x: torch.Tensor, enc: torch.Tensor,
 
 def _embed(p: Whisper, tokens: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
+    if p.tok_tp is not None:
+        return emb.vocab_lookup(p.tok, tokens, p.tok_tp).to(cfg.cdtype)
     return p.tok[tokens.long()].to(cfg.cdtype)
 
 
@@ -186,7 +205,8 @@ def whisper_loss(
     t = tokens.shape[1]
     x = _embed(p, tokens, cfg) + p.dec_pos[None, :t].to(cfg.cdtype)
     h = _decode_stack(p, x, enc, cfg)
-    return tfm.chunked_nll(h, labels, p.tok.t().to(h.dtype), cfg, loss_chunk)
+    return tfm.chunked_nll(h, labels, p.tok.t().to(h.dtype), cfg, loss_chunk,
+                           p.tok_tp)
 
 
 def init_whisper_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -219,4 +239,4 @@ def whisper_decode_step(
                                      cfg)
         x = x + mlpm.gelu_mlp(layer.mlp, _ln(layer.ln3, x, cfg))
     x = _ln(p.ln_dec, x, cfg)
-    return x @ p.tok.t().to(x.dtype), cache
+    return emb.gather_logits(x @ p.tok.t().to(x.dtype), p.tok_tp), cache

@@ -11,9 +11,9 @@ equals a per-rank sum worked out here from the reference's own
 ``param_specs`` over ``jax.eval_shape(model.init)``, the mesh sizes, the
 batch specs and, for train, the AdamW moments and step: a leaf the spec
 cuts counts 1/16 (the model axis) except the leaves the port keeps whole
-(``launch.shardings``' docstring: the LM head ``embed/out``, and llama3-8b's
-``wk`` and ``wv``, whose 8 KV heads do not split over 16), exact to the
-byte.  ``input_specs`` and ``applicable_shapes`` equal the reference's for
+(``launch.shardings``' docstring: llama3-8b's ``wk`` and ``wv``, whose 8
+KV heads do not split over 16; the LM head ``embed/out`` is cut, its
+logits vocab-parallel), exact to the byte.  ``input_specs`` and ``applicable_shapes`` equal the reference's for
 every arch (no compile).
 """
 from __future__ import annotations
@@ -48,8 +48,8 @@ from repro_torch.models.model_zoo import build_model
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = (("qwen2-moe-a2.7b", "train_4k"), ("llama3-8b", "decode_32k"))
 #: leaves the port keeps whole although the spec cuts them, per cell
-WHOLE = {"qwen2-moe-a2.7b": {"embed/out"},
-         "llama3-8b": {"embed/out", "blocks/attn/wk", "blocks/attn/wv"}}
+WHOLE = {"qwen2-moe-a2.7b": set(),
+         "llama3-8b": {"blocks/attn/wk", "blocks/attn/wv"}}
 REF_KEYS = {"arch", "shape", "mesh", "multi_pod", "kind", "adaptive",
             "optimized", "model_params", "model_params_active", "lower_s",
             "compile_s", "memory", "cost", "collectives", "hlo_lines", "ok",

@@ -22,7 +22,11 @@ Cases, each on every mesh, float32 smoke configs of qwen2-moe-a2.7b and
 qwen1.5-4b: the plain batch; qwen2-moe at capacity factor 0.5, where the
 global dispatch drops assignments (asserted on the ranks); qwen1.5-4b with
 labels masked unevenly over the batch (data shards count different
-labels).
+labels); recurrentgemma-2b (``hybrid``: 4 query heads over 1 KV head, a
+window of 16 under T = 32, the RG-LRU cut per channel) and whisper-tiny
+(``audio``: 32 frames, a vocabulary of 512, so its token table ``tok`` is
+cut).  The LM head is vocab-parallel wherever ``model`` has more than one
+rank (``embed.out`` cut by columns, a tied table by rows).
 
 Limits: the loss and ``grad_norm`` within 1e-5 relative; each gradient
 leaf, gathered whole, within 1e-5 of its largest magnitude, except the key
@@ -78,7 +82,17 @@ CASES = {
     "moe-drop": ("qwen2-moe-a2.7b", 0.5, False),
     "dense": ("qwen1.5-4b", None, False),
     "dense-masked": ("qwen1.5-4b", None, True),
+    "hybrid": ("recurrentgemma-2b", None, False),
+    "audio": ("whisper-tiny", None, False),
 }
+#: leaves each case must have cut where ``model`` has more than one rank
+CUT = {"moe": ("blocks.0.attn.wq", "blocks.0.moe.w1", "embed.out"),
+       "dense": ("blocks.0.attn.wq", "blocks.0.mlp.w1", "embed.out"),
+       "hybrid": ("groups.0.rec1.mixer.w_x", "groups.0.rec1.mixer.lam",
+                  "groups.0.rec2.mixer.w_i", "groups.0.attn.mixer.wq",
+                  "groups.0.rec1.mlp.w1", "embed.table"),
+       "audio": ("dec.0.cross.wq", "dec.0.self.wq", "enc.0.attn.wq",
+                 "enc.0.mlp.w1", "tok")}
 
 
 def _cfgs(case: str):
@@ -153,12 +167,15 @@ _CHILD = textwrap.dedent(
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.tokens import make_batch
     from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import serve_loop
     from repro_torch.launch.shardings import gather_whole, param_specs, place
     from repro_torch.launch.train import loss_and_grads, make_train_step
     from repro_torch.models import collectives as C
     from repro_torch.models import moe as TM
-    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.convert import (cache_to_numpy, params_from_numpy,
+                                            params_to_numpy)
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.whisper import whisper_encode
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
     assert "jax" not in sys.modules and "repro" not in sys.modules
@@ -176,7 +193,13 @@ _CHILD = textwrap.dedent(
     t = lambda a: torch.from_numpy(np.array(a))
     CASES = {"moe": ("qwen2-moe-a2.7b", None), "moe-drop":
              ("qwen2-moe-a2.7b", 0.5), "dense": ("qwen1.5-4b", None),
-             "dense-masked": ("qwen1.5-4b", None)}
+             "dense-masked": ("qwen1.5-4b", None),
+             "hybrid": ("recurrentgemma-2b", None),
+             "audio": ("whisper-tiny", None)}
+
+    def batch_of(case):
+        return {k: t(v) if k == "frames" else t(v).long()
+                for k, v in inp[case]["batch"].items()}
 
     def cfg_of(case):
         arch, cap = CASES[case]
@@ -203,7 +226,7 @@ _CHILD = textwrap.dedent(
         for case in CASES:
             cfg = cfg_of(case)
             model = build_model(cfg, device="cpu")
-            batch = {k: t(v).long() for k, v in inp[case]["batch"].items()}
+            batch = batch_of(case)
             p = placed(cfg, inp[case]["params"], mesh)
             dropped.clear()
             loss, grads = loss_and_grads(model, p, batch, mesh)
@@ -220,20 +243,37 @@ _CHILD = textwrap.dedent(
     TM.moe_ffn = inner
 
     # decode on a placed model (the serving path: the batch replicated,
-    # the cut attention reads its KV heads of a whole cache)
+    # the cut attention reads its KV heads of a whole cache, a cut RG-LRU
+    # keeps its channels of the state, whisper reads encoder states made
+    # by the placed encoder)
     for shape, mesh in meshes.items():
-        for case in ("dense", "moe"):
+        for case in ("dense", "moe", "hybrid", "audio"):
             cfg = cfg_of(case)
             model = build_model(cfg, device="cpu")
             p = placed(cfg, inp[case]["params"], mesh)
-            toks = t(inp[case]["batch"]["tokens"]).long()[:2]
-            cache = model.init_cache(2, 8)
+            batch = batch_of(case)
+            toks = batch["tokens"][:2]
+            extra = {}
+            if case == "audio":
+                with torch.no_grad():
+                    extra["enc"] = whisper_encode(p, batch["frames"][:2],
+                                                  cfg)
+            cache = model.init_cache(2, 8, p)
             steps = []
             for pos in range(4):
                 lg, cache = model.decode(p, cache, {
-                    "tokens": toks[:, pos:pos + 1], "pos": pos})
+                    "tokens": toks[:, pos:pos + 1], "pos": pos, **extra})
                 steps.append(lg.numpy().copy())
             res[("decode", shape, case)] = steps
+            if case == "hybrid":
+                res[("state", shape)] = (
+                    {k: tuple(v.shape) for k, v in cache["rec1"].items()},
+                    cache_to_numpy(cache, p))
+                # the serving loop on the placed model (the mesh path of
+                # launch.serve)
+                times, _ = serve_loop(model, p, batch_size=2, max_len=8,
+                                      steps=3, n_batches=2)
+                res[("serve", shape)] = len(times)
 
     # the column- and row-parallel pair and the owner fetch, against the
     # whole computation
@@ -258,6 +298,22 @@ _CHILD = textwrap.dedent(
         res[("tp", shape)] = (r, y.detach().numpy(), x.grad.numpy(),
                               a.grad.numpy(), b.grad.numpy(),
                               z.detach().numpy(), w.grad.numpy())
+        # the whole of an activation cut by columns (all_gather_parallel),
+        # read by each rank's gate columns and times its own columns, as
+        # the RG-LRU's gates read the conv output
+        xs0 = torch.randn(6, 8, generator=gen)
+        wg = torch.randn(8, 8, generator=gen)
+        wv = torch.randn(8, 5, generator=gen)
+        c = 8 // m
+        xs = xs0[:, r * c:(r + 1) * c].clone().requires_grad_()
+        whole = C.all_gather_parallel(xs, g, -1)
+        gate = torch.sigmoid(whole @ wg[:, r * c:(r + 1) * c]) * xs
+        zz = C.all_reduce_replicated(gate @ wv[r * c:(r + 1) * c], g)
+        with C.trace_collectives() as events:
+            (zz ** 2).sum().backward()
+        res[("gather", shape)] = (r, whole.detach().numpy(),
+                                  zz.detach().numpy(), xs.grad.numpy(),
+                                  [kind for kind, _ in events])
 
     if "1x4" in shapes.split(","):
         # the step-0 repair: a checkpoint saved on (1, 4) holds whole leaves
@@ -280,6 +336,25 @@ _CHILD = textwrap.dedent(
         res["restored"] = (C.axis_rank(meshes[(2, 2)], "model"), st,
                            params_to_numpy(q), flat(qo),
                            dict(q.placement.cut))
+        # the same for the hybrid's and whisper's cut leaves (the RG-LRU,
+        # the GeLU MLPs, the token table)
+        for case in ("hybrid", "audio"):
+            cfg = cfg_of(case)
+            model = build_model(cfg, device="cpu")
+            p = placed(cfg, inp[case]["params"], m14)
+            opt = adamw_init(p)
+            p, opt, _ = make_train_step(model, AdamWConfig(), m14)(
+                p, opt, batch_of(case))
+            CheckpointManager(f"{out_dir}/ckpt_{case}").save(p, opt, 1)
+            q = model.init(1)
+            qo = adamw_init(place(q, meshes[(2, 2)],
+                                  param_specs(q, meshes[(2, 2)])))
+            q, qo, st = CheckpointManager(
+                f"{out_dir}/ckpt_{case}").restore_latest(
+                    q, qo, mesh=meshes[(2, 2)])
+            res[("restored", case)] = (
+                C.axis_rank(meshes[(2, 2)], "model"), st,
+                params_to_numpy(q), flat(qo), dict(q.placement.cut))
 
         # the counterpart of test_lm_train_step_under_local_mesh
         cfg = get_smoke_config("qwen2-moe-a2.7b")
@@ -397,16 +472,18 @@ def _check_step(got: dict, want: dict) -> None:
 def test_train_step_matches_jax(runs, shape, case):
     """One train step on every rank of the mesh against the reference's
     step on one device: loss, gradients and updated parameters gathered
-    whole, grad_norm.  The layers are cut where the mesh has a model axis,
-    and the drop case drops on the global batch."""
+    whole, grad_norm.  The layers are cut where the mesh has a model axis
+    (``CUT``: the hybrid's RG-LRU, attention and MLP, whisper's attention,
+    GeLU MLP and token table, every head), and the drop case drops on the
+    global batch.  Whisper's b1, which the spec keeps whole, holds its
+    whole gradient on every rank."""
     ranks = runs[2] if shape == (1, 2) else runs[4]
     for res in ranks:
         got = res[("step", shape, case)]
         _check_step(got, runs["ref"][case])
         if shape[1] > 1:
-            assert "blocks.0.attn.wq" in got["cut"]
-            assert ("blocks.0.moe.w1" in got["cut"] if "moe" in case else
-                    "blocks.0.mlp.w1" in got["cut"])
+            want = CUT[case.split("-")[0]]
+            assert set(want) <= set(got["cut"]), (want, got["cut"])
         else:
             assert got["cut"] == []
         if case == "moe-drop":
@@ -447,7 +524,63 @@ def test_tensor_parallel_collectives_gradients(runs, shape):
         np.testing.assert_allclose(gw, want, rtol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["dense", "moe"])
+@pytest.mark.parametrize("shape", MESHES_4 + ((1, 2),),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_gather_parallel_gradients(runs, shape):
+    """``all_gather_parallel`` joins the ranks' columns of an activation
+    into the whole one, which each rank's gate columns read beside its own
+    columns (the RG-LRU's pattern): the whole activation, the output and
+    each rank's input gradient equal the whole computation's, and the
+    backward issues a reduce-scatter (keeping only this rank's slice, as
+    ``all_gather_replicated``'s backward does, would drop the other
+    ranks' parts of the gradient)."""
+    ranks = runs[2] if shape == (1, 2) else runs[4]
+    m = shape[1]
+    gen = torch.Generator().manual_seed(5)
+    for size in ((6, 8), (8, 16), (16, 8), (3, 8)):
+        torch.randn(*size, generator=gen)  # the draws of the pair above
+    xs0 = torch.randn(6, 8, generator=gen)
+    wg = torch.randn(8, 8, generator=gen)
+    wv = torch.randn(8, 5, generator=gen)
+    x = xs0.clone().requires_grad_()
+    z = (torch.sigmoid(x @ wg) * x) @ wv
+    (z ** 2).sum().backward()
+    c = 8 // m
+    for res in ranks:
+        r, whole, gz, gx, kinds = res[("gather", shape)]
+        np.testing.assert_array_equal(whole, xs0.numpy())
+        np.testing.assert_allclose(gz, z.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(gx, x.grad[:, r * c:(r + 1) * c].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        assert ("reduce-scatter" in kinds) == (m > 1), kinds
+
+
+def _whole_decode(inp: dict, case: str):
+    """Four teacher-forced decode steps of the whole model on one process
+    (logits of each step) and its cache after them."""
+    from repro_torch.models.whisper import whisper_encode
+
+    _, cfg = _cfgs(case)
+    model = build_model(cfg, device="cpu")
+    p = params_from_numpy(inp[case]["params"], cfg, "cpu")
+    batch = inp[case]["batch"]
+    toks = torch.from_numpy(np.array(batch["tokens"])).long()[:2]
+    extra = {}
+    if case == "audio":
+        with torch.no_grad():
+            extra["enc"] = whisper_encode(
+                p, torch.from_numpy(np.array(batch["frames"]))[:2], cfg)
+    cache = model.init_cache(2, 8)
+    want = []
+    for pos in range(4):
+        lg, cache = model.decode(p, cache, {"tokens": toks[:, pos:pos + 1],
+                                            "pos": pos, **extra})
+        want.append(lg.numpy())
+    return want, cache
+
+
+@pytest.mark.parametrize("case", ["dense", "moe", "hybrid", "audio"])
 @pytest.mark.parametrize("shape", MESHES_4 + ((1, 2),),
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_decode_on_a_placed_model(runs, inputs, shape, case):
@@ -455,24 +588,76 @@ def test_decode_on_a_placed_model(runs, inputs, shape, case):
     model placed on the mesh equal the whole model's on one process
     (float32, 1e-5 of the logits' largest magnitude): the cut attention
     reads and writes its KV heads of a whole cache, the cut FFN and expert
-    stacks sum over ``model``."""
+    stacks sum over ``model``, a cut RG-LRU steps its channels of the
+    state, whisper decodes over the placed encoder's states, and the
+    vocab-parallel logits are gathered at the end of each step."""
     inp, _ = inputs
-    _, cfg = _cfgs(case)
-    model = build_model(cfg, device="cpu")
-    p = params_from_numpy(inp[case]["params"], cfg, "cpu")
-    toks = torch.from_numpy(np.array(inp[case]["batch"]["tokens"])
-                            ).long()[:2]
-    cache = model.init_cache(2, 8)
-    want = []
-    for pos in range(4):
-        lg, cache = model.decode(p, cache, {"tokens": toks[:, pos:pos + 1],
-                                            "pos": pos})
-        want.append(lg.numpy())
+    want, _ = _whole_decode(inp, case)
     ranks = runs[2] if shape == (1, 2) else runs[4]
     for res in ranks:
         for got, w in zip(res[("decode", shape, case)], want):
             np.testing.assert_allclose(got, w, rtol=0,
                                        atol=1e-5 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("shape", MESHES_4 + ((1, 2),),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_hybrid_decode_state_holds_a_ranks_channels(runs, inputs, shape):
+    """The held departure from the reference's ``cache_specs`` (which
+    keeps the RG-LRU state replicated over ``model``): a cut RG-LRU's
+    decode state holds this rank's W / m channels of ``h`` and of the conv
+    ring, and ``cache_to_numpy(cache, params)`` gathers them into the
+    whole model's state after the same four steps (1e-5 of its largest
+    magnitude); the attention ring stays whole."""
+    from repro_torch.models.convert import cache_to_numpy
+
+    inp, _ = inputs
+    _, cfg = _cfgs("hybrid")
+    _, cache = _whole_decode(inp, "hybrid")
+    want = dict(_leaves(cache_to_numpy(cache)))
+    w = cfg.hybrid.lru_width // shape[1]
+    ranks = runs[2] if shape == (1, 2) else runs[4]
+    for res in ranks:
+        shapes, got = res[("state", shape)]
+        assert shapes == {"conv": (1, 2, 3, w), "h": (1, 2, w)}, shapes
+        got = dict(_leaves(got))
+        assert sorted(got) == sorted(want)
+        for path, b in want.items():
+            np.testing.assert_allclose(got[path], b, rtol=0, atol=1e-5 * max(
+                1.0, float(np.abs(b).max())), err_msg=path)
+
+
+@pytest.mark.parametrize("shape", MESHES_4 + ((1, 2),),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_serve_loop_on_a_placed_hybrid(runs, shape):
+    """``launch.serve.serve_loop`` (the serving CLI's mesh path) decodes
+    two request batches on a recurrentgemma-2b placed on the mesh, its
+    cache made for the placed model, on every rank."""
+    ranks = runs[2] if shape == (1, 2) else runs[4]
+    assert [res[("serve", shape)] for res in ranks] == [2] * len(ranks)
+
+
+@pytest.mark.parametrize("case", ["dense", "moe", "hybrid"])
+@pytest.mark.parametrize("shape", MESHES_4 + ((1, 2),),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_lm_head_is_vocab_parallel(runs, shape, case):
+    """The LM head is cut wherever ``model`` has more than one rank:
+    ``embed.out`` by columns (dense, moe; (D, V / m) on each rank), a tied
+    table by rows (the hybrid); the loss and the head's gradient, gathered
+    whole, still equal the reference's step (the file's limits)."""
+    ranks = runs[2] if shape == (1, 2) else runs[4]
+    want = runs["ref"][case]
+    leaf = "embed/table" if case == "hybrid" else "embed/out"
+    ref = dict(_leaves(want["grads"]))[leaf]
+    for res in ranks:
+        got = res[("step", shape, case)]
+        name = leaf.replace("/", ".")
+        assert (name in got["cut"]) == (shape[1] > 1), got["cut"]
+        np.testing.assert_allclose(got["loss_grads"], want["loss"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(
+            dict(_leaves(got["grads"]))[leaf], ref, rtol=0,
+            atol=1e-5 * float(np.abs(ref).max()))
 
 
 def test_checkpoint_saved_on_a_mesh_holds_whole_leaves(runs, inputs):
@@ -518,11 +703,49 @@ def test_checkpoint_restores_onto_another_mesh(runs):
     """A step saved on (1, 4) restores onto (2, 2): every rank's
     parameters and moments equal its slice of the whole leaves, bit for
     bit, and the step counter is restored."""
+    _check_restored(runs, "ckpt_step", "restored")
+
+
+@pytest.mark.parametrize("case", ["hybrid", "audio"])
+def test_checkpoint_of_a_cut_family_restores_across_meshes(runs, case):
+    """The hybrid's and whisper's steps saved on (1, 4) (the RG-LRU, the
+    GeLU MLPs, the token table and the head cut) restore onto (2, 2),
+    every rank its slices bit for bit, and onto (1, 1) in this process,
+    the whole leaves bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import _flatten_with_names
+    from repro_torch.models.convert import params_to_numpy
+
+    _check_restored(runs, f"ckpt_{case}", ("restored", case))
+    params, opt = _whole_files(runs["dir"] / f"ckpt_{case}" /
+                               "step0000000001")
+    _, cfg = _cfgs(case)
+    assert not dist.is_initialized()
+    mesh = make_local_mesh("cpu")
+    try:
+        q = build_model(cfg, device="cpu").init(1)
+        qo = adamw_init(q)
+        q, qo, step = CheckpointManager(
+            str(runs["dir"] / f"ckpt_{case}")).restore_latest(q, qo,
+                                                              mesh=mesh)
+    finally:
+        multihost.shutdown()
+    assert step == 1 and q.placement.cut == {}
+    for path, arr in _leaves(params_to_numpy(q)):
+        np.testing.assert_array_equal(arr, params[path], err_msg=path)
+    for name, arr in _flatten_with_names(qo).items():
+        np.testing.assert_array_equal(arr, opt[name], err_msg=name)
+
+
+def _check_restored(runs, ckpt: str, key) -> None:
+    """Every (2, 2) rank's restored parameters and moments (``key`` of its
+    results) are its slices of checkpoint ``ckpt``'s whole leaves."""
     from repro_torch.models.convert import ref_path
 
-    params, opt = _whole_files(runs["dir"] / "ckpt_step" / "step0000000001")
+    params, opt = _whole_files(runs["dir"] / ckpt / "step0000000001")
     for res in runs[4]:
-        r, step, got_p, got_o, cut = res["restored"]
+        r, step, got_p, got_o, cut = res[key]
         assert step == 1 and int(got_o[".step"]) == int(opt[".step"]) == 1
         dims = {}
         for name, dim in cut.items():
@@ -536,9 +759,9 @@ def test_checkpoint_restores_onto_another_mesh(runs):
         for name, arr in got_o.items():
             if name == ".step":
                 continue
-            key = name.split("/", 1)[1]
+            leaf = name.split("/", 1)[1]
             np.testing.assert_array_equal(
-                arr, _slice(opt[name], dims.get(key), 2, r), err_msg=name)
+                arr, _slice(opt[name], dims.get(leaf), 2, r), err_msg=name)
 
 
 def test_checkpoint_restores_onto_one_rank(runs):
