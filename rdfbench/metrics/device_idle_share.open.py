@@ -1,0 +1,12 @@
+"""Share of the traced window in which no operation ran on the device."""
+
+LAYER = "device"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "latency_p95_ms"
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
