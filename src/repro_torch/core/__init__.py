@@ -14,6 +14,7 @@ Modules (each the counterpart of the same name in ``repro.core``):
   ingest      streaming bootstrap (one-shot == chunked)
   dsj         distributed semi-join stages (§4.1) + their batched variants
   substrate   single-device substrate + host-sync chokepoints
+  tracing     host-sync counter, the engine's spans, stage row fill
   planner     DP cost-based optimizer (§4.2, §4.3)
   executor    locality-aware distributed execution (Algorithm 1), one query
               or one shape bucket

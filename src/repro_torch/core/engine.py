@@ -46,6 +46,7 @@ from .planner import LocalityAwarePlanner
 from .query import Query, TriplePattern
 from .relation import Relation
 from .substrate import SingleDeviceSubstrate
+from .tracing import span
 from .transform import build_redistribution_tree
 
 __all__ = ["AdHashEngine", "EngineReport"]
@@ -69,6 +70,11 @@ class EngineReport:
     n_degraded: int = 0  # shard-local queries (PI hits + main-index chains)
     # demoted to the distributed route by a dark shard (DESIGN §9/§11)
     n_batch_dispatches: int = 0  # batched-pipeline launches (query_batch)
+    # lanes of the dispatched buckets: the padded batch size B_pad of each
+    # batched pipeline, 1 of each singleton; and B_pad - B of them
+    batch_lanes: int = 0
+    batch_pad_lanes: int = 0
+    n_retries: int = 0  # answered queries' QueryStats.n_retries, summed
     wall_time_s: float = 0.0
     history: list[tuple[str, int, float]] = field(default_factory=list)
 
@@ -83,7 +89,14 @@ class AdHashEngine:
     :class:`repro_torch.core.ingest.StreamIngestor`, so a chunked ingest
     produces a store bit-identical to the one-shot build.  The store and
     the replica modules live on ``device`` (default ``"cuda"``; ``"cuda"``
-    without a card raises)."""
+    without a card raises).
+
+    ``startup_time_s`` is the bootstrap's host seconds, ended by a sync;
+    ``startup_phases_s`` splits it: ``place`` and ``chunk_stats`` (the
+    chunks' hash placement and their statistics accumulators), ``sort``,
+    ``copy`` and ``stats`` (``StreamIngestor.finish``: the indexes' host
+    sort, their copy to the device, the global statistics), and ``rest``
+    (the executor, the indexes of adaptivity, the closing sync)."""
 
     def __init__(
         self,
@@ -178,6 +191,9 @@ class AdHashEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.startup_time_s = time.perf_counter() - t0
+        self.startup_phases_s = dict(ingestor.phases_s)
+        self.startup_phases_s["rest"] = self.startup_time_s - sum(
+            ingestor.phases_s.values())
 
     # ------------------------------------------------------------- streaming
     @classmethod
@@ -209,7 +225,9 @@ class AdHashEngine:
             lo, hi = ranges(self.store, consts[1], none, False, self.n_ids)
         else:
             lo, hi = ranges(self.store, none, none, False, self.n_ids)
-        return int(self.substrate.reduce_sum(torch.sum(hi - lo)))
+        n = self.substrate.reduce_sum(torch.sum(hi - lo))
+        with span("plan.oracle"):  # a device->host read outside the count
+            return int(n)
 
     # ------------------------------------------------------------------ query
     def query(self, q: Query) -> tuple[Relation, QueryStats]:
@@ -256,6 +274,7 @@ class AdHashEngine:
         dt = time.perf_counter() - t0
         self.report.n_queries += 1
         self.report.comm_cells += qstats.comm_cells
+        self.report.n_retries += qstats.n_retries
         self.report.wall_time_s += dt
         self.report.history.append((qstats.mode, qstats.comm_cells, dt))
         return rel, qstats
@@ -384,6 +403,7 @@ class AdHashEngine:
                 self.report.n_distributed += 1
             self.report.n_queries += 1
             self.report.comm_cells += qstats.comm_cells
+            self.report.n_retries += qstats.n_retries
             self.report.history.append((qstats.mode, qstats.comm_cells, dt))
             out.append((rel, qstats))
         self.report.wall_time_s += time.perf_counter() - t_all
@@ -408,29 +428,37 @@ class AdHashEngine:
         ``demoted`` flags a PI hit deferred to the distributed route because
         the mesh is degraded (DESIGN §9) — the caller route-tags its stats
         after the bucket executes."""
-        tree = (
-            build_redistribution_tree(q, self.stats, self.heuristic)
-            if self.adaptive else None
-        )
-        matches = self.pattern_index.match(tree) if self.adaptive else None
-        executed = None
-        demoted = False
-        if matches is not None and not self.health.degraded:
-            t0 = time.perf_counter()
-            rel, qstats = self.parallel_exec.execute(
-                tree, matches, self.capacity
-            )
-            executed = (rel, qstats, time.perf_counter() - t0)
-        else:
-            # degraded demotion (DESIGN §9): the PI hit joins the shape
-            # buckets like any distributed query — it only reads the
-            # immutable main index
-            demoted = matches is not None
-            plan = self.planner.plan(q)
-            batcher.add(tag, q, plan.ordering, plan.join_vars,
-                        max(self.capacity, plan.capacity_hint()))
-        if self.adaptive:
-            self._post_query_adaptivity(tree, overlap=overlap)
+        with span("control"):
+            with span("transform"):
+                tree = (
+                    build_redistribution_tree(q, self.stats, self.heuristic)
+                    if self.adaptive else None
+                )
+            with span("pi_match"):
+                matches = (self.pattern_index.match(tree) if self.adaptive
+                           else None)
+            executed = None
+            demoted = False
+            if matches is not None and not self.health.degraded:
+                t0 = time.perf_counter()
+                with span("pi_execute"):
+                    rel, qstats = self.parallel_exec.execute(
+                        tree, matches, self.capacity
+                    )
+                executed = (rel, qstats, time.perf_counter() - t0)
+            else:
+                # degraded demotion (DESIGN §9): the PI hit joins the shape
+                # buckets like any distributed query — it only reads the
+                # immutable main index
+                demoted = matches is not None
+                with span("plan"):
+                    plan = self.planner.plan(q)
+                with span("file"):
+                    batcher.add(tag, q, plan.ordering, plan.join_vars,
+                                max(self.capacity, plan.capacity_hint()))
+            if self.adaptive:
+                with span("adapt"):
+                    self._post_query_adaptivity(tree, overlap=overlap)
         return executed, demoted
 
     def record_served(self, qstats: QueryStats, dt: float) -> None:
@@ -447,6 +475,7 @@ class AdHashEngine:
             self.report.n_distributed += 1
         self.report.n_queries += 1
         self.report.comm_cells += qstats.comm_cells
+        self.report.n_retries += qstats.n_retries
         self.report.wall_time_s += dt
         self.report.history.append((qstats.mode, qstats.comm_cells, dt))
 
@@ -455,22 +484,24 @@ class AdHashEngine:
         (``results[tag] = (relation, stats, seconds)`` — any indexable
         container keyed by the tags the bucket was filed under)."""
         t0 = time.perf_counter()
-        if len(bucket) == 1:
-            rels_stats = [self._run_sequential(bucket, 0)]
-        else:
-            try:
-                rels, stats_l = self.executor.execute_batch(
-                    bucket.plan, bucket.stacked_consts()
-                )
-                self.report.n_batch_dispatches += 1
-                rels_stats = list(zip(rels, stats_l))
-            except ExecutorError:
-                # overflow pathologies: per-query sequential fallback (only
-                # ExecutorError; any other failure propagates)
-                rels_stats = [
-                    self._run_sequential(bucket, j)
-                    for j in range(len(bucket))
-                ]
+        with span("bucket"):
+            if len(bucket) == 1:
+                self.report.batch_lanes += 1
+                rels_stats = [self._run_sequential(bucket, 0)]
+            else:
+                try:
+                    rels, stats_l = self.executor.execute_batch(
+                        bucket.plan, bucket.stacked_consts(),
+                        report=self.report)
+                    self.report.n_batch_dispatches += 1
+                    rels_stats = list(zip(rels, stats_l))
+                except ExecutorError:
+                    # overflow pathologies: per-query sequential fallback
+                    # (only ExecutorError; any other failure propagates)
+                    rels_stats = [
+                        self._run_sequential(bucket, j)
+                        for j in range(len(bucket))
+                    ]
         dt = (time.perf_counter() - t0) / max(len(bucket), 1)
         for tag, (rel, qstats) in zip(bucket.tags, rels_stats):
             results[tag] = (rel, qstats, dt)
@@ -514,7 +545,8 @@ class AdHashEngine:
         if self.health.degraded or self.adaptivity_paused:
             return
         self._maybe_redistribute(overlap=overlap)
-        self._maybe_rebalance(overlap=overlap)
+        with span("rebalance"):
+            self._maybe_rebalance(overlap=overlap)
 
     def _maybe_redistribute(self, overlap=None) -> None:
         """Trigger IRD for newly hot patterns.
@@ -532,7 +564,8 @@ class AdHashEngine:
                 continue
             if self.pattern_index.contains(hot.rtree):
                 continue  # already redistributed (peek: no LRU touch)
-            pending = self.ird.redistribute_deferred(hot)
+            with span("ird.enqueue"):
+                pending = self.ird.redistribute_deferred(hot)
             try:
                 if overlap is not None:
                     overlap()  # IRD device work overlaps this evaluation
@@ -543,12 +576,14 @@ class AdHashEngine:
                 # registered in the ReplicaIndex, and skipping the publish
                 # would orphan them — unevictable, silently inflating the
                 # budget accounting forever
-                storage, ird_stats = pending.finalize()  # barrier first
+                with span("ird.barrier"):
+                    storage, ird_stats = pending.finalize()  # barrier first
                 self.pattern_index.insert(hot.rtree, storage)
                 self.report.n_redistributions += 1
                 self.report.ird_comm_cells += ird_stats.comm_cells
                 self.report.ird_triples += ird_stats.triples_indexed
-                self._enforce_budget()
+                with span("evict"):
+                    self._enforce_budget()
                 # pattern too large for the budget even alone: don't thrash
                 if (
                     self.budget is not None

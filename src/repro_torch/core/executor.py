@@ -29,6 +29,7 @@ from .query import S, Query, TriplePattern, Var
 from .relalg import select_cols
 from .relation import Relation
 from .substrate import host_fetch
+from .tracing import note_rows, span
 from .triples import ShardedTripleStore
 
 __all__ = ["QueryStats", "Executor", "ExecutorError", "step_descriptor"]
@@ -190,11 +191,13 @@ class Executor:
     def _match_first(self, q: TriplePattern, cap: int, stats: QueryStats
                      ) -> Relation:
         spec = dsj.PatternSpec.of(q)
-        consts = dsj.pattern_consts(q, self.device)
+        with span("stage.consts"):
+            consts = dsj.pattern_consts(q, self.device)
         for _ in range(_MAX_RETRIES):
-            cols, valid, total = self.sub.match_first(self.store, consts,
-                                                      spec, cap)
-            t = self.sub.host_total(total)
+            with span("stage.match_first"):
+                cols, valid, total = self.sub.match_first(self.store, consts,
+                                                          spec, cap)
+                t = self.sub.host_total(total)
             if t <= cap:
                 # keep one column per distinct variable (handles ?x p ?x)
                 keep, vars_ = q.distinct_var_cols()
@@ -217,7 +220,8 @@ class Executor:
         comm: list,
     ) -> Relation:
         spec = dsj.PatternSpec.of(q)
-        consts = dsj.pattern_consts(q, self.device)
+        with span("stage.consts"):
+            consts = dsj.pattern_consts(q, self.device)
         kind, c1, c2, checks, append_cols, out_vars = step_descriptor(
             rel.vars, q, join_var, pinned, self.locality_aware,
             self.pinned_opt, self.placement.local_join_safe,
@@ -228,11 +232,12 @@ class Executor:
             stats.n_local_joins += 1
             stats.plan.append(f"local-join on {join_var}")
             for _ in range(_MAX_RETRIES):
-                cols, valid, total = self.sub.local_probe_join(
-                    self.store, rel.cols, rel.valid, consts, spec,
-                    c1, c2, checks, append_cols, cap,
-                )
-                t = self.sub.host_total(total)
+                with span("stage.local_join"):
+                    cols, valid, total = self.sub.local_probe_join(
+                        self.store, rel.cols, rel.valid, consts, spec,
+                        c1, c2, checks, append_cols, cap,
+                    )
+                    t = self.sub.host_total(total)
                 if t <= cap:
                     return Relation(cols, valid, out_vars,
                                     mesh=self.sub.mesh)
@@ -248,9 +253,10 @@ class Executor:
         )
         cap_proj = quantize_capacity(cap)
         for _ in range(_MAX_RETRIES):
-            proj, pvalid, nuniq = self.sub.project_unique(
-                rel.cols, rel.valid, c1, cap_proj)
-            nu = self.sub.host_total(nuniq)
+            with span("stage.project"):
+                proj, pvalid, nuniq = self.sub.project_unique(
+                    rel.cols, rel.valid, c1, cap_proj)
+                nu = self.sub.host_total(nuniq)
             if nu <= cap_proj:
                 break
             cap_proj = quantize_capacity(max(cap_proj * 2, nu))
@@ -267,9 +273,10 @@ class Executor:
             pspec = self.placement.stage_spec
             ptable = self.placement.device_table(self.store.device)
             for _ in range(_MAX_RETRIES):
-                recv, rvalid, cells, maxb = self.sub.exchange_hash(
-                    proj, pvalid, cap_peer, spec=pspec, table=ptable)
-                mb = self.sub.host_total(maxb)
+                with span("stage.exchange"):
+                    recv, rvalid, cells, maxb = self.sub.exchange_hash(
+                        proj, pvalid, cap_peer, spec=pspec, table=ptable)
+                    mb = self.sub.host_total(maxb)
                 if mb <= cap_peer:
                     break
                 cap_peer = quantize_capacity(max(cap_peer * 2, mb))
@@ -278,16 +285,19 @@ class Executor:
                 raise ExecutorError("hash exchange exceeded retry budget")
             comm.append(cells)
         else:
-            recv, rvalid, cells = self.sub.exchange_broadcast(proj, pvalid)
+            with span("stage.exchange"):
+                recv, rvalid, cells = self.sub.exchange_broadcast(proj,
+                                                                  pvalid)
             comm.append(cells)
 
         cap_flat = cap_cand = quantize_capacity(cap)
         for _ in range(_MAX_RETRIES):
-            cand, cvalid, cells, maxf, maxc = self.sub.probe_and_reply(
-                self.store, recv, rvalid, consts, spec, c2, cap_flat,
-                cap_cand,
-            )
-            mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
+            with span("stage.probe_reply"):
+                cand, cvalid, cells, maxf, maxc = self.sub.probe_and_reply(
+                    self.store, recv, rvalid, consts, spec, c2, cap_flat,
+                    cap_cand,
+                )
+                mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
             if mf <= cap_flat and mc <= cap_cand:
                 break
             if mf > cap_flat:
@@ -300,11 +310,12 @@ class Executor:
         comm.append(cells)
 
         for _ in range(_MAX_RETRIES):
-            cols, valid, total = self.sub.finalize_join(
-                rel.cols, rel.valid, cand, cvalid, c1, c2, checks,
-                append_cols, cap,
-            )
-            t = self.sub.host_total(total)
+            with span("stage.finalize"):
+                cols, valid, total = self.sub.finalize_join(
+                    rel.cols, rel.valid, cand, cvalid, c1, c2, checks,
+                    append_cols, cap,
+                )
+                t = self.sub.host_total(total)
             if t <= cap:
                 return Relation(cols, valid, out_vars, mesh=self.sub.mesh)
             cap = quantize_capacity(max(cap * 2, t))
@@ -376,9 +387,10 @@ class Executor:
                      for p in patterns for t in (p.s, p.p, p.o))
         consts = self._consts_memo.get(ckey)
         if consts is None:
-            consts = torch.from_numpy(
-                np.array(ckey, dtype=np.int32).reshape(len(patterns), 3)
-            ).to(self.device)
+            with span("stage.consts"):
+                consts = torch.from_numpy(
+                    np.array(ckey, dtype=np.int32).reshape(len(patterns), 3)
+                ).to(self.device)
             if len(self._consts_memo) >= self._chain_memo_cap:
                 self._consts_memo.clear()
             self._consts_memo[ckey] = consts
@@ -388,20 +400,21 @@ class Executor:
         rels: list = [None] * n_stages
         start = 0
         while True:
-            if start == 0:
-                out, totals = self.sub.local_chain(
-                    self.store, consts, chain.first_spec, chain.first_keep,
-                    chain.steps, tuple(caps),
-                )
-                rels[:] = list(out)
-            else:
-                seed_cols, seed_valid = rels[start - 1]
-                out, totals = self.sub.local_chain_from(
-                    self.store, seed_cols, seed_valid, consts[start:],
-                    chain.steps[start - 1:], tuple(caps[start:]),
-                )
-                rels[start:] = list(out)
-            tots = self.sub.host_chain_totals(totals)  # THE host sync
+            with span("stage.local_chain"):
+                if start == 0:
+                    out, totals = self.sub.local_chain(
+                        self.store, consts, chain.first_spec,
+                        chain.first_keep, chain.steps, tuple(caps),
+                    )
+                    rels[:] = list(out)
+                else:
+                    seed_cols, seed_valid = rels[start - 1]
+                    out, totals = self.sub.local_chain_from(
+                        self.store, seed_cols, seed_valid, consts[start:],
+                        chain.steps[start - 1:], tuple(caps[start:]),
+                    )
+                    rels[start:] = list(out)
+                tots = self.sub.host_chain_totals(totals)  # THE host sync
             bad = next(
                 (j for j in range(start, n_stages)
                  if int(tots[j - start]) > caps[j]),
@@ -481,7 +494,7 @@ class Executor:
 
     # ---------------------------------------------------- batched execution
     def execute_batch(
-        self, bplan, consts: np.ndarray
+        self, bplan, consts: np.ndarray, report=None
     ) -> tuple[list[Relation], list[QueryStats]]:
         """Evaluate one shape bucket in a single batched pipeline.
 
@@ -492,18 +505,24 @@ class Executor:
         are unchanged: a stage is only accepted once no query drops rows).
         Communication is accounted per query from the stages' (B,) cell
         counts.  Each returned Relation is a view of lane i of the bucket's
-        output, on the device."""
+        output, on the device.  ``report`` (an ``EngineReport``), when
+        given, counts the bucket's padded lanes and its padding."""
         from .batcher import quantize_batch
 
         b = consts.shape[0]
         b_pad = quantize_batch(b)
-        consts = np.asarray(consts, dtype=np.int32)
-        if b_pad != b:
-            # pad with copies of the last query: real data, discarded outputs
-            consts = np.concatenate([consts, np.broadcast_to(
-                consts[-1:], (b_pad - b,) + consts.shape[1:])])
-        consts_t = torch.from_numpy(np.ascontiguousarray(consts)).to(
-            self.device)
+        if report is not None:
+            report.batch_lanes += b_pad
+            report.batch_pad_lanes += b_pad - b
+        with span("stage.consts"):
+            consts = np.asarray(consts, dtype=np.int32)
+            if b_pad != b:
+                # pad with copies of the last query: real data, discarded
+                # outputs
+                consts = np.concatenate([consts, np.broadcast_to(
+                    consts[-1:], (b_pad - b,) + consts.shape[1:])])
+            consts_t = torch.from_numpy(np.ascontiguousarray(consts)).to(
+                self.device)
         stats = [QueryStats() for _ in range(b)]
 
         # all-local bucket -> the fused chain route, unless a shard is dark
@@ -523,10 +542,12 @@ class Executor:
         """The per-stage batched path (see ``execute_batch``)."""
         cap = bplan.capacity
         for _ in range(_MAX_RETRIES):
-            cols, valid, totals = self.sub.match_first_batch(
-                self.store, consts_t[:, 0], bplan.first_spec, cap)
-            t = self.sub.host_total(totals)
+            with span("stage.match_first"):
+                cols, valid, totals = self.sub.match_first_batch(
+                    self.store, consts_t[:, 0], bplan.first_spec, cap)
+                t = self.sub.host_total(totals)
             if t <= cap:
+                note_rows("match_first", valid)
                 break
             cap = quantize_capacity(max(cap * 2, t))
             for st in stats:
@@ -582,18 +603,20 @@ class Executor:
         rels: list = [None] * n_stages
         start = 0
         while True:
-            if start == 0:
-                out, totals = self.sub.local_chain_batch(
-                    self.store, consts_t, bplan.first_spec, bplan.first_keep,
-                    steps, tuple(caps))
-                rels[:] = list(out)
-            else:
-                seed_cols, seed_valid = rels[start - 1]
-                out, totals = self.sub.local_chain_from_batch(
-                    self.store, seed_cols, seed_valid, consts_t[:, start:],
-                    steps[start - 1:], tuple(caps[start:]))
-                rels[start:] = list(out)
-            tots = self.sub.host_chain_totals(totals)  # THE host sync
+            with span("stage.local_chain"):
+                if start == 0:
+                    out, totals = self.sub.local_chain_batch(
+                        self.store, consts_t, bplan.first_spec,
+                        bplan.first_keep, steps, tuple(caps))
+                    rels[:] = list(out)
+                else:
+                    seed_cols, seed_valid = rels[start - 1]
+                    out, totals = self.sub.local_chain_from_batch(
+                        self.store, seed_cols, seed_valid,
+                        consts_t[:, start:], steps[start - 1:],
+                        tuple(caps[start:]))
+                    rels[start:] = list(out)
+                tots = self.sub.host_chain_totals(totals)  # THE host sync
             bad = next(
                 (j for j in range(start, n_stages)
                  if int(tots[j - start]) > caps[j]),
@@ -609,6 +632,8 @@ class Executor:
             caps[bad] = quantize_capacity(
                 max(caps[bad] * 2, int(tots[bad - start])))
             start = bad
+        for _cols, valid in rels:
+            note_rows("local_chain", valid)
         out_vars = bplan.steps[-1].out_vars if bplan.steps else \
             bplan.first_vars
         cols, valid = rels[-1]
@@ -630,11 +655,13 @@ class Executor:
             st.n_local_joins += 1
             st.plan.append(f"local-join on {sp.join_var}")
         for _ in range(_MAX_RETRIES):
-            cols, valid, totals = self.sub.local_probe_join_batch(
-                self.store, rel_cols, rel_valid, qc, sp.spec, sp.c1, sp.c2,
-                sp.checks, sp.append_cols, cap)
-            t = self.sub.host_total(totals)
+            with span("stage.local_join"):
+                cols, valid, totals = self.sub.local_probe_join_batch(
+                    self.store, rel_cols, rel_valid, qc, sp.spec, sp.c1,
+                    sp.c2, sp.checks, sp.append_cols, cap)
+                t = self.sub.host_total(totals)
             if t <= cap:
+                note_rows("local_join", valid)
                 return cols, valid
             cap = quantize_capacity(max(cap * 2, t))
             for st in stats:
@@ -650,10 +677,12 @@ class Executor:
 
         cap_proj = quantize_capacity(cap)
         for _ in range(_MAX_RETRIES):
-            proj, pvalid, nuniq = self.sub.project_unique_batch(
-                rel_cols, rel_valid, sp.c1, cap_proj)
-            nu = self.sub.host_total(nuniq)
+            with span("stage.project"):
+                proj, pvalid, nuniq = self.sub.project_unique_batch(
+                    rel_cols, rel_valid, sp.c1, cap_proj)
+                nu = self.sub.host_total(nuniq)
             if nu <= cap_proj:
+                note_rows("project", pvalid)
                 break
             cap_proj = quantize_capacity(max(cap_proj * 2, nu))
             for st in stats:
@@ -666,9 +695,10 @@ class Executor:
             pspec = self.placement.stage_spec
             ptable = self.placement.device_table(self.store.device)
             for _ in range(_MAX_RETRIES):
-                recv, rvalid, cells, maxb = self.sub.exchange_hash_batch(
-                    proj, pvalid, cap_peer, spec=pspec, table=ptable)
-                mb = self.sub.host_total(maxb)
+                with span("stage.exchange"):
+                    recv, rvalid, cells, maxb = self.sub.exchange_hash_batch(
+                        proj, pvalid, cap_peer, spec=pspec, table=ptable)
+                    mb = self.sub.host_total(maxb)
                 if mb <= cap_peer:
                     break
                 cap_peer = quantize_capacity(max(cap_peer * 2, mb))
@@ -677,18 +707,23 @@ class Executor:
             else:
                 raise ExecutorError("batched hash exchange exceeded retries")
         else:
-            recv, rvalid, cells = self.sub.exchange_broadcast_batch(proj,
-                                                                    pvalid)
+            with span("stage.exchange"):
+                recv, rvalid, cells = self.sub.exchange_broadcast_batch(
+                    proj, pvalid)
+        note_rows("exchange", rvalid)
         comm.append(cells)  # (B,) device tensor — fetched once per batch
         del proj, pvalid
 
         cap_flat = cap_cand = quantize_capacity(cap)
         for _ in range(_MAX_RETRIES):
-            cand, cvalid, cells, maxf, maxc = self.sub.probe_and_reply_batch(
-                self.store, recv, rvalid, qc, sp.spec, sp.c2, cap_flat,
-                cap_cand)
-            mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
+            with span("stage.probe_reply"):
+                cand, cvalid, cells, maxf, maxc = \
+                    self.sub.probe_and_reply_batch(
+                        self.store, recv, rvalid, qc, sp.spec, sp.c2,
+                        cap_flat, cap_cand)
+                mf, mc = self.sub.host_total(maxf), self.sub.host_total(maxc)
             if mf <= cap_flat and mc <= cap_cand:
+                note_rows("probe_reply", cvalid)
                 break
             if mf > cap_flat:
                 cap_flat = quantize_capacity(max(cap_flat * 2, mf))
@@ -702,11 +737,13 @@ class Executor:
         del recv, rvalid
 
         for _ in range(_MAX_RETRIES):
-            cols, valid, totals = self.sub.finalize_join_batch(
-                rel_cols, rel_valid, cand, cvalid, sp.c1, sp.c2, sp.checks,
-                sp.append_cols, cap)
-            t = self.sub.host_total(totals)
+            with span("stage.finalize"):
+                cols, valid, totals = self.sub.finalize_join_batch(
+                    rel_cols, rel_valid, cand, cvalid, sp.c1, sp.c2,
+                    sp.checks, sp.append_cols, cap)
+                t = self.sub.host_total(totals)
             if t <= cap:
+                note_rows("finalize", valid)
                 return cols, valid
             cap = quantize_capacity(max(cap * 2, t))
             for st in stats:

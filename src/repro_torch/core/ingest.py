@@ -21,6 +21,8 @@ through ``substrate.globalize_worker_array`` and fences the ranks
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -79,6 +81,9 @@ class StreamIngestor:
         # predicate id -> [cardinality, sorted unique subjects, objects]
         self._preds: dict[int, list] = {}
         self._finished = False
+        # host seconds by bootstrap phase: place and chunk_stats summed over
+        # the chunks, then finish's sort, copy and stats
+        self.phases_s = {"place": 0.0, "chunk_stats": 0.0}
 
     # ------------------------------------------------------------------ add
     def add_chunk(self, chunk: np.ndarray) -> None:
@@ -89,6 +94,7 @@ class StreamIngestor:
             raise ValueError(f"chunk must be (n, 3), got {chunk.shape}")
         if not len(chunk):
             return
+        t0 = time.perf_counter()
         assign = self.placement.place_triples_np(chunk)
         self._counts += np.bincount(assign, minlength=self.w)
         # one stable sort groups the rows by worker in stream order
@@ -97,6 +103,8 @@ class StreamIngestor:
         for i, w in enumerate(range(self.local.start, self.local.stop)):
             if bounds[w + 1] > bounds[w]:
                 self._buffers[i].append(chunk[order[bounds[w]:bounds[w + 1]]])
+        t1 = time.perf_counter()
+        self.phases_s["place"] += t1 - t0
 
         # ---- global accumulators
         self.n_triples += len(chunk)
@@ -120,6 +128,7 @@ class StreamIngestor:
                 ent[0] += len(rows)
                 ent[1] = np.union1d(ent[1], subs)
                 ent[2] = np.union1d(ent[2], objs)
+        self.phases_s["chunk_stats"] += time.perf_counter() - t1
 
     # ------------------------------------------------------------- assemble
     @property
@@ -132,6 +141,7 @@ class StreamIngestor:
         if self._finished:
             raise RuntimeError("StreamIngestor already finished")
         self._finished = True
+        t0 = time.perf_counter()
         n_ids = self.n_ids
         # the capacity comes from every worker's count: equal on all ranks
         cap = max(int(self._counts.max()), 1)
@@ -155,6 +165,7 @@ class StreamIngestor:
             o2 = np.lexsort((rows[:, 0], kpo))
             spo_po[i, :n] = rows[o2]
             keys_po[i, :n] = kpo[o2]
+        t1 = time.perf_counter()
         sub = self.substrate
         dev = resolve_device(device)
         place = lambda a: sub.globalize_worker_array(a, self.w, dev)
@@ -165,7 +176,11 @@ class StreamIngestor:
             n_ids=int(n_ids), mesh=sub.mesh,
         )
         sub.barrier("ingest:store")
-        return IngestResult(store, self._build_stats(n_ids), n_ids)
+        t2 = time.perf_counter()
+        stats = self._build_stats(n_ids)
+        self.phases_s.update(sort=t1 - t0, copy=t2 - t1,
+                             stats=time.perf_counter() - t2)
+        return IngestResult(store, stats, n_ids)
 
     def _build_stats(self, n_ids: int) -> GlobalStats:
         if self.n_triples == 0:

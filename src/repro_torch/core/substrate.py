@@ -49,7 +49,8 @@ timeout turns a rank that leaves lockstep into a failure instead of a hang.
 The second half is the host-sync chokepoints: every device->host transfer
 the executor performs funnels through a substrate's ``host_total`` /
 ``host_chain_totals`` / ``fetch_global`` or through ``host_fetch``, so
-``trace_host_syncs`` counts them.  ``trace_collectives`` counts a mesh's
+``trace_host_syncs`` (``tracing.py``) counts them, and a ranged trace
+times each in an ``adhash.sync`` span.  ``trace_collectives`` counts a mesh's
 collectives by kind and by where they run (a stage body or a host sync) --
 the port's counterpart of the reference's compiled-HLO assertions.
 """
@@ -62,6 +63,9 @@ import numpy as np
 import torch
 
 from . import dsj
+# the host-sync tracer lives in tracing.py; its names stay importable here
+from .tracing import (HostSyncTrace, _note_host_transfer, span,  # noqa: F401
+                      trace_host_syncs)
 from .triples import match_ranges
 
 __all__ = ["Substrate", "SingleDeviceSubstrate", "MeshSubstrate",
@@ -180,45 +184,12 @@ class SingleDeviceSubstrate(Substrate):
 # ---------------------------------------------------------------------------
 # Host sync chokepoints.
 # ---------------------------------------------------------------------------
-class HostSyncTrace:
-    """Counter of device->host transfers, installed by ``trace_host_syncs``."""
-
-    def __init__(self) -> None:
-        self.host_transfers = 0
-
-
-_ACTIVE_TRACE: HostSyncTrace | None = None
-
-
-@contextmanager
-def trace_host_syncs():
-    """Count every host transfer issued inside the block.
-
-    Usage::
-
-        with trace_host_syncs() as t:
-            engine.query(q)
-        assert t.host_transfers == 1   # warm fast-path query
-    """
-    global _ACTIVE_TRACE
-    trace = HostSyncTrace()
-    prev = _ACTIVE_TRACE
-    _ACTIVE_TRACE = trace
-    try:
-        yield trace
-    finally:
-        _ACTIVE_TRACE = prev
-
-
-def _note_host_transfer() -> None:
-    if _ACTIVE_TRACE is not None:
-        _ACTIVE_TRACE.host_transfers += 1
-
-
 def host_total(total: torch.Tensor) -> int:
     """Host-side max of a stage overflow total (one transfer)."""
     _note_host_transfer()
-    return int(total.max().item())
+    m = total.max()
+    with span("sync"):
+        return int(m.item())
 
 
 def host_chain_totals(totals: torch.Tensor) -> np.ndarray:
@@ -226,14 +197,16 @@ def host_chain_totals(totals: torch.Tensor) -> np.ndarray:
     maxima.  This is THE one device->host transfer of a warm fast-path
     query."""
     _note_host_transfer()
-    arr = totals.cpu().numpy()
+    with span("sync"):
+        arr = totals.cpu().numpy()
     return arr.reshape(arr.shape[0], -1).max(axis=1)
 
 
 def host_fetch(x: torch.Tensor) -> np.ndarray:
     """Materialize a device tensor on the host (result/accounting fetch)."""
     _note_host_transfer()
-    return x.cpu().numpy()
+    with span("sync"):
+        return x.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -489,20 +462,25 @@ class MeshSubstrate(Substrate):
         at the host sync, so every rank takes the same retry decision."""
         _note_host_transfer()
         t = self._all_reduce(total.max().reshape(1), "max")
-        return int(t.item())
+        with span("sync"):
+            return int(t.item())
 
     def host_chain_totals(self, totals: torch.Tensor) -> np.ndarray:
         """(S, ...) stage-major totals -> (S,) global maxima: one
         all_reduce of S values, one transfer."""
         _note_host_transfer()
         local = totals.reshape(totals.shape[0], -1).amax(dim=1)
-        return self._all_reduce(local, "max").cpu().numpy()
+        t = self._all_reduce(local, "max")
+        with span("sync"):
+            return t.cpu().numpy()
 
     def fetch_global(self, x: torch.Tensor) -> np.ndarray:
         """A worker-sharded tensor whole on every rank's host (one
         all_gather along W, one transfer)."""
         _note_host_transfer()
-        return self._all_gather(x, "host").cpu().numpy()
+        t = self._all_gather(x, "host")
+        with span("sync"):
+            return t.cpu().numpy()
 
     def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         return self._all_reduce(x, "sum")

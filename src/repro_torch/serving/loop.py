@@ -68,6 +68,7 @@ import torch
 from repro_torch.core.batcher import Bucket, WorkloadBatcher
 from repro_torch.core.engine import AdHashEngine
 from repro_torch.core.executor import ExecutorError
+from repro_torch.core.tracing import span
 from repro_torch.runtime.fault_injection import CheckpointCrash, WallClock
 from .admission import AdmissionController, BrownoutController
 from .request import (Request, RetryAfter, ServedResult, ServeReport,
@@ -150,7 +151,6 @@ class ServeLoop:
         self.query_log: list = []   # admitted control order == replay order
         self.queue: deque[Request] = deque()
         self._waiting: dict = {}      # rid -> Request (bucketed, unexecuted)
-        self._bucketed_at: dict = {}  # rid -> time it entered its bucket
         self._demoted: set = set()    # rids of degraded-demoted PI hits
         self._results: dict = {}      # execute_bucket target: rid -> triple
         self._completions: list = []
@@ -315,7 +315,7 @@ class ServeLoop:
         """(oldest deadline, oldest entry time, bucket), deadline-sorted."""
         info = [
             (min(self._waiting[t].deadline_s for t in b.tags),
-             min(self._bucketed_at[t] for t in b.tags), b)
+             min(self._waiting[t].bucketed_s for t in b.tags), b)
             for b in self.batcher.buckets()
         ]
         info.sort(key=lambda x: x[0])
@@ -368,18 +368,19 @@ class ServeLoop:
         # registered *before* the control step: the overlapped-IRD callback
         # may pop and execute the very bucket this request joins
         self._waiting[req.rid] = req
-        self._bucketed_at[req.rid] = now
+        req.bucketed_s = now
         self.query_log.append(req.query)
         spent0 = self._overlap_spent
         t0 = time.perf_counter()
-        executed, demoted = self.engine.stream_control_step(
-            req.query, self.batcher, req.rid, overlap=self._overlap)
-        self._sync_measured()
+        with span("serve.control"):
+            executed, demoted = self.engine.stream_control_step(
+                req.query, self.batcher, req.rid, overlap=self._overlap)
+            self._sync_measured()
         ctrl_s = time.perf_counter() - t0
         if executed is not None:
             # PI hit, executed inline over the replica index
             del self._waiting[req.rid]
-            del self._bucketed_at[req.rid]
+            req.dispatched_s = now
             rel, qstats, dt = executed
             if self.service_model is not None:
                 self.clock.advance(self.service_model(1))
@@ -406,22 +407,23 @@ class ServeLoop:
     def _run_bucket(self, bucket: Bucket, reason: str) -> None:
         """Dispatch one bucket, charge its service time, resolve members."""
         t0 = time.perf_counter()
+        dispatched = self.clock.now()
         try:
-            self.engine.execute_bucket(bucket, self._results)
+            with span("serve.dispatch"):
+                self.engine.execute_bucket(bucket, self._results)
+                self._sync_measured()
         except ExecutorError:
             # even the per-member sequential fallback failed: report the
             # casualties and keep the stream alive
             now = self.clock.now()
             for rid in bucket.tags:
                 req = self._waiting.pop(rid)
-                self._bucketed_at.pop(rid, None)
                 self._demoted.discard(rid)
                 self._results.pop(rid, None)
                 self.report.unexecutable += 1
                 self._completions.append(
                     SheddedResult(rid, now, req.deadline_s, "unexecutable"))
             return
-        self._sync_measured()
         wall = time.perf_counter() - t0
         charge = (self.service_model(len(bucket))
                   if self.service_model is not None else wall)
@@ -432,7 +434,7 @@ class ServeLoop:
                 getattr(self.report, f"flush_{reason}") + 1)
         for rid in bucket.tags:
             req = self._waiting.pop(rid)
-            self._bucketed_at.pop(rid, None)
+            req.dispatched_s = dispatched
             rel, qstats, dt = self._results.pop(rid)
             demoted = rid in self._demoted
             self._demoted.discard(rid)
@@ -452,7 +454,8 @@ class ServeLoop:
             self.report.late += 1
         self.report.latencies_s.append(latency)
         self._completions.append(
-            ServedResult(req.rid, rel, qstats, now, latency, late))
+            ServedResult(req.rid, rel, qstats, now, latency, late,
+                         req.bucketed_s, req.dispatched_s))
 
     def _sync_measured(self) -> None:
         """Measured mode: wait for the engine's device before a stop time

@@ -50,13 +50,17 @@ class Request:
     time.  ``arrival_s`` of None means "arriving now" (stamped from the
     loop clock) — open-loop replays pre-stamp true arrival times so queueing
     delay counts against the SLO even when the loop notices the request
-    late."""
+    late.  The loop stamps ``bucketed_s`` when the request leaves ingress
+    for the control pass and ``dispatched_s`` when its bucket starts
+    executing (an inline pattern-index hit: both at its control step)."""
 
     rid: int
     query: Query
     client: str = "default"
     arrival_s: float | None = None
     deadline_s: float | None = None
+    bucketed_s: float | None = None
+    dispatched_s: float | None = None
 
 
 @dataclass(frozen=True)
@@ -91,7 +95,12 @@ class SheddedResult:
 
 @dataclass(frozen=True)
 class ServedResult:
-    """An answered request: the relation, its stats, and SLO accounting."""
+    """An answered request: the relation, its stats, and SLO accounting.
+
+    On the loop's clock: ``bucketed_s`` minus the arrival is the ingress
+    wait, ``dispatched_s - bucketed_s`` the wait in the bucket,
+    ``finished_s - dispatched_s`` the service; the three add up to
+    ``latency_s``."""
 
     rid: int
     relation: Relation
@@ -99,6 +108,8 @@ class ServedResult:
     finished_s: float
     latency_s: float
     late: bool = False
+    bucketed_s: float | None = None
+    dispatched_s: float | None = None
 
 
 @dataclass

@@ -413,10 +413,19 @@ def _norm(answers) -> list:
     return [(rows, (c, m, _suffix(r), n)) for rows, (c, m, r, n) in answers]
 
 
+#: counters of the port's EngineReport that the reference's has not (held
+#: to what they count in test_torch_tracing.py)
+PORT_ONLY = {"batch_lanes", "batch_pad_lanes", "n_retries"}
+
+
 def _assert_state(got: dict, j_eng) -> None:
     rep, hist = got["report"]
+    assert {f for f in rep if not hasattr(j_eng.report, f)} == PORT_ONLY
     for f, v in rep.items():
-        assert v == getattr(j_eng.report, f), f
+        if f not in PORT_ONLY:
+            assert v == getattr(j_eng.report, f), f
+    assert 0 <= rep["batch_pad_lanes"] <= rep["batch_lanes"]
+    assert rep["n_retries"] >= 0
     assert hist == [h[:2] for h in j_eng.report.history]
     assert got["fingerprint"] == j_eng.pattern_index.fingerprint()
     assert got["per_worker"] == j_eng.replicas.per_worker_triples().tolist()
