@@ -345,22 +345,38 @@ def finalize_join(
     shared_checks: tuple[tuple[int, int], ...],
     append_cols: tuple[int, ...],  # triple columns to append (new variables)
     cap_out: int,
+    cap_live: int | None = None,  # slots of each bucket that can be live
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RS1 |><| candidates on RS1.c1 = cand.c2 (local hash join, line 27).
 
     New columns are appended for the pattern's variables not yet bound.
+    ``cap_live`` (see ``_finalize_rows``) narrows the candidates sorted to
+    the filled prefix of each bucket; None sorts all ``cap_cand`` slots.
     Returns (out_cols (W, cap_out, k + new), out_valid, max_total)."""
     out, valid, total = _finalize_rows(rel_cols, rel_valid, cand, cand_valid,
                                        join_col_rel, probe_col, shared_checks,
-                                       append_cols, cap_out)
+                                       append_cols, cap_out, cap_live)
     return out, valid, total.max()
 
 
 def _finalize_rows(rel_cols, rel_valid, cand, cand_valid, join_col_rel,
-                   probe_col, shared_checks, append_cols, cap_out):
+                   probe_col, shared_checks, append_cols, cap_out,
+                   cap_live=None):
     """``finalize_join`` row by row: every op works within one worker row,
-    so a batch runs it on its B*W rows.  Returns the per-row totals."""
+    so a batch runs it on its B*W rows.  Returns the per-row totals.
+
+    Only the first ``cap_live`` slots of each (replier, cap_cand) bucket are
+    keyed and sorted.  ``bucket_by_dest`` fills a destination from slot 0 in
+    input order and pads the rest, so a bucket's live candidates are its
+    first ``count`` slots; the executor passes ``quantize_capacity(mc)``,
+    where ``mc`` is the largest ``count`` that ``probe_and_reply``'s
+    overflow check has already read.  The slice keeps every live slot in
+    its (replier, slot) order, so the stable sort, the ranges and the
+    output are those of the whole row."""
     w, r, cc, _ = cand.shape
+    if cap_live is not None and cap_live < cc:
+        cand, cand_valid = cand[:, :, :cap_live], cand_valid[:, :, :cap_live]
+        cc = cap_live
     flat_cand = cand.reshape(w, r * cc, 3)
     flat_cvalid = cand_valid.reshape(w, r * cc)
     big = torch.full_like(flat_cand[..., 0], I32MAX)
@@ -648,14 +664,17 @@ def finalize_join_batch(
     shared_checks: tuple[tuple[int, int], ...],
     append_cols: tuple[int, ...],
     cap_out: int,
+    cap_live: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched ``finalize_join``: (out (B, W, cap_out, k+new), valid,
-    max_total (B,)); each kernel launches once over the B*W rows."""
+    max_total (B,)); each kernel launches once over the B*W rows.
+    ``cap_live`` as in ``finalize_join``."""
     b, w = rel_valid.shape[:2]
     rows = lambda x: x.reshape((b * w,) + x.shape[2:])
     out, valid, total = _finalize_rows(
         rows(rel_cols), rows(rel_valid), rows(cand), rows(cand_valid),
-        join_col_rel, probe_col, shared_checks, append_cols, cap_out)
+        join_col_rel, probe_col, shared_checks, append_cols, cap_out,
+        cap_live)
     return (out.view((b, w) + out.shape[1:]), valid.view(b, w, cap_out),
             total.view(b, w).amax(dim=1))
 

@@ -74,6 +74,10 @@ class EngineReport:
     # batched pipeline, 1 of each singleton; and B_pad - B of them
     batch_lanes: int = 0
     batch_pad_lanes: int = 0
+    # candidate slots of the finalize launches: those sorted (the filled
+    # prefix of each reply bucket) and those the buckets hold (cap_cand each)
+    finalize_sorted_slots: int = 0
+    finalize_cand_slots: int = 0
     n_retries: int = 0  # answered queries' QueryStats.n_retries, summed
     wall_time_s: float = 0.0
     history: list[tuple[str, int, float]] = field(default_factory=list)
@@ -255,6 +259,7 @@ class AdHashEngine:
             rel, qstats = self.executor.execute(
                 q, plan.ordering, plan.join_vars,
                 capacity=max(self.capacity, plan.capacity_hint()),
+                report=self.report,
             )
             if degraded:
                 qstats.route = f"{self.substrate.name}-degraded"
@@ -511,6 +516,7 @@ class AdHashEngine:
         rel, qstats = self.executor.execute(
             bucket.queries[j], bucket.orderings[j], bucket.join_vars[j],
             capacity=max(self.capacity, bucket.capacities[j]),
+            report=self.report,
         )
         return rel, qstats
 

@@ -61,6 +61,19 @@ class QueryStats:
         return self.comm_cells * 4
 
 
+def _note_finalize(report, cand_valid: torch.Tensor, cap_live: int
+                   ) -> None:
+    """Count one finalize launch's candidate slots on ``report`` (an
+    ``EngineReport``, or None): those it sorts, ``cap_live`` a bucket, and
+    those its buckets hold, ``cap_cand`` each (this rank's rows on a
+    mesh)."""
+    if report is not None:
+        cap_cand = cand_valid.shape[-1]
+        buckets = cand_valid.numel() // cap_cand
+        report.finalize_sorted_slots += buckets * cap_live
+        report.finalize_cand_slots += buckets * cap_cand
+
+
 def _shared_checks(
     rel_vars: tuple[Var, ...], q: TriplePattern, join_var: Var
 ) -> tuple[tuple[int, int], ...]:
@@ -218,6 +231,7 @@ class Executor:
         cap: int,
         stats: QueryStats,
         comm: list,
+        report=None,
     ) -> Relation:
         spec = dsj.PatternSpec.of(q)
         with span("stage.consts"):
@@ -309,12 +323,14 @@ class Executor:
             raise ExecutorError("probe/reply exceeded retry budget")
         comm.append(cells)
 
+        cap_live = quantize_capacity(mc)  # the buckets' filled prefix
         for _ in range(_MAX_RETRIES):
             with span("stage.finalize"):
                 cols, valid, total = self.sub.finalize_join(
                     rel.cols, rel.valid, cand, cvalid, c1, c2, checks,
-                    append_cols, cap,
+                    append_cols, cap, cap_live,
                 )
+                _note_finalize(report, cvalid, cap_live)
                 t = self.sub.host_total(total)
             if t <= cap:
                 return Relation(cols, valid, out_vars, mesh=self.sub.mesh)
@@ -447,13 +463,15 @@ class Executor:
         ordering: list[int],
         join_vars: list[Var],
         capacity: int | None = None,
+        report=None,
     ) -> tuple[Relation, QueryStats]:
         """Algorithm 1: evaluate ``query`` under a planner-chosen ordering.
 
         ``join_vars[i]`` is the join variable for step i (joining pattern
         ordering[i+1] into the running intermediate result).  All-local
         (case-(i)) chains take the fused route over the main index unless
-        a shard is dark."""
+        a shard is dark.  ``report`` (an ``EngineReport``), when given,
+        counts the finalize stages' candidate slots."""
         stats = QueryStats()
         cap = quantize_capacity(capacity or query.capacity)
         q1 = query.patterns[ordering[0]]
@@ -466,11 +484,11 @@ class Executor:
                     cap, stats)
             stats.route = f"{self.sub.name}-degraded"
         return self._execute_staged(query, ordering, join_vars, pinned,
-                                    cap, stats)
+                                    cap, stats, report)
 
     def _execute_staged(
         self, query: Query, ordering: list[int], join_vars: list[Var],
-        pinned: Var | None, cap: int, stats: QueryStats,
+        pinned: Var | None, cap: int, stats: QueryStats, report=None,
     ) -> tuple[Relation, QueryStats]:
         """The per-stage path: match-first, then one (possibly distributed)
         join step per pattern, with the capacity ladder per stage."""
@@ -482,7 +500,7 @@ class Executor:
         for step, idx in enumerate(ordering[1:]):
             qj = query.patterns[idx]
             rel = self._join_step(rel, qj, join_vars[step], pinned, cap,
-                                  stats, comm)
+                                  stats, comm, report)
         if comm:
             # a mesh rank's cells are its senders': summed over the ranks
             stats.comm_cells += int(host_fetch(
@@ -506,7 +524,8 @@ class Executor:
         Communication is accounted per query from the stages' (B,) cell
         counts.  Each returned Relation is a view of lane i of the bucket's
         output, on the device.  ``report`` (an ``EngineReport``), when
-        given, counts the bucket's padded lanes and its padding."""
+        given, counts the bucket's padded lanes and its padding, and the
+        finalize stages' candidate slots."""
         from .batcher import quantize_batch
 
         b = consts.shape[0]
@@ -536,9 +555,9 @@ class Executor:
                                                        stats)
             for st in stats:
                 st.route = f"{self.sub.name}-degraded"
-        return self._execute_batch_staged(bplan, consts_t, b, stats)
+        return self._execute_batch_staged(bplan, consts_t, b, stats, report)
 
-    def _execute_batch_staged(self, bplan, consts_t, b, stats):
+    def _execute_batch_staged(self, bplan, consts_t, b, stats, report=None):
         """The per-stage batched path (see ``execute_batch``)."""
         cap = bplan.capacity
         for _ in range(_MAX_RETRIES):
@@ -570,7 +589,8 @@ class Executor:
             else:
                 n_dsj += 1
                 rel_cols, rel_valid = self._batch_dsj_step(
-                    sp, rel_cols, rel_valid, qc, bplan.capacity, stats, comm)
+                    sp, rel_cols, rel_valid, qc, bplan.capacity, stats, comm,
+                    report)
         if comm:
             cells = host_fetch(self.sub.reduce_sum(torch.stack(comm).sum(
                 dim=0)))
@@ -668,7 +688,8 @@ class Executor:
                 st.n_retries += 1
         raise ExecutorError("batched local join exceeded retry budget")
 
-    def _batch_dsj_step(self, sp, rel_cols, rel_valid, qc, cap, stats, comm):
+    def _batch_dsj_step(self, sp, rel_cols, rel_valid, qc, cap, stats, comm,
+                        report=None):
         hash_mode = sp.kind == "hash"
         for st in stats:
             st.n_dsj += 1
@@ -736,11 +757,13 @@ class Executor:
         comm.append(cells)
         del recv, rvalid
 
+        cap_live = quantize_capacity(mc)  # the buckets' filled prefix
         for _ in range(_MAX_RETRIES):
             with span("stage.finalize"):
                 cols, valid, totals = self.sub.finalize_join_batch(
                     rel_cols, rel_valid, cand, cvalid, sp.c1, sp.c2,
-                    sp.checks, sp.append_cols, cap)
+                    sp.checks, sp.append_cols, cap, cap_live)
+                _note_finalize(report, cvalid, cap_live)
                 t = self.sub.host_total(totals)
             if t <= cap:
                 note_rows("finalize", valid)

@@ -5,10 +5,11 @@ Same triples, same queries, ``adaptive=False`` on both sides, the port on
 route and ``n_retries`` must be equal query by query — on the paper's
 running example and on a ``lubm_like(2, 2, 2, 2)`` workload over all six
 templates, under the default settings and the paper's ablations, and
-along the overflow-retry ladder.  Also: the port imports neither jax nor
-``repro``, it raises on what it has not ported yet (the mesh substrates)
-and builds a directory-placement engine, and ``device="cuda"`` without a
-card raises.
+along the overflow-retry ladder.  The finalize stages sort fewer
+candidate slots than the reply buckets hold, on both routes.  Also: the
+port imports neither jax nor ``repro``, it raises on what it has not
+ported yet (the mesh substrates) and builds a directory-placement engine,
+and ``device="cuda"`` without a card raises.
 """
 from __future__ import annotations
 
@@ -95,6 +96,31 @@ def test_lubm_workload_matches_reference(config):
     stats = _assert_engines_agree(j_eng, t_eng, queries)
     if config == "default":
         assert {s.route for s in stats} == {"", "single-local-main"}
+
+
+@pytest.mark.parametrize("route", ["sequential", "batched"])
+def test_finalize_sorts_only_the_filled_prefix(route):
+    """On the LUBM mix the finalize stages sort fewer candidate slots than
+    their reply buckets hold, on ``engine.query`` and on ``query_batch``,
+    while answers, ``comm_cells``, mode, route and ``n_retries`` stay the
+    reference's."""
+    d, triples = lubm_like(2, 2, 2, 2)
+    queries = [t.make(c) for t in lubm_queries(d).values()
+               for c in t.constants[:3]]
+    j_eng = JEngine(triples, 4, adaptive=False, probe_backend="searchsorted")
+    t_eng = AdHashEngine(triples, 4, adaptive=False, device="cpu")
+    if route == "sequential":
+        _assert_engines_agree(j_eng, t_eng, queries)
+    else:
+        got = t_eng.query_batch([_port(q) for q in queries])
+        for q, (jrel, jst), (trel, tst) in zip(
+                queries, j_eng.query_batch(queries), got):
+            assert trel.to_set() == jrel.to_set(), q.name
+            assert (tst.comm_cells, tst.mode, tst.route, tst.n_retries) == \
+                (jst.comm_cells, jst.mode, jst.route, jst.n_retries), q.name
+        assert t_eng.report.n_batch_dispatches > 0
+    r = t_eng.report
+    assert 0 < r.finalize_sorted_slots < r.finalize_cand_slots
 
 
 def test_retry_ladder_matches_reference():

@@ -415,7 +415,8 @@ def _norm(answers) -> list:
 
 #: counters of the port's EngineReport that the reference's has not (held
 #: to what they count in test_torch_tracing.py)
-PORT_ONLY = {"batch_lanes", "batch_pad_lanes", "n_retries"}
+PORT_ONLY = {"batch_lanes", "batch_pad_lanes", "n_retries",
+             "finalize_sorted_slots", "finalize_cand_slots"}
 
 
 def _assert_state(got: dict, j_eng) -> None:
@@ -426,6 +427,7 @@ def _assert_state(got: dict, j_eng) -> None:
             assert v == getattr(j_eng.report, f), f
     assert 0 <= rep["batch_pad_lanes"] <= rep["batch_lanes"]
     assert rep["n_retries"] >= 0
+    assert 0 <= rep["finalize_sorted_slots"] <= rep["finalize_cand_slots"]
     assert hist == [h[:2] for h in j_eng.report.history]
     assert got["fingerprint"] == j_eng.pattern_index.fingerprint()
     assert got["per_worker"] == j_eng.replicas.per_worker_triples().tolist()

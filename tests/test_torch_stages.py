@@ -9,6 +9,8 @@ The same numpy inputs (from a seed) go through ``repro`` and through
   * every DSJ stage runs on one identical index — the JAX store's leaves
     carried over with ``ShardedTripleStore.from_numpy`` — and its outputs
     equal the JAX stage's outputs (all integers, bit-exact);
+  * finalize over the filled prefix of each reply bucket equals finalize
+    over whole buckets;
   * a warm fused chain query makes exactly one host sync.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro.core.substrate import SingleDeviceSubstrate as JSub
 from repro.data.synthetic_rdf import generate, lubm_like
 from repro_torch.core import dsj as TD
 from repro_torch.core import triples as TT
+from repro_torch.core.backend import quantize_capacity
 from repro_torch.core.engine import AdHashEngine
 from repro_torch.core.ingest import StreamIngestor
 from repro_torch.core.placement import HashPlacement, splitmix64, \
@@ -241,6 +244,73 @@ def test_dsj_pipeline(index, case, cap):
                          cap),
         JD.finalize_join(jcols, jvalid, jr[0], jr[1], c1, c2, (), append,
                          cap))
+
+
+#: (first pattern, join pattern, c2, append) of each case of the prefix test;
+#: the join runs broadcast on ?y, so a value's candidates come from every
+#: replier holding it
+PREFIX_CASES = {
+    # many students a course, over every worker: keys tie across repliers
+    "ties": (("?x", "ub:takesCourse", "?y"), ("?z", "ub:takesCourse", "?y"),
+             2, (0,)),
+    # one professor's courses sit on one worker: the other rows get nothing
+    "empty_row": (("Prof0.0.0", "ub:teacherOf", "?y"),
+                  ("?z", "ub:takesCourse", "?y"), 2, (0,)),
+    # no course has an advisor: mc = 0
+    "mc0": (("?x", "ub:takesCourse", "?y"), ("?y", "ub:advisor", "?z"), 0,
+            (2,)),
+    # the reply buckets sized to their fullest: mc = cap_cand
+    "mc_full": (("?x", "ub:takesCourse", "?y"),
+                ("?z", "ub:takesCourse", "?y"), 2, (0,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_finalize_prefix_equals_full_row(index, case):
+    """``finalize_join`` and ``finalize_join_batch`` with ``cap_live =
+    quantize_capacity(mc)`` equal the same calls over whole buckets, on
+    ``probe_and_reply`` outputs: the filled prefix holds every live
+    candidate, in the order the stable sort keeps."""
+    d, js, ts = index
+    first, nxt, c2, append = PREFIX_CASES[case]
+    _, (cols, valid) = _first(d, js, ts, first, 1024)
+    proj, pvalid, _ = TD.project_unique(cols, valid, cols.shape[-1] - 1, 1024)
+    recv, rvalid, _ = TD.exchange_broadcast(proj, pvalid)
+    _, tq = _pat(d, *nxt)
+    spec, consts = TD.PatternSpec.of(tq), TD.pattern_consts(tq, "cpu")
+    cap_cand = 1024
+    cand, cvalid, _, mf, mc = TD.probe_and_reply(ts, recv, rvalid, consts,
+                                                 spec, c2, 4096, cap_cand)
+    if case == "mc_full":
+        cap_cand = int(mc)
+        cand, cvalid, _, mf, mc = TD.probe_and_reply(
+            ts, recv, rvalid, consts, spec, c2, 4096, cap_cand)
+    mc = int(mc)
+    assert int(mf) <= 4096 and mc <= cap_cand
+    cap_live = quantize_capacity(mc)
+    if case == "ties":  # one sender's key from two repliers
+        keys = [[set(cand[s, r, :, c2][cvalid[s, r]].tolist())
+                 for r in range(W)] for s in range(W)]
+        assert any(k[r] & k[r2] for k in keys for r in range(W)
+                   for r2 in range(r))
+    if case == "empty_row":
+        live = cvalid.sum(dim=(1, 2))
+        assert int(live.min()) == 0 < int(live.max())
+    assert mc == 0 if case == "mc0" else mc > 0
+    assert (cap_live >= cap_cand) if case == "mc_full" else \
+        (cap_live < cap_cand)
+    args = (c2, (), append, 2048)
+    whole = TD.finalize_join(cols, valid, cand, cvalid, cols.shape[-1] - 1,
+                             *args)
+    _assert_same(TD.finalize_join(cols, valid, cand, cvalid,
+                                  cols.shape[-1] - 1, *args, cap_live), whole)
+    if case != "mc0":
+        assert int(whole[1].sum()) > 0
+    two = lambda x: torch.stack([x, x])
+    batch = (two(cols), two(valid), two(cand), two(cvalid),
+             cols.shape[-1] - 1) + args
+    _assert_same(TD.finalize_join_batch(*batch, cap_live),
+                 TD.finalize_join_batch(*batch))
 
 
 @pytest.mark.parametrize("cap", [16, 1024])
